@@ -1,0 +1,131 @@
+"""Typed directed edge graph with one CSR layout per aggregation direction.
+
+Counterpart of ``relationprediction_tpu/graph.py``. The reference's
+``forward_incidence_matrix('global') @ messages`` is a sparse softmax of ones
+per receiver row (== 1/in-degree) followed by SpMM; here, as there, the
+1/degree weights are computed once on the host (``_host_norm``).
+
+Where the JAX package lays the edges out in TPU slots (row blocks of 256,
+chunks of 512, phantom rows and a finishing segment-sum), the port keeps one
+CSR per direction, by target: ``row_ptr [V+1]`` then ``src``, ``rel`` and
+``w`` per edge, sorted by (target, relation) within each row. One CUDA
+block owns one target row, so the sum needs no atomics and no second pass
+(ops/staircase2.py).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class CsrLayout:
+    """One direction's edges grouped by target row.
+
+    row_ptr: int32 [n_rows + 1]; row v's edges are [row_ptr[v], row_ptr[v+1]).
+    src:     int32 [E] vertex whose features feed each edge.
+    rel:     int32 [E] relation id; ascending within each row.
+    w:       float32 [E] aggregation weight.
+    """
+
+    row_ptr: torch.Tensor
+    src: torch.Tensor
+    rel: torch.Tensor
+    w: torch.Tensor
+
+    @property
+    def n_rows(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+    @property
+    def n_edges(self) -> int:
+        return self.src.shape[0]
+
+    def to(self, device) -> "CsrLayout":
+        return CsrLayout(**{f.name: getattr(self, f.name).to(device)
+                            for f in fields(self)})
+
+
+def build_csr(sources: np.ndarray, relations: np.ndarray,
+              targets: np.ndarray, weights: np.ndarray,
+              n_vertices: int) -> CsrLayout:
+    """CSR by target of the real edges (weight != 0 and target < V).
+
+    Edges with weight 0 or a target at or beyond ``n_vertices`` are padding
+    and dropped, as the TPU slot layout drops them
+    (``staircase2.build_staircase2_layout``).
+    """
+    sources = np.asarray(sources, dtype=np.int64)
+    relations = np.asarray(relations, dtype=np.int64)
+    targets = np.asarray(targets, dtype=np.int64)
+    weights = np.asarray(weights, dtype=np.float32)
+    real = np.nonzero((targets < n_vertices) & (weights != 0.0))[0]
+    if real.size and (sources[real].min() < 0 or targets[real].min() < 0
+                      or sources[real].max() >= n_vertices
+                      or relations[real].min() < 0):
+        raise ValueError("build_csr: a real edge has a vertex outside "
+                         f"[0, {n_vertices}) or a negative relation")
+    order = real[np.lexsort((relations[real], targets[real]))]
+    counts = np.bincount(targets[order], minlength=n_vertices)
+    row_ptr = np.zeros(n_vertices + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    if row_ptr[-1] >= 2 ** 31:
+        raise ValueError("edge count overflows the int32 CSR")
+    return CsrLayout(
+        row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
+        src=torch.from_numpy(sources[order].astype(np.int32)),
+        rel=torch.from_numpy(relations[order].astype(np.int32)),
+        w=torch.from_numpy(weights[order]))
+
+
+@dataclass(frozen=True)
+class GraphBatch:
+    """The two CSR layouts of one message graph.
+
+    fwd: CSR by receiver, fed by senders, weighted 1/in-degree of the
+      receiver (the JAX package's ``fwd_norm``).
+    bwd: CSR by sender, fed by receivers, weighted 1/out-degree of the
+      sender (``bwd_norm``).
+    """
+
+    fwd: CsrLayout
+    bwd: CsrLayout
+    n_vertices: int
+    n_relations: int
+
+    def to(self, device) -> "GraphBatch":
+        return GraphBatch(self.fwd.to(device), self.bwd.to(device),
+                          self.n_vertices, self.n_relations)
+
+
+def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
+                      normalization: str = "global") -> GraphBatch:
+    """Host-side construction of a GraphBatch (on the CPU) from an [N, 3]
+    (s, r, o) array; ``GraphBatch.to`` moves it to the card.
+
+    Only 'global' normalization is ported; 'local' and 'none' raise.
+    """
+    if normalization != "global":
+        raise NotImplementedError(
+            f"normalization={normalization!r} is not ported yet "
+            f"(ROADMAP.md Queue 1 item 6)")
+    triples = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
+    senders, relations, receivers = triples.T
+    if len(triples) and relations.max() >= n_relations:
+        raise ValueError(f"relation id >= n_relations={n_relations}")
+    return GraphBatch(
+        fwd=build_csr(senders, relations, receivers,
+                      _host_norm(receivers, n_vertices), n_vertices),
+        bwd=build_csr(receivers, relations, senders,
+                      _host_norm(senders, n_vertices), n_vertices),
+        n_vertices=int(n_vertices),
+        n_relations=int(n_relations))
+
+
+def _host_norm(targets: np.ndarray, n_vertices: int) -> np.ndarray:
+    """'global' per-edge weights: 1 / degree of the edge's target
+    (``relationprediction_tpu/graph.py:_host_norm``)."""
+    deg = np.bincount(targets, minlength=n_vertices)
+    return (1.0 / np.maximum(deg[targets], 1.0)).astype(np.float32)

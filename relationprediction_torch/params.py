@@ -1,0 +1,35 @@
+"""Parameters between the JAX package's tree (as numpy) and the port.
+
+The tree is ``{"input_transform": {W, b}, "gcn_layers": [{W_forward,
+W_backward, W_self, b}, ...], "relation_embedding": {W_relation},
+"decoder": {}}``, with block stacks in the JAX layout [R, B, dr, dr]. The
+port keeps that structure as dictionaries and lists of tensors.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+def map_tree(fn: Callable[[Any], Any], tree):
+    """Apply ``fn`` to every leaf of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree, device) -> dict:
+    """The JAX package's params (numpy leaves) as float32 tensors on
+    ``device``."""
+    return map_tree(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+        .to(device), tree)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's params as numpy arrays, in the JAX package's tree."""
+    return map_tree(lambda t: t.detach().cpu().numpy(), params)
