@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path of ``settings/gcn_block.exp`` at full width
-on the seeded ``synth:FB15k-237`` graph (V=14,541, R=237, E=272,115,
-d=500, 100 blocks of 5x5) with random weights from a seed. Each phase prints
-one JSON line:
+Drives the port's serving and training paths of ``settings/gcn_block.exp``
+at full width on the seeded ``synth:FB15k-237`` graph (V=14,541, R=237,
+E=272,115, d=500, 100 blocks of 5x5) with random weights from a seed. Each
+phase prints JSON lines:
 
   device  the card, its count, and nvidia-smi's name and power limit;
-  build   the kernel built from relationprediction_torch/ops/csrc with nvcc
+  build   the kernels built from relationprediction_torch/ops/csrc with nvcc
           for sm_90a: build time, registers and spills;
   kernel  block_direction against block_direction_reference in both
           directions on random inputs, within rtol=1e-4, atol=1e-5; the
@@ -17,7 +17,20 @@ one JSON line:
   serve   init, graph, one encode and Scorer.compute_scores on the first
           2,000 test triples; the kernel's launch count over that run (must
           be 4: 2 layers x 2 directions), MRR and Hits@10, and the codes
-          held against the plain path on the CPU.
+          held against the plain path on the CPU;
+  grad    block_direction's output and gradient (kernel forward, twin
+          kernel, torch d blocks) against autograd through
+          block_direction_reference in float64 on the card, both
+          directions, on the full train graph and on the first training
+          batch's graph; d features and the twin pass within the rounding
+          an f32 sum of their terms may have, and the twin pass on the
+          wrong twin outside it; times of both kernels, the d blocks
+          contraction and the plain backward, and the bounds;
+  train   one train step on the card against the same step (params, batch,
+          draws, masks) on the CPU plain path, then 20 steps of
+          TrainLoop.fit: host batch and device step times, the loss at
+          steps 1, 10 and 20 (finite and falling), exactly 4 forward and 4
+          twin launches in every step, peak device memory.
 
 Then a line listing every ported kernel with its numbers, nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
@@ -26,11 +39,13 @@ without a CUDA card the script exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from relationprediction_torch import config
@@ -41,18 +56,23 @@ from relationprediction_torch.evaluation.scorer import Scorer
 from relationprediction_torch.graph import CsrLayout, build_graph_batch
 from relationprediction_torch.models import build
 from relationprediction_torch.ops import staircase2
-from relationprediction_torch.params import map_tree
+from relationprediction_torch.params import map_tree, tree_leaves
+from relationprediction_torch.training import engine
 
 ROOT = Path(__file__).resolve().parent
 SETTINGS = ROOT / "settings" / "gcn_block.exp"
 KERNEL_SOURCE = "relationprediction_torch/ops/csrc/block_direction.cu"
 REPLACES = "relationprediction_tpu/ops/staircase2.py:460"
+# The twin pass: the VJP's second launch of the same TPU kernel.
+REPLACES_TWIN = "relationprediction_tpu/ops/staircase2.py:721"
 SERVE_TRIPLES = 2000
+TRAIN_STEPS = 20
 HUB_ROW = 1024  # rows longer than this are timed apart
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the
 # tensor cores, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F32_UNIT_ROUNDOFF = 2.0 ** -24
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,10 +105,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def block_direction_bound(layout, n_vertices, n_rel, n_blocks, dr):
     """Least time of one launch: bytes moved (each input read once, the
     output written once) over the HBM rate, against the f32 operations
-    this data needs (z = sum w*x per edge, one block product per
-    (target, relation) run) over the f32 rate."""
+    this data needs (z = sum w*x per edge, one block product per (target,
+    relation) run) over the f32 rate. Inputs are counted as this layout
+    needs them: the feature rows its edges gather and the blocks of the
+    relations it holds."""
     e, d = layout.n_edges, n_blocks * dr
-    n_bytes = 4 * (2 * n_vertices * d + n_rel * n_blocks * dr * dr
+    rows = int(torch.unique(layout.src).numel()) if e else 0
+    rels = int(torch.unique(layout.rel).numel()) if e else 0
+    n_bytes = 4 * ((rows + n_vertices) * d + rels * n_blocks * dr * dr
                    + (n_vertices + 1) + 3 * e)
     targets = torch.repeat_interleave(
         torch.arange(n_vertices, device=layout.row_ptr.device),
@@ -98,9 +122,54 @@ def block_direction_bound(layout, n_vertices, n_rel, n_blocks, dr):
     ops = 2 * e * d + 2 * runs * d * dr
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return {"bytes": n_bytes, "ops": ops, "runs": runs,
+            "gathered_rows": rows, "relations": rels,
             "ops_per_edge_products": 2 * e * n_blocks * dr * dr,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def dblocks_bound(layout, n_vertices, n_rel, n_blocks, dr):
+    """Least time of the d blocks contraction: read the gathered rows of
+    features and of the cotangent and the CSR, write d blocks, against
+    2 * E * d * dr f32 operations (one weighted outer product per edge)."""
+    e, d = layout.n_edges, n_blocks * dr
+    rows = int(torch.unique(layout.src).numel()) if e else 0
+    tgts = int((layout.row_ptr.diff() > 0).sum().item())
+    n_bytes = 4 * ((rows + tgts) * d + n_rel * n_blocks * dr * dr
+                   + (n_vertices + 1) + 3 * e)
+    ops = 2 * e * d * dr
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def twin_sum_allowance(g, blocks, layout, n_vertices):
+    """d features of one direction for the cotangent ``g``, in float64 by
+    autograd through block_direction_reference (no twin layout involved),
+    and what an f32 pass may differ from it at each element: 1e-5 +
+    1e-4 * |exact| (the kernel phase's tolerance), plus sqrt(n) * 2^-24 *
+    sum |terms| for the element's n terms, the usual size of the rounding
+    error of an n-term f32 sum (Higham and Mary, 2019). Returns (exact,
+    allowance), both [V, d] float64."""
+    def d_features(g, blocks, w):
+        x = torch.zeros(n_vertices, g.shape[1], dtype=torch.float64,
+                        device=g.device, requires_grad=True)
+        out = staircase2.block_direction_reference(
+            x, blocks, CsrLayout(row_ptr=layout.row_ptr, src=layout.src,
+                                 rel=layout.rel, w=w), n_vertices)
+        return torch.autograd.grad((out * g).sum(), x)[0]
+    exact = d_features(g.double(), blocks.double(), layout.w)
+    abs_sum = d_features(g.double().abs(), blocks.double().abs(),
+                         layout.w.abs())
+    n_terms = torch.bincount(layout.src.long(), minlength=n_vertices)
+    n_terms = n_terms.double()[:, None] * blocks.shape[-1]
+    return exact, (1e-5 + 1e-4 * exact.abs()
+                   + n_terms.sqrt() * F32_UNIT_ROUNDOFF * abs_sum)
+
+
+def over_allowance(got, exact, allowance) -> float:
+    """Largest |got - exact| / allowance (above 1 fails)."""
+    return ((got.double() - exact).abs() / allowance).max().item()
 
 
 def split_rows(layout, limit):
@@ -186,6 +255,7 @@ def phase_serve(ds, device):
     # -- the main path: one encode, then the scoring chunks -------------
     torch.cuda.reset_peak_memory_stats()
     staircase2.block_direction.launches = 0
+    staircase2.block_direction.twin_launches = 0
     t0 = time.perf_counter()
     encoded = view.encoded(params, graph)
     torch.cuda.synchronize()
@@ -195,6 +265,8 @@ def phase_serve(ds, device):
     t2 = time.perf_counter()
     launches = staircase2.block_direction.launches
     peak = torch.cuda.max_memory_allocated()
+    if staircase2.block_direction.twin_launches != 0:
+        raise AssertionError("an encode for serving ran a twin pass")
     if launches != 2 * cfg.encoder.n_layers:
         raise AssertionError(f"block_direction launched {launches} times in "
                              f"one encode, expected "
@@ -270,6 +342,319 @@ def phase_serve(ds, device):
     return row
 
 
+def first_batch_graph(cfg, ds, device):
+    """The graph of the first training batch at seed 0 (what TrainLoop's
+    first step sees)."""
+    model = build.build_model(cfg, device)
+    return engine.BatchPipeline(model, cfg, ds,
+                                np.random.default_rng(0)).next().graph
+
+
+def phase_grad(graphs, n_rel, n_blocks, dr, device):
+    """block_direction's gradient against autograd through the plain
+    version, and each kernel pass against its plain version, the plain
+    version run in float64 on the same float32 inputs. The forward is held
+    within rtol=1e-4, atol=1e-5 and d blocks within a tolerance scaled to
+    its entries. d features and the twin pass are held to
+    twin_sum_allowance: a twin row sums up to ~9k terms whose weights are
+    not 1/degree of that row, so its f32 partial sums reach tens while the
+    result may be near 0. The twin pass on the wrong twin (the opposite
+    direction's CSR: the same edges with the other weights) must fail that
+    allowance. Plain times are those of the float32 plain version."""
+    lib, _ = staircase2.kernel_library()
+    rows = []
+    for graph_name, graph in graphs.items():
+        v = graph.n_vertices
+        gen = torch.Generator().manual_seed(2)
+        x = torch.randn(v, n_blocks * dr, generator=gen).to(device)
+        w = torch.randn(n_rel, n_blocks, dr, dr, generator=gen).to(device)
+        probe = torch.randn(v, n_blocks * dr, generator=gen).to(device)
+        w_t = w.transpose(-1, -2)
+        for name, layout, twin, wrong_twin in (
+                ("forward", graph.fwd, graph.fwd_twin, graph.bwd),
+                ("backward", graph.bwd, graph.bwd_twin, graph.fwd)):
+            xf = x.clone().requires_grad_(True)
+            wf = w.clone().requires_grad_(True)
+            out = staircase2.block_direction(xf, wf, layout, v, twin)
+            gx, gw = torch.autograd.grad((out * probe).sum(), (xf, wf))
+            w64 = w.double().requires_grad_(True)
+            out_ref = staircase2.block_direction_reference(
+                x.double(), w64, layout, v)
+            gw_ref = torch.autograd.grad((out_ref * probe.double()).sum(),
+                                         w64)[0].float()
+            out_ref = out_ref.detach().float()
+            gx_ref, allowance = twin_sum_allowance(probe, w, layout, v)
+            twin_out = staircase2.launch(lib, probe, w, twin, v, twin=True)
+            wrong_out = staircase2.launch(lib, probe, w, wrong_twin, v,
+                                          twin=True)
+            xr = x.clone().requires_grad_(True)
+            wr = w.clone().requires_grad_(True)
+            ref_loss = (staircase2.block_direction_reference(
+                xr, wr, layout, v) * probe).sum()
+            torch.cuda.synchronize()
+            for t in (out, gx, gw, twin_out):
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"{graph_name}/{name}: output or "
+                                         f"gradient not finite")
+            torch.testing.assert_close(out.detach(), out_ref, rtol=1e-4,
+                                       atol=1e-5)
+            gx_over = over_allowance(gx, gx_ref, allowance)
+            twin_over = over_allowance(twin_out, gx_ref, allowance)
+            wrong_over = over_allowance(wrong_out, gx_ref, allowance)
+            if not (gx_over <= 1 and twin_over <= 1):
+                raise AssertionError(
+                    f"{graph_name}/{name}: d features or the twin pass "
+                    f"beyond the f32 rounding allowance ({gx_over}, "
+                    f"{twin_over} of it)")
+            if not wrong_over > 1:
+                raise AssertionError(
+                    f"{graph_name}/{name}: the wrong twin passes the "
+                    f"allowance ({wrong_over} of it)")
+            fixed = 1e-5 + 1e-4 * gx_ref.abs()
+            twin_err = (twin_out.double() - gx_ref).abs()
+            # d blocks sums w * g * x over every edge of a relation (up to
+            # ~44k edges here) in float32 with atomics: its rounding grows
+            # as ~sqrt(edges) ulps of the entries' scale, so the tolerance
+            # is relative to that scale.
+            gw_scale = gw_ref.abs().max().item()
+            torch.testing.assert_close(gw, gw_ref, rtol=1e-4,
+                                       atol=1e-4 * gw_scale)
+            twin_ms = cuda_ms(lambda: staircase2.launch(
+                lib, probe, w, twin, v, twin=True), 50)
+            fwd_ms = cuda_ms(lambda: staircase2.launch(lib, x, w, layout, v),
+                             50)
+            fwd_plain_ms = cuda_ms(
+                lambda: staircase2.block_direction_reference(x, w, layout,
+                                                             v), 3, warmup=1)
+            dblocks_ms = cuda_ms(lambda: staircase2.block_direction_dblocks(
+                x, probe, w.shape, layout), 10)
+            twin_plain_ms = cuda_ms(
+                lambda: staircase2.block_direction_reference(
+                    probe, w_t, twin, v), 3, warmup=1)
+            plain_backward_ms = cuda_ms(lambda: torch.autograd.grad(
+                ref_loss, (xr, wr), retain_graph=True), 3, warmup=1)
+            bound = block_direction_bound(twin, v, n_rel, n_blocks, dr)
+            lengths = twin.row_ptr.diff()
+            row = {"graph": graph_name, "direction": name,
+                   "edges": layout.n_edges,
+                   "forward_max_abs_err":
+                       (out.detach() - out_ref).abs().max().item(),
+                   "dfeatures_max_abs_err":
+                       (gx.double() - gx_ref).abs().max().item(),
+                   "dfeatures_over_allowance": gx_over,
+                   "dblocks_max_abs_err": (gw - gw_ref).abs().max().item(),
+                   "dblocks_max_abs": gw_scale,
+                   "twin_max_abs_err": twin_err.max().item(),
+                   "twin_over_allowance": twin_over,
+                   "twin_beyond_rtol1e-4_atol1e-5":
+                       int((twin_err > fixed).sum().item()),
+                   "wrong_twin_over_allowance": wrong_over,
+                   "twin_kernel_ms": twin_ms, "twin_plain_ms": twin_plain_ms,
+                   "twin_bound_ms": bound["bound_ms"],
+                   "twin_bound_by": bound["bound_by"],
+                   "twin_bytes": bound["bytes"],
+                   "forward_kernel_ms": fwd_ms,
+                   "forward_plain_ms": fwd_plain_ms,
+                   "forward_bound_ms": block_direction_bound(
+                       layout, v, n_rel, n_blocks, dr)["bound_ms"],
+                   "dblocks_ms": dblocks_ms,
+                   "dblocks_bound_ms": dblocks_bound(
+                       layout, v, n_rel, n_blocks, dr)["bound_ms"],
+                   "plain_backward_ms": plain_backward_ms,
+                   "largest_row": int(layout.row_ptr.diff().max().item()),
+                   "twin_largest_row": int(lengths.max().item()),
+                   "twin_empty_rows": int((lengths == 0).sum().item())}
+            emit("grad", **row)
+            rows.append(row)
+    return rows
+
+
+def phase_train(cfg, ds, device):
+    """One step on the card against the CPU plain path, then the training
+    path through TrainLoop.fit with the kernels' launch counts."""
+    model = build.build_model(cfg, device)
+    logged = []
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append)
+    params, opt_state = loop.init_state(0)
+
+    # -- one step, card against the CPU plain path -----------------------
+    batch = engine.BatchPipeline(model, cfg, ds,
+                                 np.random.default_rng(0)).next()
+    draws = loop.draw(batch)
+    loss, grads = engine.loss_and_grads(model, params, batch, *draws)
+    cpu = torch.device("cpu")
+    cpu_batch = engine.TrainBatch(batch.graph.to(cpu), batch.triples.cpu(),
+                                  batch.mask.cpu())
+    cpu_loss, cpu_grads = engine.loss_and_grads(
+        build.build_model(cfg, cpu), map_tree(lambda t: t.cpu(), params),
+        cpu_batch, draws[0].cpu(), draws[1].cpu(),
+        [m.cpu() for m in draws[2]])
+    loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"step loss differs from the CPU plain path "
+                             f"by {loss_rel} (relative)")
+    grad_rows = []
+    for g, c in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        g = g.cpu()
+        norm = c.norm().item()
+        rel = (g - c).norm().item() / norm if norm else (g - c).norm().item()
+        grad_rows.append({"shape": list(c.shape),
+                          "max_abs_diff": (g - c).abs().max().item(),
+                          "max_abs": c.abs().max().item(),
+                          "rel_l2_diff": rel})
+        # A ReLU gate at |a| ~ 0 can flip between two f32 summation orders
+        # and move a few entries by their own size; a wrong formula moves
+        # the whole leaf. So the leaf is held in the L2 norm.
+        if not rel <= 1e-4:
+            raise AssertionError(f"gradient leaf {list(c.shape)} differs "
+                                 f"from the CPU plain path: relative L2 "
+                                 f"{rel}")
+    emit("train_step_vs_cpu", loss=loss.item(), cpu_loss=cpu_loss.item(),
+         loss_rel_diff=loss_rel, grads=grad_rows)
+
+    # -- the main path: TrainLoop.fit ------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staircase2.block_direction.launches = 0
+    staircase2.block_direction.twin_launches = 0
+    t0 = time.perf_counter()
+    result = loop.fit(params, opt_state, max_iterations=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = staircase2.block_direction.launches
+    twin_launches = staircase2.block_direction.twin_launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = result.steps
+    per_layer = 2 * cfg.encoder.n_layers
+    for s in steps:
+        if s["launches"] != per_layer or s["twin_launches"] != per_layer:
+            raise AssertionError(f"step {s['iteration']}: "
+                                 f"{s['launches']} forward and "
+                                 f"{s['twin_launches']} twin launches, "
+                                 f"expected {per_layer} each")
+    if launches != per_layer * TRAIN_STEPS \
+            or twin_launches != per_layer * TRAIN_STEPS:
+        raise AssertionError(f"fit launched {launches} forward and "
+                             f"{twin_launches} twin passes")
+    losses = {i: steps[i - 1]["loss"] for i in (1, 10, TRAIN_STEPS)}
+    if not all(np.isfinite(v) for v in losses.values()) \
+            or not losses[TRAIN_STEPS] < losses[1]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    timing = loop.timer.summary()
+    row = {"steps": result.iterations, "positives": loop.pipeline.
+           graph_batch_size, "message_edges": loop.pipeline.split_size,
+           "batch_ms_median": statistics.median(s["batch_ms"] for s in steps),
+           "step_ms_median": statistics.median(s["step_ms"] for s in steps),
+           "step_ms_first": steps[0]["step_ms"],
+           "batch_ms": [s["batch_ms"] for s in steps],
+           "step_ms": [s["step_ms"] for s in steps],
+           "loss_1": losses[1], "loss_10": losses[10],
+           f"loss_{TRAIN_STEPS}": losses[TRAIN_STEPS],
+           "wall_s": wall_s, "steps_per_s": timing["steps_per_sec"],
+           "edges_per_s": timing["edges_per_sec"],
+           "launches_per_step": launches // TRAIN_STEPS,
+           "twin_launches_per_step": twin_launches // TRAIN_STEPS,
+           "max_memory_allocated": peak, "log": logged}
+    emit("train", **row)
+    emit("train_breakdown", **host_batch_breakdown(loop.pipeline, device),
+         **profile_steps(loop, params, result.opt_state))
+    return {**row, "launches": launches, "twin_launches": twin_launches}
+
+
+def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
+    """Median host time of each part of a batch: edge sampling and split,
+    the four CSRs on the host, their copy to the card."""
+    parts = {"sample_and_split_ms": [], "layouts_ms": [], "to_device_ms": []}
+    model = pipeline.model
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _, split_ids = pipeline.sample_ids()
+        t1 = time.perf_counter()
+        graph = build_graph_batch(pipeline.train[split_ids],
+                                  model.n_entities, model.n_relations)
+        t2 = time.perf_counter()
+        graph.to(device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
+    """torch.profiler over ``n`` device steps (batches made beforehand):
+    device busy time per step, the idle share of the window, and the
+    kernels and operators with the most device time. Runs after the
+    counted run, so its launches count nowhere."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = [loop.pipeline.next() for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            opt_state, _ = loop.train_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        if e.device_type == cuda and e.self_device_time_total > 0:
+            kernels.append((e.self_device_time_total / n / 1e3, e.key,
+                            e.count / n))
+        elif e.device_type != cuda and e.device_time_total > 0 \
+                and e.key.startswith("aten::"):
+            ops.append((e.device_time_total / n / 1e3, e.key, e.count / n))
+    if not kernels:
+        return {"profile": "not measured: the profiler saw no device time"}
+    busy_ms = sum(k[0] for k in kernels)
+    def top(items):
+        return [{"ms": ms, "name": name[:90], "calls": calls}
+                for ms, name, calls in sorted(items, reverse=True)[:15]]
+    return {"profiled_steps": n, "profile_wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernels_per_step": sum(k[2] for k in kernels),
+            "top_kernels": top(kernels), "top_ops_inclusive": top(ops)}
+
+
+def kernels_line(rows, serve, grads, train) -> list:
+    """Both kernels with this run's numbers. block_direction is timed on
+    the full train graph (the serving path's shape) and on the first
+    training batch's graph; block_direction_twin on the training batch
+    (its path) and on the full train graph. Times and bounds are means
+    over the two directions; launches are the training run's."""
+    def mean(items, key):
+        return sum(r[key] for r in items) / len(items)
+    batch = [r for r in grads if r["graph"] == "train_batch"]
+    full = [r for r in grads if r["graph"] == "full_train"]
+    return [{
+        "name": "block_direction", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES, "launches": train["launches"],
+        "launches_serve": serve["block_direction_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "train_batch_max_abs_err": max(r["forward_max_abs_err"]
+                                       for r in batch),
+        "ms": mean(rows, "kernel_ms"), "plain_ms": mean(rows, "plain_ms"),
+        "bound_ms": mean(rows, "bound_ms"),
+        "bound_by": rows[0]["bound_by"], "library_ms": None,
+        "train_batch_ms": mean(batch, "forward_kernel_ms"),
+        "train_batch_plain_ms": mean(batch, "forward_plain_ms"),
+        "train_batch_bound_ms": mean(batch, "forward_bound_ms")}, {
+        "name": "block_direction_twin", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES_TWIN,
+        "launches": train["twin_launches"],
+        "max_abs_err": max(r["twin_max_abs_err"] for r in grads),
+        "max_over_allowance": max(r["twin_over_allowance"] for r in grads),
+        "ms": mean(batch, "twin_kernel_ms"),
+        "plain_ms": mean(batch, "twin_plain_ms"),
+        "bound_ms": mean(batch, "twin_bound_ms"),
+        "bound_by": batch[0]["twin_bound_by"], "library_ms": None,
+        "full_train_ms": mean(full, "twin_kernel_ms"),
+        "full_train_plain_ms": mean(full, "twin_plain_ms"),
+        "full_train_bound_ms": mean(full, "twin_bound_ms")}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -292,19 +677,14 @@ def main() -> int:
     rows = phase_kernel(graph, ds.n_relations, n_blocks,
                         dr, device)
     serve = phase_serve(ds, device)
-
-    def mean(key):
-        return sum(r[key] for r in rows) / len(rows)
-
-    print(json.dumps({"kernels": [{
-        "name": "block_direction", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": serve["block_direction_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": rows[0]["bound_by"], "library_ms": None}]}),
-        flush=True)
+    cfg = config.load(str(SETTINGS)).with_counts(
+        ds.n_entities, ds.n_relations, len(ds.train))
+    grads = phase_grad({"full_train": graph,
+                        "train_batch": first_batch_graph(cfg, ds, device)},
+                       ds.n_relations, n_blocks, dr, device)
+    train = phase_train(cfg, ds, device)
+    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train)}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

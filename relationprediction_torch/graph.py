@@ -11,10 +11,16 @@ CSR per direction, by target: ``row_ptr [V+1]`` then ``src``, ``rel`` and
 ``w`` per edge, sorted by (target, relation) within each row. One CUDA
 block owns one target row, so the sum needs no atomics and no second pass
 (ops/staircase2.py).
+
+The backward of a direction needs d(features), a sum over each edge's
+*source*: the same kernel on a "twin" CSR by source. A direction's twin has
+the opposite direction's rows and edge order but this direction's weights
+(``staircase2.build_staircase2_pair``), so it shares ``row_ptr``, ``src``
+and ``rel`` with the opposite CSR and carries only its own ``w``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -50,8 +56,10 @@ class CsrLayout:
 
 def build_csr(sources: np.ndarray, relations: np.ndarray,
               targets: np.ndarray, weights: np.ndarray,
-              n_vertices: int) -> CsrLayout:
-    """CSR by target of the real edges (weight != 0 and target < V).
+              n_vertices: int) -> tuple:
+    """CSR by target of the real edges (weight != 0 and target < V), and
+    the order of its entries: ``(layout, order)``, where CSR entry k is
+    input edge ``order[k]`` (int64 numpy).
 
     Edges with weight 0 or a target at or beyond ``n_vertices`` are padding
     and dropped, as the TPU slot layout drops them
@@ -73,30 +81,40 @@ def build_csr(sources: np.ndarray, relations: np.ndarray,
     np.cumsum(counts, out=row_ptr[1:])
     if row_ptr[-1] >= 2 ** 31:
         raise ValueError("edge count overflows the int32 CSR")
-    return CsrLayout(
+    layout = CsrLayout(
         row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
         src=torch.from_numpy(sources[order].astype(np.int32)),
         rel=torch.from_numpy(relations[order].astype(np.int32)),
         w=torch.from_numpy(weights[order]))
+    return layout, order
 
 
 @dataclass(frozen=True)
 class GraphBatch:
-    """The two CSR layouts of one message graph.
+    """The CSR layouts of one message graph.
 
     fwd: CSR by receiver, fed by senders, weighted 1/in-degree of the
       receiver (the JAX package's ``fwd_norm``).
     bwd: CSR by sender, fed by receivers, weighted 1/out-degree of the
       sender (``bwd_norm``).
+    fwd_twin: fwd's backward layout: bwd's rows and edges with fwd's
+      weights. bwd_twin: fwd's rows and edges with bwd's weights.
     """
 
     fwd: CsrLayout
     bwd: CsrLayout
+    fwd_twin: CsrLayout
+    bwd_twin: CsrLayout
     n_vertices: int
     n_relations: int
 
     def to(self, device) -> "GraphBatch":
-        return GraphBatch(self.fwd.to(device), self.bwd.to(device),
+        """The same graph on ``device``; the twins keep sharing their
+        index arrays with the opposite layout there."""
+        fwd, bwd = self.fwd.to(device), self.bwd.to(device)
+        return GraphBatch(fwd, bwd,
+                          replace(bwd, w=self.fwd_twin.w.to(device)),
+                          replace(fwd, w=self.bwd_twin.w.to(device)),
                           self.n_vertices, self.n_relations)
 
 
@@ -115,11 +133,18 @@ def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
     senders, relations, receivers = triples.T
     if len(triples) and relations.max() >= n_relations:
         raise ValueError(f"relation id >= n_relations={n_relations}")
+    fwd_norm = _host_norm(receivers, n_vertices)
+    bwd_norm = _host_norm(senders, n_vertices)
+    # Every edge is real here (weights > 0, vertices checked), so both
+    # CSRs hold the same edges and each order permutes all of them.
+    fwd, fwd_order = build_csr(senders, relations, receivers, fwd_norm,
+                               n_vertices)
+    bwd, bwd_order = build_csr(receivers, relations, senders, bwd_norm,
+                               n_vertices)
     return GraphBatch(
-        fwd=build_csr(senders, relations, receivers,
-                      _host_norm(receivers, n_vertices), n_vertices),
-        bwd=build_csr(receivers, relations, senders,
-                      _host_norm(senders, n_vertices), n_vertices),
+        fwd=fwd, bwd=bwd,
+        fwd_twin=replace(bwd, w=torch.from_numpy(fwd_norm[bwd_order])),
+        bwd_twin=replace(fwd, w=torch.from_numpy(bwd_norm[fwd_order])),
         n_vertices=int(n_vertices),
         n_relations=int(n_relations))
 

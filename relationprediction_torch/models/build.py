@@ -1,23 +1,62 @@
 """Model assembly: config -> encoder/decoder over a dictionary of parameters.
 
-Counterpart of ``relationprediction_tpu/models/build.py`` for the serving
-path of ``settings/gcn_block.exp``: the block-diagonal R-GCN with an input
-transform and the DistMult decoder, encoded in test mode and scored against
-all entities. Parameters are a plain dictionary of tensors with the JAX
-package's tree layout (params.py converts between the two).
+Counterpart of ``relationprediction_tpu/models/build.py`` for
+``settings/gcn_block.exp``: the block-diagonal R-GCN with an input transform
+and the DistMult decoder, encoded in test mode and scored against all
+entities, or encoded in train mode and scored by the factored binomial loss.
+Parameters are a plain dictionary of tensors with the JAX package's tree
+layout (params.py converts between the two).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import RunConfig
 from ..graph import GraphBatch, build_graph_batch
+from ..ops.neg_energy import factored_negative_energies
 from ..params import map_tree
 from . import decoders as decoders_lib
 from . import encoders as enc
+
+
+def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
+                                e1, r, e2, pos_mask, corrupt_object):
+    """CE + regularization of the factored binomial protocol
+    (``build.py:30-84``): the exact objective of the reference's tiled
+    batch (``auxilliaries.py:13-33`` + ``bilinear_diag.py``).
+
+    pos_energy [n]; neg_energy / ev_sq / corrupt_object [n, rate];
+    e1 / r / e2 [n, d] positive codes; pos_mask [n].
+    """
+    rate = neg_energy.shape[1]
+    n = pos_energy.shape[0]
+    energies = torch.cat([pos_energy, neg_energy.reshape(-1)])
+    labels = torch.cat([pos_mask, pos_mask.new_zeros(n * rate)])
+    # neg_energy is positive-major ([n, rate] flattened), so the mask
+    # repeats per positive; the CE mean does not depend on the order.
+    mask = torch.cat([pos_mask, pos_mask.repeat_interleave(rate)])
+    loss = decoders_lib.weighted_ce_loss(energies, labels, mask)
+
+    # Regularization means over the equivalent tiled rows
+    # (``bilinear_diag.py:63-69``): positive i's e1 survives in its
+    # positive row and its object-corrupted rows, e2 in its positive and
+    # subject-corrupted rows, r in all rate+1 rows; each corrupted
+    # entity's code appears once.
+    m = pos_mask
+    co = corrupt_object.to(torch.float32) * m[:, None]
+    n_obj = co.sum(1)
+    n_subj = m * rate - n_obj
+    e1_sq = ((e1 ** 2).sum(-1) * m * (1.0 + n_obj)).sum() \
+        + (ev_sq * (m[:, None] - co)).sum()
+    e2_sq = ((e2 ** 2).sum(-1) * m * (1.0 + n_subj)).sum() \
+        + (ev_sq * co).sum()
+    r_sq = ((r ** 2).sum(-1) * m).sum() * (rate + 1)
+    count = m.sum().clamp(min=1.0) * (rate + 1) * e1.shape[-1]
+    reg = (e1_sq + e2_sq + r_sq) / count
+    return loss + decoder.regularization_parameter * reg
 
 
 class EncodeResult(NamedTuple):
@@ -95,10 +134,16 @@ class RGCNModel:
     # ------------------------------------------------------------------
     def encode(self, params: Dict, graph: GraphBatch, *,
                deterministic: bool,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               keep_masks: Optional[Sequence[torch.Tensor]] = None
                ) -> EncodeResult:
         """All-entity codes [V, d] and relation codes [R, d]
-        (``build.py:335-421``)."""
+        (``build.py:335-421``).
+
+        Train mode (``deterministic`` false) drops self-loop messages with
+        one keep-mask per layer: ``keep_masks[layer]`` [V, d] bool where
+        given, else drawn from ``generator``.
+        """
         e = self.config.encoder
         features = enc.apply_affine(params["input_transform"], None,
                                     onehot_input=True, use_bias=True,
@@ -109,9 +154,63 @@ class RGCNModel:
                 use_nonlinearity=layer_idx < e.n_layers - 1,
                 dropout_keep=e.dropout_keep_probability,
                 deterministic=deterministic, generator=generator,
-                n_vertices=self.n_entities)
+                n_vertices=self.n_entities,
+                keep_mask=None if keep_masks is None
+                else keep_masks[layer_idx])
         return EncodeResult(features,
                             params["relation_embedding"]["W_relation"])
+
+    def draw_keep_masks(self, generator: torch.Generator) -> list:
+        """One train-mode dropout keep-mask [V, d] per layer, drawn on the
+        generator's device."""
+        e = self.config.encoder
+        return [enc.draw_keep_mask((self.n_entities, e.internal_dimension),
+                                   e.dropout_keep_probability, generator)
+                for _ in range(e.n_layers)]
+
+    # ------------------------------------------------------------------
+    # Training loss
+    # ------------------------------------------------------------------
+    @staticmethod
+    def gather_codes(encoded: EncodeResult, triples: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(e1, r, e2) code gather (``build.py:434-440``)."""
+        t = triples.long()
+        return (encoded.entity_codes[t[:, 0]],
+                encoded.relation_codes[t[:, 1]],
+                encoded.entity_codes[t[:, 2]])
+
+    def loss_binomial_factored(self, params: Dict, graph: GraphBatch,
+                               positives: torch.Tensor,
+                               pos_mask: torch.Tensor,
+                               neg_values: torch.Tensor,
+                               corrupt_object: torch.Tensor, *,
+                               deterministic: bool = False,
+                               keep_masks: Optional[Sequence] = None
+                               ) -> torch.Tensor:
+        """The reference's binomial-corruption objective without the
+        (rate+1)-tiled batch (``build.py:468-528``): each negative shares
+        two of its three codes with its positive, so the loss gathers the
+        positives' codes, one factor per positive and side, and the
+        corrupted entities' codes.
+
+        positives [n, 3]; pos_mask [n] float32; neg_values [n, rate]
+        corrupted entity ids; corrupt_object [n, rate] bool (True: the
+        object slot is replaced). In train mode ``keep_masks`` holds one
+        dropout keep-mask per layer (``draw_keep_masks``).
+        """
+        encoded = self.encode(params, graph, deterministic=deterministic,
+                              keep_masks=keep_masks)
+        e1, r, e2 = self.gather_codes(encoded, positives)
+        dp = params["decoder"]
+        pos_energy = self.decoder.energies(dp, e1, r, e2)
+        neg_energy, ev_sq = factored_negative_energies(
+            encoded.entity_codes, self.decoder.subject_factor(dp, r, e2),
+            self.decoder.object_factor(dp, e1, r), neg_values,
+            corrupt_object)
+        return binomial_factored_objective(
+            self.decoder, pos_energy, neg_energy, ev_sq, e1, r, e2,
+            pos_mask, corrupt_object)
 
     def _triples(self, triples) -> torch.Tensor:
         return torch.as_tensor(np.asarray(triples), dtype=torch.long,

@@ -95,39 +95,59 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
                     use_nonlinearity: bool, dropout_keep: float,
                     deterministic: bool,
                     generator: Optional[torch.Generator],
-                    n_vertices: int) -> torch.Tensor:
+                    n_vertices: int,
+                    keep_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """One R-GCN layer (``message_gcn.py:49-79``; ``encoders.py:276-303``):
-    both directions through ``staircase2.block_direction``, then the
-    self-loop, then an optional ReLU."""
+    both directions through ``staircase2.block_direction`` (differentiable
+    through their twin layouts), then the self-loop, then an optional
+    ReLU. ``keep_mask``: see ``_combine_with_self_loop``."""
     if variant != "block":
         raise not_ported(variant)
     if features is None:
         raise ValueError("block-diagonal layer requires dense input "
                          "(use an input transform before it)")
     collected_f = staircase2.block_direction(
-        features, params["W_forward"], graph.fwd, n_vertices)
+        features, params["W_forward"], graph.fwd, n_vertices,
+        graph.fwd_twin)
     collected_b = staircase2.block_direction(
-        features, params["W_backward"], graph.bwd, n_vertices)
+        features, params["W_backward"], graph.bwd, n_vertices,
+        graph.bwd_twin)
     return _combine_with_self_loop(
         params, features, collected_f + collected_b,
         use_nonlinearity=use_nonlinearity, dropout_keep=dropout_keep,
-        deterministic=deterministic, generator=generator)
+        deterministic=deterministic, generator=generator,
+        keep_mask=keep_mask)
+
+
+def draw_keep_mask(shape, dropout_keep: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """A dropout keep-mask: True with probability ``dropout_keep``."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=generator.device) < dropout_keep
 
 
 def _combine_with_self_loop(params, features, combined, *, use_nonlinearity,
-                            dropout_keep, deterministic, generator):
+                            dropout_keep, deterministic, generator,
+                            keep_mask=None):
     """Self-loop + nonlinearity tail (``encoders.py:357-380``). The block
-    variant creates a bias but never adds it (reference quirk)."""
+    variant creates a bias but never adds it (reference quirk).
+
+    In train mode (``deterministic`` false) the self-loop gets dropout:
+    ``keep_mask`` [V, d] bool where given (the tests feed the JAX
+    package's draws), else a mask drawn from ``generator``."""
     self_loop = apply_affine({"W": params["W_self"]}, features,
                              use_bias=False)
     if not deterministic:
-        if generator is None:
-            raise ValueError("train-mode dropout needs a torch.Generator")
+        if keep_mask is None:
+            if generator is None:
+                raise ValueError("train-mode dropout needs a keep-mask or "
+                                 "a torch.Generator")
+            keep_mask = draw_keep_mask(self_loop.shape, dropout_keep,
+                                       generator)
         # tf.nn.dropout: keep w.p. p, scale kept values by 1/p; applied
         # only to the self-loop messages (``message_gcn.py:64``).
-        keep = torch.rand(self_loop.shape, generator=generator,
-                          device=generator.device) < dropout_keep
-        self_loop = torch.where(keep.to(self_loop.device),
+        self_loop = torch.where(keep_mask.to(self_loop.device),
                                 self_loop / dropout_keep,
                                 torch.zeros_like(self_loop))
     out = combined + self_loop

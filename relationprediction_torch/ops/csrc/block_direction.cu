@@ -5,6 +5,16 @@
 // x [V, d] f32, W [R, B, dr, dr] f32 with d = B * dr, out [V, d] f32, in the
 // orientation y[b*dr + i] = sum_j W[r, b, i, j] * x[b*dr + j].
 //
+// The twin pass (block_direction_twin_f32) is the same kernel reading W
+// transposed, y[b*dr + i] = sum_j W[r, b, j, i] * x[b*dr + j]: run on a
+// direction's twin CSR (rows are the edges' sources, x is the cotangent g of
+// the output) it gives d features[u] = sum_{e: src_e = u} w_e W[r_e]^T g[tgt_e]
+// without a transposed copy of W. It replaces the JAX VJP's second launch of
+// the same TPU kernel on the twin layout with blocks_to_jmajor_T
+// (relationprediction_tpu/ops/staircase2.py:698-723). In a train step the
+// twin CSR has V rows but only ~15k edges: most rows are empty and write
+// zeros, so the launch of V thread blocks, not bytes, may set its time.
+//
 // Replaces relationprediction_tpu/ops/staircase2.py:460-502
 // (_make_block_kernel, launched by _call_block at :560-598). That kernel
 // gathers pre-weighted source rows into TPU slots, expands each slot group's
@@ -24,15 +34,21 @@
 //   per edge) and applies the block once per run (dr*dr FMAs), not per edge.
 // * Latency: the index and feature loads of kBatch edges are all issued
 //   before the first is used.
+// * Precision: f32 throughout, as the TPU kernel. A twin row sums up to
+//   ~9k terms whose weights are not 1/degree of that row, so its partial
+//   sums reach tens while the result may be near 0 and its rounding error
+//   ~1e-4. chip_smoke.py holds each output to a float64 sum within the
+//   rounding that the element's sum of |terms| allows an f32 sum.
 //
 // What bounds it on an H100: a launch must read x, W and the CSR once and
-// write out once (about 64 MB at FB15k-237 width, ~19 us at 3.35 TB/s); its
-// 2*E*d + 2*P*d*dr f32 operations (P relation runs) need less than that on
-// the 67 TFLOP/s f32 pipes, so the bound is set by bytes. x (29 MB at that
-// width) fits the 50 MB L2, so the gathered rows are mostly L2 hits. A hub
-// row (about 9k edges at FB15k-237 scale) is summed by a single thread block
-// and can set the time of the whole launch; splitting long rows over several
-// blocks is not done here.
+// write out once (about 64 MB at FB15k-237 width, ~19 us at 3.35 TB/s;
+// a training batch's 15k edges: ~41 MB, ~12 us); its 2*E*d + 2*P*d*dr f32
+// operations (P relation runs) need less than that on the 67 TFLOP/s f32
+// pipes, so the bound is set by bytes. x (29 MB at that width) fits the
+// 50 MB L2, so the gathered rows are mostly L2 hits. A hub row (about 9k
+// edges at FB15k-237 scale) is summed by a single thread block and can set
+// the time of the whole launch; splitting long rows over several blocks is
+// not done here.
 
 #include <cuda_runtime.h>
 
@@ -45,7 +61,7 @@ constexpr int kBatch = 4;         // edges whose loads are in flight together
 constexpr int kMaxBlocks = 128;   // B: one lane of at most 128 threads
 constexpr int kMaxThreads = kLanes * kMaxBlocks;
 
-template <int DR>
+template <int DR, bool kTransposeW>
 __device__ __forceinline__ void apply_run(const float* __restrict__ blocks,
                                           int rel, int n_blocks, int b,
                                           float (&z)[DR], float (&y)[DR]) {
@@ -56,7 +72,8 @@ __device__ __forceinline__ void apply_run(const float* __restrict__ blocks,
     for (int i = 0; i < DR; ++i) {
 #pragma unroll
       for (int j = 0; j < DR; ++j) {
-        y[i] = fmaf(__ldg(wb + i * DR + j), z[j], y[i]);
+        const int at = kTransposeW ? j * DR + i : i * DR + j;
+        y[i] = fmaf(__ldg(wb + at), z[j], y[i]);
       }
     }
   }
@@ -64,7 +81,7 @@ __device__ __forceinline__ void apply_run(const float* __restrict__ blocks,
   for (int j = 0; j < DR; ++j) z[j] = 0.f;
 }
 
-template <int DR>
+template <int DR, bool kTransposeW>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 block_direction_kernel(const float* __restrict__ x,
                        const float* __restrict__ blocks,
@@ -120,7 +137,9 @@ block_direction_kernel(const float* __restrict__ x,
     for (int u = 0; u < kBatch; ++u) {
       if (e + u < e_end) {
         if (r[u] != run_rel) {
-          if (owner) apply_run<DR>(blocks, run_rel, n_blocks, b, z, y);
+          if (owner) {
+            apply_run<DR, kTransposeW>(blocks, run_rel, n_blocks, b, z, y);
+          }
           run_rel = r[u];
         }
 #pragma unroll
@@ -128,7 +147,7 @@ block_direction_kernel(const float* __restrict__ x,
       }
     }
   }
-  if (owner) apply_run<DR>(blocks, run_rel, n_blocks, b, z, y);
+  if (owner) apply_run<DR, kTransposeW>(blocks, run_rel, n_blocks, b, z, y);
 
   if (lane > 0 && owner) {
     float* p = partial + static_cast<int64_t>(lane - 1) * d + col;
@@ -148,15 +167,40 @@ block_direction_kernel(const float* __restrict__ x,
   }
 }
 
-template <int DR>
+template <int DR, bool kTransposeW>
 int launch(const float* x, const float* blocks, const int* row_ptr,
            const int* src, const int* rel, const float* w, float* out,
            int n_rows, int n_blocks, cudaStream_t stream) {
   const int lane_width = (n_blocks + 31) / 32 * 32;
   const size_t smem = sizeof(float) * (kLanes - 1) * n_blocks * DR;
-  block_direction_kernel<DR><<<n_rows, kLanes * lane_width, smem, stream>>>(
-      x, blocks, row_ptr, src, rel, w, out, n_blocks, lane_width);
+  block_direction_kernel<DR, kTransposeW>
+      <<<n_rows, kLanes * lane_width, smem, stream>>>(
+          x, blocks, row_ptr, src, rel, w, out, n_blocks, lane_width);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTransposeW>
+int dispatch(const float* x, const float* blocks, const int* row_ptr,
+             const int* src, const int* rel, const float* w, float* out,
+             int n_rows, int n_blocks, int dr, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_blocks < 1 || n_blocks > kMaxBlocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dr) {
+    case 1: return launch<1, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 2: return launch<2, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 3: return launch<3, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 4: return launch<4, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 5: return launch<5, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 6: return launch<6, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 7: return launch<7, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    case 8: return launch<8, kTransposeW>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -172,24 +216,18 @@ int block_direction_f32(const float* x, const float* blocks,
                         const int* row_ptr, const int* src, const int* rel,
                         const float* w, float* out, int n_rows, int n_blocks,
                         int dr, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_blocks < 1 || n_blocks > kMaxBlocks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dr) {
-    case 1: return launch<1>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 2: return launch<2>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 3: return launch<3>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 4: return launch<4>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 5: return launch<5>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 6: return launch<6>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 7: return launch<7>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    case 8: return launch<8>(x, blocks, row_ptr, src, rel, w, out, n_rows, n_blocks, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(x, blocks, row_ptr, src, rel, w, out, n_rows,
+                         n_blocks, dr, device, stream);
+}
+
+// The twin pass: the same launch reading W[r, b, j, i] for W[r, b, i, j].
+int block_direction_twin_f32(const float* x, const float* blocks,
+                             const int* row_ptr, const int* src,
+                             const int* rel, const float* w, float* out,
+                             int n_rows, int n_blocks, int dr, int device,
+                             void* stream) {
+  return dispatch<true>(x, blocks, row_ptr, src, rel, w, out, n_rows,
+                        n_blocks, dr, device, stream);
 }
 
 const char* block_direction_error_string(int code) {

@@ -22,6 +22,30 @@ def map_tree(fn: Callable[[Any], Any], tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves in the JAX package's order (``jax.tree_util``: dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in ``tree_leaves`` order) in
+    place of its leaves."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [rebuild(v) for v in t]
+        return next(it)
+    return rebuild(tree)
+
+
 def params_from_jax(tree, device) -> dict:
     """The JAX package's params (numpy leaves) as float32 tensors on
     ``device``."""

@@ -50,7 +50,7 @@ def test_block_direction_matches_jax(direction, n_blocks, dr):
 
     src, tgt = ((senders, receivers) if direction == "forward"
                 else (receivers, senders))
-    layout = build_csr(src, relations, tgt, weights, V)
+    layout, _ = build_csr(src, relations, tgt, weights, V)
     got = torch_s2.block_direction(torch.from_numpy(x),
                                    torch.from_numpy(blocks), layout, V)
     assert got.shape == (V, n_blocks * dr) and got.dtype == torch.float32
@@ -64,7 +64,7 @@ def test_reference_orientation_is_w_times_x():
     n_blocks, dr = 3, 2
     x = rng.standard_normal((2, n_blocks * dr)).astype(np.float32)
     blocks = rng.standard_normal((1, n_blocks, dr, dr)).astype(np.float32)
-    layout = build_csr([0], [0], [1], [0.5], 2)
+    layout, _ = build_csr([0], [0], [1], [0.5], 2)
     got = torch_s2.block_direction_reference(
         torch.from_numpy(x), torch.from_numpy(blocks), layout, 2).numpy()
     want = 0.5 * np.einsum("bij,bj->bi", blocks[0],
@@ -76,7 +76,7 @@ def test_reference_orientation_is_w_times_x():
 def test_launches_do_not_move_on_cpu():
     senders, relations, receivers, weights = edge_list(1)
     x, blocks = inputs(1, 4, 5)
-    layout = build_csr(senders, relations, receivers, weights, V)
+    layout, _ = build_csr(senders, relations, receivers, weights, V)
     before = torch_s2.block_direction.launches
     torch_s2.block_direction(torch.from_numpy(x), torch.from_numpy(blocks),
                              layout, V)
@@ -86,7 +86,7 @@ def test_launches_do_not_move_on_cpu():
 def test_no_fallback_for_other_devices():
     """Only a CPU tensor takes the plain path; any other device launches
     the kernel or raises."""
-    layout = build_csr([0], [0], [1], [1.0], 2).to("meta")
+    layout = build_csr([0], [0], [1], [1.0], 2)[0].to("meta")
     x = torch.empty(2, 10, device="meta")
     blocks = torch.empty(1, 2, 5, 5, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

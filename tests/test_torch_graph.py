@@ -68,9 +68,10 @@ def test_padding_and_bad_input_are_dropped_or_refused():
     assert g.fwd.n_edges == g.bwd.n_edges == 2
     assert g.fwd.n_rows == 4 and int(g.fwd.row_ptr[-1]) == 2
     # padding edges (weight 0, or a target at or past V) are dropped
-    layout = torch_graph.build_csr([0, 1, 4], [0, 1, 0], [1, 2, 4],
-                                   [1.0, 0.0, 0.0], 4)
+    layout, order = torch_graph.build_csr([0, 1, 4], [0, 1, 0], [1, 2, 4],
+                                          [1.0, 0.0, 0.0], 4)
     assert layout.n_edges == 1 and layout.row_ptr.tolist() == [0, 0, 1, 1, 1]
+    assert order.tolist() == [0]
     with pytest.raises(ValueError):
         torch_graph.build_csr([5], [0], [1], [1.0], 4)  # source >= V
     with pytest.raises(ValueError):

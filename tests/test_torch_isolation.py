@@ -12,6 +12,7 @@ import torch
 
 from relationprediction_torch import device as device_lib
 from relationprediction_torch import evaluate as torch_evaluate
+from relationprediction_torch import native
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "relationprediction_torch"
@@ -50,6 +51,29 @@ def test_importing_every_port_module_leaves_jax_out():
               "bad = [m for m in sys.modules if m.split('.')[0] in "
               f"{sorted(FORBIDDEN)!r}]\n"
               "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_native_sampler_is_the_ports_own():
+    """The C++ sampler builds from the port's copy into build/ and the
+    process maps no file from under relationprediction_tpu/."""
+    assert (PORT / "native" / "__init__.py") in port_files()
+    assert pathlib.Path(native.SOURCE).parent == PORT / "native"
+    assert pathlib.Path(native.library_path()).parent == \
+        ROOT / "build" / "torch_kernels"
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the native sampler")
+    script = ("import numpy as np\n"
+              "from relationprediction_torch import native, sampling\n"
+              "tri = np.array([[0, 0, 1], [1, 0, 2], [2, 1, 0]])\n"
+              "adj = sampling.AdjacencyIndex(tri, 3)\n"
+              "assert sorted(native.sample_edge_neighborhood(adj, 3, 1)) "
+              "== [0, 1, 2]\n"
+              "maps = open('/proc/self/maps').read()\n"
+              "assert native.library_path() in maps\n"
+              "assert 'relationprediction_tpu' not in maps\n")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
