@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Drives the port's serving and training paths of ``settings/gcn_block.exp``
+(d=500, 100 blocks of 5x5) and ``settings/gcn_basis.exp`` (d=500, 5 bases)
 at full width on the seeded ``synth:FB15k-237`` graph (V=14,541, R=237,
-E=272,115, d=500, 100 blocks of 5x5) with random weights from a seed. Each
-phase prints JSON lines:
+E=272,115) with random weights from a seed. Each phase prints JSON lines,
+each with the seconds the phase has taken so far (``phase_s``):
 
   device  the card, its count, and nvidia-smi's name and power limit;
   build   the kernels built from relationprediction_torch/ops/csrc with nvcc
-          for sm_90a: build time, registers and spills;
+          for sm_90a, one nvcc per source, all started together: build
+          time, registers and spills;
   kernel  block_direction against block_direction_reference in both
           directions on random inputs, within rtol=1e-4, atol=1e-5; the
           time of each (CUDA events) beside the bound computed from shapes;
@@ -32,6 +34,21 @@ phase prints JSON lines:
           steps 1, 10 and 20 (finite and falling), exactly 4 forward and 4
           twin launches in every step, peak device memory.
 
+Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
+
+  kernel_basis  basis_project against a float64 product within
+          sqrt(K) * 2^-24 * sum |x||w| per element, and torch.matmul's time,
+          at the forward and twin shapes and two odd shapes; basis_combine
+          in both directions on the full train graph and on the first
+          training batch's graph against a float64 sum within the rounding
+          its terms allow, hub rows and the others timed apart; the twin
+          pass (project g by w_t, combine on the twin CSR) likewise, and on
+          the wrong twin outside that allowance;
+  serve_basis, grad_basis, train_basis  as serve, grad and train, through
+          staircase2.basis_direction (4 combine launches an encode; 4
+          forward and 4 twin combine launches a step, each after a project
+          launch).
+
 Then a line listing every ported kernel with its numbers, nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
 without a CUDA card the script exits 2 and prints no result.
@@ -43,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -61,10 +79,15 @@ from relationprediction_torch.training import engine
 
 ROOT = Path(__file__).resolve().parent
 SETTINGS = ROOT / "settings" / "gcn_block.exp"
+BASIS_SETTINGS = ROOT / "settings" / "gcn_basis.exp"
 KERNEL_SOURCE = "relationprediction_torch/ops/csrc/block_direction.cu"
+BASIS_SOURCE = "relationprediction_torch/ops/csrc/basis_direction.cu"
 REPLACES = "relationprediction_tpu/ops/staircase2.py:460"
 # The twin pass: the VJP's second launch of the same TPU kernel.
 REPLACES_TWIN = "relationprediction_tpu/ops/staircase2.py:721"
+# TPU kernel 2 (_make_basis_kernel) and its launch on the twin layout.
+REPLACES_BASIS = "relationprediction_tpu/ops/staircase2.py:505"
+REPLACES_BASIS_TWIN = "relationprediction_tpu/ops/staircase2.py:874"
 SERVE_TRIPLES = 2000
 TRAIN_STEPS = 20
 HUB_ROW = 1024  # rows longer than this are timed apart
@@ -119,13 +142,9 @@ def block_direction_bound(layout, n_vertices, n_rel, n_blocks, dr):
         layout.row_ptr.diff().long())
     runs = int(1 + ((targets.diff() != 0) | (layout.rel.diff() != 0))
                .sum().item()) if e else 0
-    ops = 2 * e * d + 2 * runs * d * dr
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return {"bytes": n_bytes, "ops": ops, "runs": runs,
+    return {**least_time(n_bytes, 2 * e * d + 2 * runs * d * dr), "runs": runs,
             "gathered_rows": rows, "relations": rels,
-            "ops_per_edge_products": 2 * e * n_blocks * dr * dr,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "ops_per_edge_products": 2 * e * n_blocks * dr * dr}
 
 
 def dblocks_bound(layout, n_vertices, n_rel, n_blocks, dr):
@@ -138,33 +157,117 @@ def dblocks_bound(layout, n_vertices, n_rel, n_blocks, dr):
     n_bytes = 4 * ((rows + tgts) * d + n_rel * n_blocks * dr * dr
                    + (n_vertices + 1) + 3 * e)
     ops = 2 * e * d * dr
+    return least_time(n_bytes, ops)
+
+
+def least_time(n_bytes, ops) -> dict:
+    """The least time for ``n_bytes`` of HBM traffic and ``ops`` f32
+    operations: the larger of the two times, and which it is."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+    return {"bytes": n_bytes, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def project_bound(m, k, n) -> dict:
+    """basis_project: read X [M, K] and W [K, N], write P [M, N], against
+    2 * M * K * N f32 operations."""
+    return least_time(4 * (m * k + k * n + m * n), 2 * m * k * n)
+
+
+def combine_bound(layout, n_rows, n_bases, d_out) -> dict:
+    """basis_combine on this layout: each gathered projected row (B *
+    d_out floats) once, the coefficients of the relations present, the
+    CSR, and ``out`` written once, against 2 * E * B * d_out f32
+    operations (one FMA per basis and column an edge) and E * B for the
+    edges' coefficients."""
+    e = layout.n_edges
+    rows = int(torch.unique(layout.src).numel()) if e else 0
+    rels = int(torch.unique(layout.rel).numel()) if e else 0
+    n_bytes = 4 * (rows * n_bases * d_out + n_rows * d_out + rels * n_bases
+                   + (n_rows + 1) + 3 * e)
+    return {**least_time(n_bytes, 2 * e * n_bases * d_out + e * n_bases),
+            "gathered_rows": rows}
+
+
+def sum_allowance(exact, abs_sum, n_terms):
+    """What an f32 evaluation of a sum may differ from its float64 value
+    ``exact`` at each element: 1e-5 + 1e-4 * |exact| (the kernel phase's
+    tolerance), plus sqrt(n) * 2^-24 * sum |terms| for the element's n
+    terms (``abs_sum``: the same sum of the terms' absolute values), the
+    usual size of the rounding error of an n-term f32 sum (Higham and
+    Mary, 2019)."""
+    return (1e-5 + 1e-4 * exact.abs()
+            + n_terms.double().sqrt() * F32_UNIT_ROUNDOFF * abs_sum)
+
+
+def with_weights(layout, w):
+    """``layout`` with the edge weights ``w``."""
+    return CsrLayout(row_ptr=layout.row_ptr, src=layout.src, rel=layout.rel,
+                     w=w)
+
+
 def twin_sum_allowance(g, blocks, layout, n_vertices):
-    """d features of one direction for the cotangent ``g``, in float64 by
-    autograd through block_direction_reference (no twin layout involved),
-    and what an f32 pass may differ from it at each element: 1e-5 +
-    1e-4 * |exact| (the kernel phase's tolerance), plus sqrt(n) * 2^-24 *
-    sum |terms| for the element's n terms, the usual size of the rounding
-    error of an n-term f32 sum (Higham and Mary, 2019). Returns (exact,
+    """d features of one block direction for the cotangent ``g``, in
+    float64 by autograd through block_direction_reference (no twin layout
+    involved), and its sum_allowance (dr terms an edge). Returns (exact,
     allowance), both [V, d] float64."""
     def d_features(g, blocks, w):
         x = torch.zeros(n_vertices, g.shape[1], dtype=torch.float64,
                         device=g.device, requires_grad=True)
         out = staircase2.block_direction_reference(
-            x, blocks, CsrLayout(row_ptr=layout.row_ptr, src=layout.src,
-                                 rel=layout.rel, w=w), n_vertices)
+            x, blocks, with_weights(layout, w), n_vertices)
         return torch.autograd.grad((out * g).sum(), x)[0]
     exact = d_features(g.double(), blocks.double(), layout.w)
     abs_sum = d_features(g.double().abs(), blocks.double().abs(),
                          layout.w.abs())
     n_terms = torch.bincount(layout.src.long(), minlength=n_vertices)
-    n_terms = n_terms.double()[:, None] * blocks.shape[-1]
-    return exact, (1e-5 + 1e-4 * exact.abs()
-                   + n_terms.sqrt() * F32_UNIT_ROUNDOFF * abs_sum)
+    return exact, sum_allowance(exact, abs_sum,
+                                n_terms[:, None] * blocks.shape[-1])
+
+
+def basis_exact(x, w_flat, coef, layout, n_vertices, probe):
+    """One basis direction and its d features for the cotangent ``probe``,
+    in float64 by autograd through basis_direction_reference on ``layout``
+    (no twin layout involved), each with its sum_allowance: (out,
+    out_allowance, dx, dx_allowance). An element of the forward sums
+    deg * B * d_in terms, one of d features deg_src * B * d_out."""
+    parts = []
+    for f, w in ((torch.Tensor.double, layout.w),
+                 (lambda t: t.double().abs(), layout.w.abs())):
+        xd = f(x).requires_grad_(True)
+        out = staircase2.basis_direction_reference(
+            xd, f(w_flat), f(coef), with_weights(layout, w), n_vertices)
+        dx = torch.autograd.grad((out * f(probe)).sum(), xd)[0]
+        parts.append((out.detach(), dx))
+    (out, dx), (out_abs, dx_abs) = parts
+    n_bases = coef.shape[1]
+    deg_tgt = layout.row_ptr.diff().long()
+    deg_src = torch.bincount(layout.src.long(), minlength=n_vertices)
+    return (out, sum_allowance(out, out_abs,
+                               deg_tgt[:, None] * n_bases * x.shape[1]),
+            dx, sum_allowance(dx, dx_abs,
+                              deg_src[:, None] * n_bases * probe.shape[1]))
+
+
+def combine_exact(proj, coef, layout, n_rows):
+    """basis_combine in float64 and its sum_allowance (B terms an edge)."""
+    exact = staircase2.basis_combine_reference(proj.double(), coef.double(),
+                                               layout, n_rows)
+    abs_sum = staircase2.basis_combine_reference(
+        proj.double().abs(), coef.double().abs(),
+        with_weights(layout, layout.w.abs()), n_rows)
+    deg = layout.row_ptr.diff().long()[:, None] * coef.shape[1]
+    return exact, sum_allowance(exact, abs_sum, deg)
+
+
+def project_exact(x, w):
+    """x @ w in float64 and what an f32 product may differ from it at each
+    element: sqrt(K) * 2^-24 * sum_k |x[m, k]| |w[k, n]|."""
+    exact = x.double() @ w.double()
+    allowance = (x.shape[1] ** 0.5 * F32_UNIT_ROUNDOFF
+                 * (x.double().abs() @ w.double().abs()))
+    return exact, allowance
 
 
 def over_allowance(got, exact, allowance) -> float:
@@ -191,6 +294,7 @@ def split_rows(layout, limit):
 
 def phase_kernel(graph, n_rel, n_blocks, dr, device):
     """block_direction against its plain version, both directions."""
+    t_phase = time.perf_counter()
     v = graph.n_vertices
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(v, n_blocks * dr, generator=gen).to(device)
@@ -226,14 +330,26 @@ def phase_kernel(graph, n_rel, n_blocks, dr, device):
                "largest_row": int(layout.row_ptr.diff().max().item()),
                "empty_rows": int((layout.row_ptr.diff() == 0).sum().item()),
                "edges": layout.n_edges, **bound}
-        emit("kernel", kernel="block_direction", **row)
+        emit("kernel", kernel="block_direction",
+             phase_s=time.perf_counter() - t_phase, **row)
         rows.append(row)
     return rows
 
 
-def phase_serve(ds, device):
-    """The serving path at full width, with the kernel's launch count."""
-    cfg = config.load(str(SETTINGS)).with_counts(
+def reset_launch_counts() -> None:
+    """Every kernel count to 0, just before a main path runs."""
+    for op in (staircase2.block_direction, staircase2.basis_direction):
+        op.launches = op.twin_launches = 0
+    staircase2.basis_direction.project_launches = 0
+
+
+def phase_serve(ds, device, settings=SETTINGS,
+                op=staircase2.block_direction, phase="serve"):
+    """The serving path at full width, with the kernels' launch counts:
+    ``op`` (block_direction or basis_direction) must have launched once a
+    direction and layer, and nothing else launched."""
+    t_phase = time.perf_counter()
+    cfg = config.load(str(settings)).with_counts(
         ds.n_entities, ds.n_relations, len(ds.train))
     model = build.build_model(cfg, device)
     params = model.init_params(torch.Generator().manual_seed(0))
@@ -254,8 +370,7 @@ def phase_serve(ds, device):
 
     # -- the main path: one encode, then the scoring chunks -------------
     torch.cuda.reset_peak_memory_stats()
-    staircase2.block_direction.launches = 0
-    staircase2.block_direction.twin_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     encoded = view.encoded(params, graph)
     torch.cuda.synchronize()
@@ -263,14 +378,20 @@ def phase_serve(ds, device):
     summary = scorer.compute_scores(triples)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = staircase2.block_direction.launches
+    launches = op.launches
+    project_launches = staircase2.basis_direction.project_launches
     peak = torch.cuda.max_memory_allocated()
-    if staircase2.block_direction.twin_launches != 0:
-        raise AssertionError("an encode for serving ran a twin pass")
+    if staircase2.launch_counts() != (launches, 0):
+        raise AssertionError(f"an encode for serving ran a twin pass or "
+                             f"another op: {staircase2.launch_counts()}")
     if launches != 2 * cfg.encoder.n_layers:
-        raise AssertionError(f"block_direction launched {launches} times in "
+        raise AssertionError(f"{op.__name__} launched {launches} times in "
                              f"one encode, expected "
                              f"{2 * cfg.encoder.n_layers}")
+    if project_launches != (launches if op is staircase2.basis_direction
+                            else 0):
+        raise AssertionError(f"basis_project launched {project_launches} "
+                             f"times for {launches} combine launches")
 
     codes = encoded.entity_codes
     if codes.shape != (ds.n_entities, cfg.encoder.code_dimension) \
@@ -337,8 +458,9 @@ def phase_serve(ds, device):
            "codes_max_abs_err_vs_cpu_plain": codes_err,
            "mrr_filtered_cpu_plain": ref_summary.results["Filtered"]["MRR"],
            "max_memory_allocated": peak,
-           "block_direction_launches": launches}
-    emit("serve", **row)
+           "launches": launches, "project_launches": project_launches}
+    emit(phase, settings=Path(settings).name,
+         phase_s=time.perf_counter() - t_phase, **row)
     return row
 
 
@@ -361,6 +483,7 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
     result may be near 0. The twin pass on the wrong twin (the opposite
     direction's CSR: the same edges with the other weights) must fail that
     allowance. Plain times are those of the float32 plain version."""
+    t_phase = time.perf_counter()
     lib, _ = staircase2.kernel_library()
     rows = []
     for graph_name, graph in graphs.items():
@@ -464,14 +587,229 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
                    "largest_row": int(layout.row_ptr.diff().max().item()),
                    "twin_largest_row": int(lengths.max().item()),
                    "twin_empty_rows": int((lengths == 0).sum().item())}
-            emit("grad", **row)
+            emit("grad", phase_s=time.perf_counter() - t_phase, **row)
             rows.append(row)
     return rows
 
 
-def phase_train(cfg, ds, device):
+def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
+    """basis_project against a float64 product at the forward and twin
+    shapes and two odd shapes; basis_combine and the twin pass (project g
+    by w_t, combine on the twin CSR) against float64 sums in both
+    directions of each graph; the twin pass on the wrong twin (the
+    opposite CSR) must fail its allowance. Times of each kernel, of its
+    plain version and, for basis_project, of torch.matmul (TF32 off), with
+    the bounds; hub rows and the others timed apart. Launches here go
+    through launch_project / launch_combine and count nowhere."""
+    t_phase = time.perf_counter()
+    lib, _ = staircase2.basis_kernel_library()
+    gen = torch.Generator().manual_seed(3)
+    v = next(iter(graphs.values())).n_vertices
+    x = torch.randn(v, d, generator=gen).to(device)
+    w_flat = torch.randn(d, n_bases * d, generator=gen).to(device)
+    w_t = staircase2.basis_twin_weights(w_flat, n_bases)
+    probe = torch.randn(v, d, generator=gen).to(device)
+    coef = torch.randn(n_rel, n_bases, generator=gen).to(device)
+
+    rows = []
+    operands = {"forward": (x, w_flat), "twin": (probe, w_t)}
+    for m, k, n in ((1, 1, 7), (129, 33, 65)):
+        operands[f"odd_{m}x{k}x{n}"] = (
+            torch.randn(m, k, generator=gen).to(device),
+            torch.randn(k, n, generator=gen).to(device))
+    for name, (a, b) in operands.items():
+        got = staircase2.launch_project(lib, a, b)
+        exact, allowance = project_exact(a, b)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"basis_project {name}: not finite")
+        over = over_allowance(got, exact, allowance)
+        if not over <= 1:
+            raise AssertionError(f"basis_project {name}: {over} of the "
+                                 f"f32 rounding allowance")
+        (m, k), n = a.shape, b.shape[1]
+        row = {"kernel": "basis_project", "shape": name, "m": m, "k": k,
+               "n": n,
+               "max_abs_err": (got.double() - exact).abs().max().item(),
+               "over_allowance": over,
+               "kernel_ms": cuda_ms(
+                   lambda: staircase2.launch_project(lib, a, b), 20),
+               "plain_ms": cuda_ms(
+                   lambda: staircase2.basis_project_reference(a, b), 20),
+               "library_ms": cuda_ms(lambda: torch.matmul(a, b), 20),
+               **project_bound(m, k, n)}
+        emit("kernel_basis", phase_s=time.perf_counter() - t_phase, **row)
+        rows.append(row)
+
+    proj = staircase2.launch_project(lib, x, w_flat)
+    q = staircase2.launch_project(lib, probe, w_t)
+    for graph_name, graph in graphs.items():
+        for name, layout, twin, wrong in (
+                ("forward", graph.fwd, graph.fwd_twin, graph.bwd),
+                ("backward", graph.bwd, graph.bwd_twin, graph.fwd)):
+            got = staircase2.launch_combine(lib, proj, coef, layout, v)
+            twin_out = staircase2.launch_combine(lib, q, coef, twin, v)
+            wrong_out = staircase2.launch_combine(lib, q, coef, wrong, v)
+            exact, allowance = combine_exact(proj, coef, layout, v)
+            _, _, dx, dx_allowance = basis_exact(x, w_flat, coef, layout, v,
+                                                 probe)
+            torch.cuda.synchronize()
+            for t in (got, twin_out):
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"basis_combine {graph_name}/"
+                                         f"{name}: not finite")
+            over = over_allowance(got, exact, allowance)
+            twin_over = over_allowance(twin_out, dx, dx_allowance)
+            wrong_over = over_allowance(wrong_out, dx, dx_allowance)
+            if not (over <= 1 and twin_over <= 1):
+                raise AssertionError(
+                    f"basis_combine {graph_name}/{name}: forward or twin "
+                    f"pass beyond the f32 rounding allowance ({over}, "
+                    f"{twin_over} of it)")
+            if not wrong_over > 1:
+                raise AssertionError(
+                    f"basis_combine {graph_name}/{name}: the wrong twin "
+                    f"passes the allowance ({wrong_over} of it)")
+            row = {"kernel": "basis_combine", "graph": graph_name,
+                   "direction": name, "edges": layout.n_edges,
+                   "max_abs_err": (got.double() - exact).abs().max().item(),
+                   "over_allowance": over,
+                   "twin_max_abs_err": (twin_out.double() - dx).abs().max()
+                   .item(),
+                   "twin_over_allowance": twin_over,
+                   "wrong_twin_over_allowance": wrong_over}
+            for part, lay, p in (("", layout, proj), ("twin_", twin, q)):
+                hubs, rest = split_rows(lay, HUB_ROW)
+                lengths = lay.row_ptr.diff()
+                b = combine_bound(lay, v, n_bases, d)
+                row.update({
+                    f"{part}kernel_ms": cuda_ms(
+                        lambda: staircase2.launch_combine(lib, p, coef, lay,
+                                                          v), 20),
+                    f"{part}plain_ms": cuda_ms(
+                        lambda: staircase2.basis_combine_reference(
+                            p, coef, lay, v), 3, warmup=1),
+                    f"{part}hub_rows_only_ms": cuda_ms(
+                        lambda: staircase2.launch_combine(lib, p, coef, hubs,
+                                                          v), 10),
+                    f"{part}other_rows_only_ms": cuda_ms(
+                        lambda: staircase2.launch_combine(lib, p, coef, rest,
+                                                          v), 10),
+                    f"{part}rows_over_{HUB_ROW}": int(
+                        (lengths > HUB_ROW).sum().item()),
+                    f"{part}largest_row": int(lengths.max().item()),
+                    f"{part}empty_rows": int((lengths == 0).sum().item()),
+                    f"{part}bound_ms": b["bound_ms"],
+                    f"{part}bound_by": b["bound_by"],
+                    f"{part}bytes": b["bytes"],
+                    f"{part}gathered_rows": b["gathered_rows"]})
+            # The whole twin pass as the backward runs it: project g by
+            # w_t, then combine on the twin CSR.
+            row["twin_pass_ms"] = cuda_ms(
+                lambda: staircase2.launch_combine(
+                    lib, staircase2.launch_project(lib, probe, w_t), coef,
+                    twin, v), 20)
+            emit("kernel_basis", phase_s=time.perf_counter() - t_phase,
+                 **row)
+            rows.append(row)
+    return rows
+
+
+def phase_grad_basis(graphs, n_rel, n_bases, d, device):
+    """basis_direction's output and gradient (project + combine forward,
+    twin pass, torch d W_flat and d C) against autograd through
+    basis_direction_reference in float64 on the card, both directions of
+    each graph: the output and d features within the rounding an f32 sum
+    of their terms may have (basis_exact), d W_flat and d C within
+    rtol 1e-4 and 1e-4 of their largest entry (sums over up to ~44k edges
+    of a relation, with atomics). Times of the differentiable op's
+    forward, of d W_flat + d C, of its whole backward and of the plain
+    backward (float32)."""
+    t_phase = time.perf_counter()
+    lib, _ = staircase2.basis_kernel_library()
+    rows = []
+    for graph_name, graph in graphs.items():
+        v = graph.n_vertices
+        gen = torch.Generator().manual_seed(4)
+        x = torch.randn(v, d, generator=gen).to(device)
+        w_flat = (torch.randn(d, n_bases * d, generator=gen)
+                  * d ** -0.5).to(device)
+        coef = torch.randn(n_rel, n_bases, generator=gen).to(device)
+        probe = torch.randn(v, d, generator=gen).to(device)
+        for name, layout, twin in (("forward", graph.fwd, graph.fwd_twin),
+                                   ("backward", graph.bwd, graph.bwd_twin)):
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (x, w_flat, coef)]
+            out = staircase2.basis_direction(*leaves, layout, v, twin)
+            loss = (out * probe).sum()
+            gx, gw, gc = torch.autograd.grad(loss, leaves,
+                                             retain_graph=True)
+            out_ref, out_allowance, gx_ref, gx_allowance = basis_exact(
+                x, w_flat, coef, layout, v, probe)
+            w64 = w_flat.double().requires_grad_(True)
+            c64 = coef.double().requires_grad_(True)
+            gw_ref, gc_ref = torch.autograd.grad(
+                (staircase2.basis_direction_reference(
+                    x.double(), w64, c64, layout, v)
+                 * probe.double()).sum(), (w64, c64))
+            torch.cuda.synchronize()
+            for t in (out, gx, gw, gc):
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"{graph_name}/{name}: output or "
+                                         f"gradient not finite")
+            out_over = over_allowance(out.detach(), out_ref, out_allowance)
+            gx_over = over_allowance(gx, gx_ref, gx_allowance)
+            if not (out_over <= 1 and gx_over <= 1):
+                raise AssertionError(
+                    f"{graph_name}/{name}: output or d features beyond the "
+                    f"f32 rounding allowance ({out_over}, {gx_over} of it)")
+            for got, ref in ((gw, gw_ref), (gc, gc_ref)):
+                torch.testing.assert_close(
+                    got, ref.float(), rtol=1e-4,
+                    atol=1e-4 * ref.abs().max().item())
+            proj = staircase2.launch_project(lib, x, w_flat)
+            xr = [t.clone().requires_grad_(True) for t in (x, w_flat, coef)]
+            ref_loss = (staircase2.basis_direction_reference(*xr, layout, v)
+                        * probe).sum()
+            row = {"graph": graph_name, "direction": name,
+                   "edges": layout.n_edges,
+                   "forward_max_abs_err":
+                       (out.detach().double() - out_ref).abs().max().item(),
+                   "forward_over_allowance": out_over,
+                   "dfeatures_max_abs_err":
+                       (gx.double() - gx_ref).abs().max().item(),
+                   "dfeatures_over_allowance": gx_over,
+                   "dw_max_abs_err": (gw.double() - gw_ref).abs().max()
+                   .item(),
+                   "dw_max_abs": gw_ref.abs().max().item(),
+                   "dc_max_abs_err": (gc.double() - gc_ref).abs().max()
+                   .item(),
+                   "dc_max_abs": gc_ref.abs().max().item(),
+                   "forward_ms": cuda_ms(lambda: staircase2.basis_direction(
+                       x, w_flat, coef, layout, v), 10),
+                   "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                       loss, leaves, retain_graph=True), 5),
+                   "twin_weights_ms": cuda_ms(
+                       lambda: staircase2.basis_twin_weights(w_flat,
+                                                             n_bases), 10),
+                   "dweights_ms": cuda_ms(
+                       lambda: staircase2.basis_direction_dweights(
+                           x, proj, probe, coef, layout), 5),
+                   "plain_backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                       ref_loss, xr, retain_graph=True), 3, warmup=1)}
+            emit("grad_basis", phase_s=time.perf_counter() - t_phase, **row)
+            rows.append(row)
+    return rows
+
+
+def phase_train(cfg, ds, device, op=staircase2.block_direction,
+                phase="train", steps=TRAIN_STEPS):
     """One step on the card against the CPU plain path, then the training
-    path through TrainLoop.fit with the kernels' launch counts."""
+    path through TrainLoop.fit with the kernels' launch counts: ``op``
+    (block_direction or basis_direction) must have launched once a
+    direction and layer in each step, forward and twin, and nothing else
+    launched."""
+    t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     logged = []
     loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append)
@@ -509,56 +847,69 @@ def phase_train(cfg, ds, device):
             raise AssertionError(f"gradient leaf {list(c.shape)} differs "
                                  f"from the CPU plain path: relative L2 "
                                  f"{rel}")
-    emit("train_step_vs_cpu", loss=loss.item(), cpu_loss=cpu_loss.item(),
-         loss_rel_diff=loss_rel, grads=grad_rows)
+    emit(f"{phase}_step_vs_cpu", phase_s=time.perf_counter() - t_phase,
+         loss=loss.item(), cpu_loss=cpu_loss.item(), loss_rel_diff=loss_rel,
+         grads=grad_rows)
 
     # -- the main path: TrainLoop.fit ------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    staircase2.block_direction.launches = 0
-    staircase2.block_direction.twin_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
-    result = loop.fit(params, opt_state, max_iterations=TRAIN_STEPS)
+    result = loop.fit(params, opt_state, max_iterations=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = staircase2.block_direction.launches
-    twin_launches = staircase2.block_direction.twin_launches
+    launches, twin_launches = op.launches, op.twin_launches
+    project_launches = staircase2.basis_direction.project_launches
     peak = torch.cuda.max_memory_allocated()
-    steps = result.steps
+    records = result.steps
     per_layer = 2 * cfg.encoder.n_layers
-    for s in steps:
+    for s in records:
         if s["launches"] != per_layer or s["twin_launches"] != per_layer:
             raise AssertionError(f"step {s['iteration']}: "
                                  f"{s['launches']} forward and "
                                  f"{s['twin_launches']} twin launches, "
                                  f"expected {per_layer} each")
-    if launches != per_layer * TRAIN_STEPS \
-            or twin_launches != per_layer * TRAIN_STEPS:
+    if staircase2.launch_counts() != (launches, twin_launches) \
+            or launches != per_layer * steps \
+            or twin_launches != per_layer * steps:
         raise AssertionError(f"fit launched {launches} forward and "
-                             f"{twin_launches} twin passes")
-    losses = {i: steps[i - 1]["loss"] for i in (1, 10, TRAIN_STEPS)}
+                             f"{twin_launches} twin passes of "
+                             f"{op.__name__}, all ops "
+                             f"{staircase2.launch_counts()}")
+    if project_launches != (launches + twin_launches
+                            if op is staircase2.basis_direction else 0):
+        raise AssertionError(f"basis_project launched {project_launches} "
+                             f"times for {launches + twin_launches} "
+                             f"combine launches")
+    losses = {i: records[i - 1]["loss"] for i in (1, steps // 2, steps)}
     if not all(np.isfinite(v) for v in losses.values()) \
-            or not losses[TRAIN_STEPS] < losses[1]:
+            or not losses[steps] < losses[1]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     timing = loop.timer.summary()
     row = {"steps": result.iterations, "positives": loop.pipeline.
            graph_batch_size, "message_edges": loop.pipeline.split_size,
-           "batch_ms_median": statistics.median(s["batch_ms"] for s in steps),
-           "step_ms_median": statistics.median(s["step_ms"] for s in steps),
-           "step_ms_first": steps[0]["step_ms"],
-           "batch_ms": [s["batch_ms"] for s in steps],
-           "step_ms": [s["step_ms"] for s in steps],
-           "loss_1": losses[1], "loss_10": losses[10],
-           f"loss_{TRAIN_STEPS}": losses[TRAIN_STEPS],
+           "batch_ms_median": statistics.median(s["batch_ms"]
+                                                for s in records),
+           "step_ms_median": statistics.median(s["step_ms"]
+                                               for s in records),
+           "step_ms_first": records[0]["step_ms"],
+           "batch_ms": [s["batch_ms"] for s in records],
+           "step_ms": [s["step_ms"] for s in records],
+           **{f"loss_{i}": v for i, v in losses.items()},
            "wall_s": wall_s, "steps_per_s": timing["steps_per_sec"],
            "edges_per_s": timing["edges_per_sec"],
-           "launches_per_step": launches // TRAIN_STEPS,
-           "twin_launches_per_step": twin_launches // TRAIN_STEPS,
+           "launches_per_step": launches // steps,
+           "twin_launches_per_step": twin_launches // steps,
+           "project_launches_per_step": project_launches // steps,
            "max_memory_allocated": peak, "log": logged}
-    emit("train", **row)
-    emit("train_breakdown", **host_batch_breakdown(loop.pipeline, device),
-         **profile_steps(loop, params, result.opt_state))
-    return {**row, "launches": launches, "twin_launches": twin_launches}
+    emit(phase, settings=cfg.training.experiment_name,
+         phase_s=time.perf_counter() - t_phase, **row)
+    emit(f"{phase}_breakdown", **host_batch_breakdown(loop.pipeline, device),
+         **profile_steps(loop, params, result.opt_state),
+         phase_s=time.perf_counter() - t_phase)
+    return {**row, "launches": launches, "twin_launches": twin_launches,
+            "project_launches": project_launches}
 
 
 def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
@@ -619,10 +970,10 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
 
 
 def kernels_line(rows, serve, grads, train) -> list:
-    """Both kernels with this run's numbers. block_direction is timed on
-    the full train graph (the serving path's shape) and on the first
-    training batch's graph; block_direction_twin on the training batch
-    (its path) and on the full train graph. Times and bounds are means
+    """The block kernel's two entries with this run's numbers.
+    block_direction is timed on the full train graph (the serving path's
+    shape) and on the first training batch's graph; block_direction_twin
+    on the training batch (its path) and on the full train graph. Times and bounds are means
     over the two directions; launches are the training run's."""
     def mean(items, key):
         return sum(r[key] for r in items) / len(items)
@@ -631,7 +982,7 @@ def kernels_line(rows, serve, grads, train) -> list:
     return [{
         "name": "block_direction", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": train["launches"],
-        "launches_serve": serve["block_direction_launches"],
+        "launches_serve": serve["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "train_batch_max_abs_err": max(r["forward_max_abs_err"]
                                        for r in batch),
@@ -655,35 +1006,118 @@ def kernels_line(rows, serve, grads, train) -> list:
         "full_train_bound_ms": mean(full, "twin_bound_ms")}]
 
 
+def basis_kernels_line(kb, serve, train) -> list:
+    """basis_project and basis_combine with this run's numbers.
+    basis_project is timed at the forward shape (x [V, d] @ W_flat) and the
+    twin shape (g [V, d] @ w_t), torch.matmul beside it. basis_combine is
+    timed on the full train graph (the serving path's shape) and on the
+    first training batch's graph, forward and twin; times and bounds are
+    means over the two directions. Launches are the training run's, split
+    into forward and twin passes, and the serving run's."""
+    def mean(items, key):
+        return sum(r[key] for r in items) / len(items)
+    proj = {r["shape"]: r for r in kb if r["kernel"] == "basis_project"}
+    comb = [r for r in kb if r["kernel"] == "basis_combine"]
+    full = [r for r in comb if r["graph"] == "full_train"]
+    batch = [r for r in comb if r["graph"] == "train_batch"]
+    fwd, twin = proj["forward"], proj["twin"]
+    return [{
+        "name": "basis_project", "route": "cuda", "source": BASIS_SOURCE,
+        "replaces": REPLACES_BASIS, "replaces_twin": REPLACES_BASIS_TWIN,
+        "launches": train["project_launches"],
+        "launches_forward": train["launches"],
+        "launches_twin": train["twin_launches"],
+        "launches_serve": serve["project_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in proj.values()),
+        "max_over_allowance": max(r["over_allowance"]
+                                  for r in proj.values()),
+        "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
+        "twin_ms": twin["kernel_ms"], "twin_library_ms": twin["library_ms"],
+        "twin_bound_ms": twin["bound_ms"]}, {
+        "name": "basis_combine", "route": "cuda", "source": BASIS_SOURCE,
+        "replaces": REPLACES_BASIS, "replaces_twin": REPLACES_BASIS_TWIN,
+        "launches": train["launches"] + train["twin_launches"],
+        "launches_forward": train["launches"],
+        "launches_twin": train["twin_launches"],
+        "launches_serve": serve["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in comb),
+        "max_over_allowance": max(max(r["over_allowance"],
+                                      r["twin_over_allowance"])
+                                  for r in comb),
+        "ms": mean(full, "kernel_ms"), "plain_ms": mean(full, "plain_ms"),
+        "bound_ms": mean(full, "bound_ms"), "bound_by": full[0]["bound_by"],
+        "library_ms": None,
+        "train_batch_ms": mean(batch, "kernel_ms"),
+        "train_batch_plain_ms": mean(batch, "plain_ms"),
+        "train_batch_bound_ms": mean(batch, "bound_ms"),
+        "train_batch_twin_ms": mean(batch, "twin_kernel_ms"),
+        "train_batch_twin_plain_ms": mean(batch, "twin_plain_ms"),
+        "train_batch_twin_bound_ms": mean(batch, "twin_bound_ms"),
+        "full_train_twin_ms": mean(full, "twin_kernel_ms"),
+        "full_train_twin_bound_ms": mean(full, "twin_bound_ms")}]
+
+
+def build_all() -> None:
+    """Build both kernel sources at once, one nvcc each."""
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = {source: pool.submit(fn) for source, fn in (
+            (KERNEL_SOURCE, staircase2.kernel_library),
+            (BASIS_SOURCE, staircase2.basis_kernel_library))}
+    for source, future in futures.items():
+        _, info = future.result()
+        emit("build", source=source, phase_s=time.perf_counter() - t_phase,
+             **info.as_dict())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    t_phase = time.perf_counter()
     exact_float32()
     device = torch.device("cuda:0")
     smi = nvidia_smi_line()
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
-
-    _, info = staircase2.kernel_library()
-    emit("build", source=KERNEL_SOURCE, **info.as_dict())
+         torch=torch.__version__, cuda=torch.version.cuda,
+         phase_s=time.perf_counter() - t_phase)
+    build_all()
 
     ds = synthetic.like("FB15k-237", seed=0)
     graph = build_graph_batch(ds.train, ds.n_entities,
                               ds.n_relations).to(device)
-    n_blocks, dr = 100, 5
-    rows = phase_kernel(graph, ds.n_relations, n_blocks,
-                        dr, device)
-    serve = phase_serve(ds, device)
     cfg = config.load(str(SETTINGS)).with_counts(
         ds.n_entities, ds.n_relations, len(ds.train))
-    grads = phase_grad({"full_train": graph,
-                        "train_batch": first_batch_graph(cfg, ds, device)},
-                       ds.n_relations, n_blocks, dr, device)
+    # gcn_basis.exp samples its batches as gcn_block.exp does, so the
+    # first training batch's graph is the same for both.
+    graphs = {"full_train": graph,
+              "train_batch": first_batch_graph(cfg, ds, device)}
+
+    # gcn_block.exp: 100 blocks of 5x5
+    n_blocks, dr = 100, 5
+    rows = phase_kernel(graph, ds.n_relations, n_blocks, dr, device)
+    serve = phase_serve(ds, device)
+    grads = phase_grad(graphs, ds.n_relations, n_blocks, dr, device)
     train = phase_train(cfg, ds, device)
-    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train)}),
+
+    # gcn_basis.exp: 5 bases of 500 x 500
+    basis_cfg = config.load(str(BASIS_SETTINGS)).with_counts(
+        ds.n_entities, ds.n_relations, len(ds.train))
+    n_bases = basis_cfg.encoder.n_bases
+    d = basis_cfg.encoder.internal_dimension
+    kb = phase_kernel_basis(graphs, ds.n_relations, n_bases, d, device)
+    serve_b = phase_serve(ds, device, BASIS_SETTINGS,
+                          staircase2.basis_direction, "serve_basis")
+    phase_grad_basis(graphs, ds.n_relations, n_bases, d, device)
+    train_b = phase_train(basis_cfg, ds, device, staircase2.basis_direction,
+                          "train_basis")
+
+    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train)
+                      + basis_kernels_line(kb, serve_b, train_b)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Model assembly: config -> encoder/decoder over a dictionary of parameters.
 
 Counterpart of ``relationprediction_tpu/models/build.py`` for
-``settings/gcn_block.exp``: the block-diagonal R-GCN with an input transform
-and the DistMult decoder, encoded in test mode and scored against all
+``settings/gcn_block.exp`` and ``settings/gcn_basis.exp``: the
+block-diagonal or basis-decomposition R-GCN with an input transform and the
+DistMult decoder, encoded in test mode and scored against all
 entities, or encoded in train mode and scored by the factored binomial loss.
 Parameters are a plain dictionary of tensors with the JAX package's tree
 layout (params.py converts between the two).
@@ -70,14 +71,16 @@ def _check_supported(config: RunConfig) -> None:
     if e.name != "gcn_basis":
         raise NotImplementedError(f"encoder {e.name!r} is not ported yet "
                                   f"(ROADMAP.md Queue 1 item 6)")
-    if e.gcn_variant != "block":
+    if e.gcn_variant not in enc.PORTED_VARIANTS:
         raise enc.not_ported(e.gcn_variant)
+    # Without an input transform the first layer takes one-hot input and
+    # runs the v1 staircase kernel (TPU kernel 3), not ported yet.
     if not e.use_input_transform or e.random_input \
             or e.partially_random_input or e.use_output_transform \
             or e.skip_connections != "None":
-        raise NotImplementedError("only the gcn_block.exp input/output "
-                                  "stages are ported (ROADMAP.md Queue 1 "
-                                  "item 6)")
+        raise NotImplementedError("only the gcn_block.exp / gcn_basis.exp "
+                                  "input/output stages are ported "
+                                  "(ROADMAP.md Queue 1 item 6)")
     if e.message_precision != "float32":
         raise NotImplementedError("message_precision=bfloat16 is not ported "
                                   "yet (ROADMAP.md Queue 1 item 6)")

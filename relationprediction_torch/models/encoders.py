@@ -1,8 +1,9 @@
 """Encoder components as (init, apply) pairs over dictionaries of tensors.
 
 Counterpart of ``relationprediction_tpu/models/encoders.py`` for what
-``settings/gcn_block.exp`` runs: the affine input stage, the relation
-embedding and the block-diagonal R-GCN layer. Other layer variants raise
+``settings/gcn_block.exp`` and ``settings/gcn_basis.exp`` run: the affine
+input stage, the relation embedding and the block-diagonal and
+basis-decomposition R-GCN layers on dense input. Other layer variants raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -62,19 +63,32 @@ def init_relation_embedding(generator: torch.Generator, n_relations: int,
 # Message-passing GCN layer
 # ---------------------------------------------------------------------------
 
+PORTED_VARIANTS = ("block", "basis")
+
+
 def not_ported(variant: str) -> NotImplementedError:
-    item = 4 if variant == "basis" else 6
     return NotImplementedError(
         f"gcn variant {variant!r} is not ported yet "
-        f"(ROADMAP.md Queue 1 item {item})")
+        f"(ROADMAP.md Queue 1 item 6)")
 
 
 def init_gcn_layer(generator: torch.Generator, variant: str, *,
                    n_relations: int, d_in: int, d_out: int,
                    n_bases: int) -> Dict[str, torch.Tensor]:
-    """One dense-input layer's parameters (``encoders.py:105-118``)."""
-    if variant != "block":
+    """One dense-input layer's parameters (``encoders.py:94-118``)."""
+    if variant not in PORTED_VARIANTS:
         raise not_ported(variant)
+    if variant == "basis":
+        g = init.glorot_std(d_in, d_out)
+        return {
+            "W_forward": init.normal(generator, (d_in, n_bases, d_out), g),
+            "W_backward": init.normal(generator, (d_in, n_bases, d_out), g),
+            "C_forward": init.normal(generator, (n_relations, n_bases), 1.0),
+            "C_backward": init.normal(generator, (n_relations, n_bases),
+                                      1.0),
+            "W_self": init.normal(generator, (d_in, d_out), g),
+            "b": init.zeros((d_out,), generator.device),  # unused (ref quirk)
+        }
     if d_out % n_bases != 0:
         raise ValueError("block variant needs d_out % n_blocks == 0")
     dr = d_out // n_bases
@@ -99,20 +113,31 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
                     keep_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """One R-GCN layer (``message_gcn.py:49-79``; ``encoders.py:276-303``):
-    both directions through ``staircase2.block_direction`` (differentiable
-    through their twin layouts), then the self-loop, then an optional
-    ReLU. ``keep_mask``: see ``_combine_with_self_loop``."""
-    if variant != "block":
+    both directions through ``staircase2.block_direction`` or
+    ``staircase2.basis_direction`` (differentiable through their twin
+    layouts), then the self-loop, then an optional ReLU. ``keep_mask``:
+    see ``_combine_with_self_loop``."""
+    if variant not in PORTED_VARIANTS:
         raise not_ported(variant)
     if features is None:
-        raise ValueError("block-diagonal layer requires dense input "
-                         "(use an input transform before it)")
-    collected_f = staircase2.block_direction(
-        features, params["W_forward"], graph.fwd, n_vertices,
-        graph.fwd_twin)
-    collected_b = staircase2.block_direction(
-        features, params["W_backward"], graph.bwd, n_vertices,
-        graph.bwd_twin)
+        raise ValueError(f"the {variant} layer requires dense input "
+                         f"(use an input transform before it)")
+    if variant == "block":
+        collected_f = staircase2.block_direction(
+            features, params["W_forward"], graph.fwd, n_vertices,
+            graph.fwd_twin)
+        collected_b = staircase2.block_direction(
+            features, params["W_backward"], graph.bwd, n_vertices,
+            graph.bwd_twin)
+    else:
+        # [d_in, B, d_out] -> W_flat [d_in, B*d_out], a view
+        # (``encoders.py:287-290``).
+        collected_f = staircase2.basis_direction(
+            features, params["W_forward"].flatten(1), params["C_forward"],
+            graph.fwd, n_vertices, graph.fwd_twin)
+        collected_b = staircase2.basis_direction(
+            features, params["W_backward"].flatten(1), params["C_backward"],
+            graph.bwd, n_vertices, graph.bwd_twin)
     return _combine_with_self_loop(
         params, features, collected_f + collected_b,
         use_nonlinearity=use_nonlinearity, dropout_keep=dropout_keep,
@@ -131,7 +156,7 @@ def _combine_with_self_loop(params, features, combined, *, use_nonlinearity,
                             dropout_keep, deterministic, generator,
                             keep_mask=None):
     """Self-loop + nonlinearity tail (``encoders.py:357-380``). The block
-    variant creates a bias but never adds it (reference quirk).
+    and basis variants create a bias but never add it (reference quirk).
 
     In train mode (``deterministic`` false) the self-loop gets dropout:
     ``keep_mask`` [V, d] bool where given (the tests feed the JAX

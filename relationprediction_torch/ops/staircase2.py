@@ -1,4 +1,6 @@
-"""Block-diagonal relational aggregation: the CUDA kernel and its plain form.
+"""Relational aggregation of one direction: the CUDA kernels and their plain
+forms, for the block-diagonal (``block_direction``) and the
+basis-decomposition (``basis_direction``) R-GCN layers.
 
 Counterpart of ``relationprediction_tpu/ops/staircase2.py`` (same module
 name). ``block_direction`` computes
@@ -23,6 +25,27 @@ On a CUDA tensor both kernel passes launch the kernels of
 ``csrc/block_direction.cu`` or raise; on a CPU tensor they run
 ``block_direction_reference``, the plain PyTorch version, so the CPU path
 runs the same backward formulas (twin layout, twin weights, d blocks).
+
+``basis_direction`` (the JAX package's ``staircase2.py:804-897``) computes
+
+    out[v] = sum over edges e with target v of
+             w_e * sum_b C[r_e, b] * (features[src_e] @ W_b)
+
+with ``W_flat`` [d_in, B*d_out] (W_b its columns b*d_out..(b+1)*d_out) and
+C [R, B], as two kernels of ``csrc/basis_direction.cu``: ``basis_project``
+(P = features @ W_flat, once per vertex) and ``basis_combine`` (per target
+row, sum over its edges of w_e * sum_b C[r_e, b] * P[src_e, b, :]). Its
+gradient is
+
+    d features = basis_combine(g @ w_t, C, twin)   (the twin pass)
+    d W_flat[i, b*d_out + o] = sum over edges e of
+                w_e * C[r_e, b] * features[src_e, i] * g[tgt_e, o]
+    d C[r, b] = sum over edges e of relation r of
+                w_e * <P[src_e, b, :], g[tgt_e]>
+
+with ``w_t`` [d_out, B*d_in], w_t[o, b*d_in + i] = W_flat[i, b*d_out + o],
+the per-basis transposed stacks (``staircase2.py:859-861``). The last two
+are torch ops over chunks of edges (``basis_direction_dweights``).
 """
 from __future__ import annotations
 
@@ -37,7 +60,9 @@ from ..graph import CsrLayout
 from . import nvcc
 
 _SOURCE = "block_direction.cu"
+_BASIS_SOURCE = "basis_direction.cu"
 _MAX_DR = 8
+_EDGE_CHUNK = 16384
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,7 +94,7 @@ def _row_of_edge(layout: CsrLayout) -> torch.Tensor:
 
 def block_direction_reference(features: torch.Tensor, blocks: torch.Tensor,
                               layout: CsrLayout, n_vertices: int,
-                              edge_chunk: int = 16384) -> torch.Tensor:
+                              edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
     """Plain PyTorch version: gather, per-edge block transform in chunks of
     edges (so [E, B, dr, dr] weights never exist at once), ``index_add_``.
     Sums in the features' dtype (float64 inputs give a float64 result)."""
@@ -90,7 +115,7 @@ def block_direction_reference(features: torch.Tensor, blocks: torch.Tensor,
 
 def block_direction_dblocks(features: torch.Tensor, g: torch.Tensor,
                             blocks_shape, layout: CsrLayout,
-                            edge_chunk: int = 16384) -> torch.Tensor:
+                            edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
     """d blocks [R, B, dr, dr] of one direction for the cotangent ``g`` of
     its output: per chunk of edges, the weighted outer products
     g[tgt] x[src]^T of each block, added into their relation with
@@ -202,23 +227,35 @@ def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
     return out
 
 
+def _check_tensors(op: str, device, tensors: dict, dtypes: dict) -> None:
+    """Raise unless every tensor is on ``device``, of its dtype and
+    contiguous."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{op}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{op}: {name} is {t.dtype}, expected "
+                            f"{dtypes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} is not contiguous")
+
+
+def _csr_tensors(layout: CsrLayout) -> tuple:
+    """(tensors, dtypes) of a CSR layout, for ``_check_tensors``."""
+    return ({"row_ptr": layout.row_ptr, "src": layout.src,
+             "rel": layout.rel, "w": layout.w},
+            {"row_ptr": torch.int32, "src": torch.int32,
+             "rel": torch.int32, "w": torch.float32})
+
+
 def _check(features, blocks, layout, n_vertices) -> None:
     """Raise on anything the kernel does not take."""
-    tensors = {"features": features, "blocks": blocks,
-               "row_ptr": layout.row_ptr, "src": layout.src,
-               "rel": layout.rel, "w": layout.w}
-    dtypes = {"features": torch.float32, "blocks": torch.float32,
-              "row_ptr": torch.int32, "src": torch.int32,
-              "rel": torch.int32, "w": torch.float32}
-    for name, t in tensors.items():
-        if t.device != features.device:
-            raise ValueError(f"block_direction: {name} is on {t.device}, "
-                             f"features on {features.device}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"block_direction: {name} is {t.dtype}, "
-                            f"expected {dtypes[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"block_direction: {name} is not contiguous")
+    tensors, dtypes = _csr_tensors(layout)
+    _check_tensors("block_direction", features.device,
+                   {"features": features, "blocks": blocks, **tensors},
+                   {"features": torch.float32, "blocks": torch.float32,
+                    **dtypes})
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"block_direction: blocks must be [R, B, dr, dr], "
                          f"got {tuple(blocks.shape)}")
@@ -239,3 +276,283 @@ def _check(features, blocks, layout, n_vertices) -> None:
     e = layout.n_edges
     if layout.rel.shape[0] != e or layout.w.shape[0] != e:
         raise ValueError("block_direction: src, rel and w differ in length")
+
+
+# ---------------------------------------------------------------------------
+# basis_direction
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def basis_kernel_library() -> tuple:
+    """Build (at first use) and bind the basis kernels: (CDLL,
+    nvcc.BuildInfo)."""
+    lib, info = nvcc.load(_BASIS_SOURCE)
+    return bind_basis_library(lib), info
+
+
+def bind_basis_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from the basis source."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.basis_project_f32.argtypes = [p, p, p, i, i, i, i, p]
+    lib.basis_project_f32.restype = i
+    lib.basis_combine_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.basis_combine_f32.restype = i
+    for fn in (lib.basis_direction_max_bases, lib.basis_direction_max_cols):
+        fn.argtypes = []
+        fn.restype = i
+    lib.basis_direction_error_string.argtypes = [i]
+    lib.basis_direction_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def basis_project_reference(x: torch.Tensor, w: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version of ``basis_project``: x @ w in full float32 (or in the
+    inputs' dtype)."""
+    exact_float32()
+    return torch.matmul(x, w)
+
+
+def basis_combine_reference(proj: torch.Tensor, coefficients: torch.Tensor,
+                            layout: CsrLayout, n_rows: int,
+                            edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
+    """Plain version of ``basis_combine``: per chunk of edges, gather the
+    projected rows [e, B, d_out], weight them by w_e * C[r_e, b], sum over
+    b and ``index_add_`` into the rows. Sums in ``proj``'s dtype."""
+    n_bases = coefficients.shape[1]
+    d_out = proj.shape[1] // n_bases
+    rows = _row_of_edge(layout)
+    out = torch.zeros(n_rows, d_out, dtype=proj.dtype, device=proj.device)
+    for start in range(0, layout.n_edges, edge_chunk):
+        sl = slice(start, start + edge_chunk)
+        p = proj[layout.src[sl].long()].view(-1, n_bases, d_out)
+        c = (coefficients[layout.rel[sl].long()]
+             * layout.w[sl, None]).to(proj.dtype)
+        out.index_add_(0, rows[sl], torch.einsum("eb,ebo->eo", c, p))
+    return out
+
+
+def basis_direction_reference(features: torch.Tensor, w_flat: torch.Tensor,
+                              coefficients: torch.Tensor, layout: CsrLayout,
+                              n_vertices: int) -> torch.Tensor:
+    """Plain version of one direction: project, then combine."""
+    return basis_combine_reference(
+        basis_project_reference(features, w_flat), coefficients, layout,
+        n_vertices)
+
+
+def basis_twin_weights(w_flat: torch.Tensor, n_bases: int) -> torch.Tensor:
+    """The per-basis transposed stacks [d_out, B*d_in] of ``w_flat``
+    [d_in, B*d_out] (``staircase2.py:859-861``): basis-major, then input
+    feature. A layout copy, not a product."""
+    d_in = w_flat.shape[0]
+    d_out = w_flat.shape[1] // n_bases
+    return w_flat.reshape(d_in, n_bases, d_out).permute(2, 1, 0) \
+        .reshape(d_out, n_bases * d_in).contiguous()
+
+
+def basis_direction_dweights(features: torch.Tensor, proj: torch.Tensor,
+                             g: torch.Tensor, coefficients: torch.Tensor,
+                             layout: CsrLayout, *, need_w: bool = True,
+                             need_c: bool = True,
+                             edge_chunk: int = _EDGE_CHUNK) -> tuple:
+    """(d W_flat [d_in, B*d_out] or None, d C [R, B] or None) of one
+    direction for the cotangent ``g`` of its output, from the forward's
+    projection ``proj`` = features @ W_flat. Per chunk of edges: d W_flat
+    += features[src]^T @ (w_e C[r_e, b] g[tgt_e]) [e, B*d_out], one GEMM;
+    d C gets <P[src_e, b, :], w_e g[tgt_e]> added into its relation. Chunks
+    bound the [chunk, B*d_out] operands (164 MB each at 16,384 edges,
+    B=5, d=500; all 272,115 edges at once would be 2.7 GB)."""
+    exact_float32()
+    n_bases = coefficients.shape[1]
+    d_out = g.shape[1]
+    targets = _row_of_edge(layout)
+    dw = torch.zeros(features.shape[1], n_bases * d_out,
+                     dtype=torch.float32, device=g.device) if need_w else None
+    dc = torch.zeros_like(coefficients) if need_c else None
+    for start in range(0, layout.n_edges, edge_chunk):
+        sl = slice(start, start + edge_chunk)
+        src = layout.src[sl].long()
+        rel = layout.rel[sl].long()
+        gw = g[targets[sl]] * layout.w[sl, None]
+        if need_w:
+            h = (coefficients[rel][:, :, None] * gw[:, None, :]) \
+                .reshape(-1, n_bases * d_out)
+            dw.addmm_(features[src].t(), h)
+        if need_c:
+            dots = torch.bmm(proj[src].view(-1, n_bases, d_out),
+                             gw[:, :, None]).squeeze(-1)
+            dc.index_add_(0, rel, dots)
+    return dw, dc
+
+
+def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
+                    coefficients: torch.Tensor, layout: CsrLayout,
+                    n_vertices: int, twin: Optional[CsrLayout] = None
+                    ) -> torch.Tensor:
+    """One basis direction, differentiable; see the module docstring.
+
+    features: [V, d_in] float32; w_flat: [d_in, B*d_out] float32;
+    coefficients: [R, B] float32; layout: the direction's CSR with
+    n_vertices rows; twin: its twin CSR, needed only for the gradient with
+    respect to features. Returns [n_vertices, d_out] float32.
+    """
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"basis_direction: unsupported device "
+                         f"{features.device}")
+    return _BasisDirection.apply(features, w_flat, coefficients, layout,
+                                 twin, n_vertices)
+
+
+# Kernel launches since the counts were last set to 0 (CPU calls never
+# count): basis_combine in forward passes and in twin passes, and
+# basis_project in both (one before each combine).
+basis_direction.launches = 0
+basis_direction.twin_launches = 0
+basis_direction.project_launches = 0
+
+
+def launch_counts() -> tuple:
+    """(forward, twin) aggregation launches of both ops so far: a layer
+    direction is one forward launch of ``block_direction`` or one
+    ``basis_combine`` launch, and its gradient one twin launch."""
+    return (block_direction.launches + basis_direction.launches,
+            block_direction.twin_launches + basis_direction.twin_launches)
+
+
+class _BasisDirection(torch.autograd.Function):
+    """Forward: project, then combine on ``layout``; P is kept for d C.
+    Backward: the twin pass (project g by w_t, combine on the twin CSR)
+    for d features, ``basis_direction_dweights`` for d W_flat and d C."""
+
+    @staticmethod
+    def forward(ctx, features, w_flat, coefficients, layout, twin,
+                n_vertices):
+        proj = _project(features, w_flat)
+        ctx.save_for_backward(features, w_flat, coefficients, proj)
+        ctx.layout, ctx.twin, ctx.n_vertices = layout, twin, n_vertices
+        return _combine(proj, coefficients, layout, n_vertices, twin=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, w_flat, coefficients, proj = ctx.saved_tensors
+        g = g.contiguous()
+        d_features = None
+        if ctx.needs_input_grad[0]:
+            if ctx.twin is None:
+                raise ValueError("basis_direction: the gradient with "
+                                 "respect to features needs the "
+                                 "direction's twin layout")
+            w_t = basis_twin_weights(w_flat, coefficients.shape[1])
+            d_features = _combine(_project(g, w_t), coefficients, ctx.twin,
+                                  ctx.n_vertices, twin=True)
+        d_w = d_c = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d_w, d_c = basis_direction_dweights(
+                features, proj, g, coefficients, ctx.layout,
+                need_w=ctx.needs_input_grad[1],
+                need_c=ctx.needs_input_grad[2])
+        return d_features, d_w, d_c, None, None, None
+
+
+def _project(x, w):
+    """x @ w: the basis_project kernel, or its plain version for a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return basis_project_reference(x, w)
+    _check_project(x, w)
+    out = launch_project(basis_kernel_library()[0], x, w)
+    basis_direction.project_launches += 1
+    return out
+
+
+def _combine(proj, coefficients, layout, n_rows, *, twin: bool):
+    """One basis_combine pass (forward or twin), or its plain version for a
+    CPU tensor."""
+    if proj.device.type == "cpu":
+        return basis_combine_reference(proj, coefficients, layout, n_rows)
+    _check_combine(proj, coefficients, layout, n_rows)
+    out = launch_combine(basis_kernel_library()[0], proj, coefficients,
+                         layout, n_rows)
+    if twin:
+        basis_direction.twin_launches += 1
+    else:
+        basis_direction.launches += 1
+    return out
+
+
+def launch_project(lib: ctypes.CDLL, x: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """One launch of basis_project_f32 on the current stream, on inputs
+    already checked; raises if the launch is refused."""
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.basis_project_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                               m, k, n, x.device.index, stream)
+    if rc != 0:
+        msg = lib.basis_direction_error_string(rc).decode()
+        raise RuntimeError(f"basis_project kernel launch failed: {msg} "
+                           f"({rc})")
+    return out
+
+
+def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
+                   coefficients: torch.Tensor, layout: CsrLayout,
+                   n_rows: int) -> torch.Tensor:
+    """One launch of basis_combine_f32 on the current stream, on inputs
+    already checked; raises if the launch is refused."""
+    n_bases = coefficients.shape[1]
+    d_out = proj.shape[1] // n_bases
+    out = torch.empty(n_rows, d_out, dtype=torch.float32,
+                      device=proj.device)
+    stream = torch.cuda.current_stream(proj.device).cuda_stream
+    rc = lib.basis_combine_f32(
+        proj.data_ptr(), coefficients.data_ptr(), layout.row_ptr.data_ptr(),
+        layout.src.data_ptr(), layout.rel.data_ptr(), layout.w.data_ptr(),
+        out.data_ptr(), n_rows, n_bases, d_out, proj.device.index, stream)
+    if rc != 0:
+        msg = lib.basis_direction_error_string(rc).decode()
+        raise RuntimeError(f"basis_combine kernel launch failed: {msg} "
+                           f"({rc})")
+    return out
+
+
+def _check_project(x, w) -> None:
+    """Raise on anything basis_project_f32 does not take."""
+    _check_tensors("basis_project", x.device, {"x": x, "w": w},
+                   {"x": torch.float32, "w": torch.float32})
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"basis_project: cannot multiply "
+                         f"{tuple(x.shape)} by {tuple(w.shape)}")
+    if max(x.shape[0], x.shape[1], w.shape[1]) >= 2 ** 31:
+        raise ValueError("basis_project: a dimension overflows int32")
+
+
+def _check_combine(proj, coefficients, layout, n_rows) -> None:
+    """Raise on anything basis_combine_f32 does not take."""
+    tensors, dtypes = _csr_tensors(layout)
+    _check_tensors("basis_combine", proj.device,
+                   {"proj": proj, "coefficients": coefficients, **tensors},
+                   {"proj": torch.float32, "coefficients": torch.float32,
+                    **dtypes})
+    lib, _ = basis_kernel_library()
+    if coefficients.dim() != 2 or proj.dim() != 2:
+        raise ValueError("basis_combine: proj and coefficients must be 2-d")
+    n_bases = coefficients.shape[1]
+    if not 1 <= n_bases <= lib.basis_direction_max_bases() \
+            or proj.shape[1] % n_bases:
+        raise ValueError(f"basis_combine: kernel takes B in [1, "
+                         f"{lib.basis_direction_max_bases()}] dividing "
+                         f"proj's {proj.shape[1]} columns, got B={n_bases}")
+    d_out = proj.shape[1] // n_bases
+    if not 1 <= d_out <= lib.basis_direction_max_cols():
+        raise ValueError(f"basis_combine: kernel takes d_out in [1, "
+                         f"{lib.basis_direction_max_cols()}], got {d_out}")
+    if layout.n_rows != n_rows:
+        raise ValueError(f"basis_combine: layout has {layout.n_rows} rows, "
+                         f"expected {n_rows}")
+    e = layout.n_edges
+    if layout.rel.shape[0] != e or layout.w.shape[0] != e:
+        raise ValueError("basis_combine: src, rel and w differ in length")

@@ -1,9 +1,12 @@
 """Parameters between the JAX package's tree (as numpy) and the port.
 
-The tree is ``{"input_transform": {W, b}, "gcn_layers": [{W_forward,
-W_backward, W_self, b}, ...], "relation_embedding": {W_relation},
-"decoder": {}}``, with block stacks in the JAX layout [R, B, dr, dr]. The
-port keeps that structure as dictionaries and lists of tensors.
+The tree is ``{"input_transform": {W, b}, "gcn_layers": [layer, ...],
+"relation_embedding": {W_relation}, "decoder": {}}``. A block layer is
+``{W_forward, W_backward, W_self, b}`` with block stacks in the JAX layout
+[R, B, dr, dr]; a basis layer is ``{C_backward, C_forward, W_backward,
+W_forward, W_self, b}`` with bases [d_in, B, d_out] and coefficients
+[R, B] (``jax.tree_util`` order: keys sorted). The port keeps that
+structure as dictionaries and lists of tensors.
 """
 from __future__ import annotations
 

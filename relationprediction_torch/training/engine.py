@@ -9,8 +9,8 @@ the binomial protocol, the factored loss (``engine.py:452-466``). Each step
      it out (four CSRs, graph.py) and ships it with the padded positives;
   2. on the device: draws the corruptions and the dropout keep-masks from
      the loop's ``torch.Generator``, encodes in train mode, takes the
-     factored binomial loss and its gradients (the block kernel's twin
-     pass inside), clips and applies Adam in place.
+     factored binomial loss and its gradients (the aggregation kernels'
+     twin passes inside), clips and applies Adam in place.
 
 Losses are read on the host only at the reporting cadence of the reference
 (iteration 1, then every ``ReportTrainLossEvery`` at i % n == 1). The JAX
@@ -110,7 +110,7 @@ def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
                    neg_values: torch.Tensor, corrupt_object: torch.Tensor,
                    keep_masks) -> tuple:
     """(loss, gradient tree) of the factored binomial loss for explicit
-    draws. A leaf the loss does not reach (the block layers' unused bias)
+    draws. A leaf the loss does not reach (the GCN layers' unused bias)
     gets a zero gradient, as under ``jax.grad``."""
     leaves = tree_leaves(params)
     for leaf in leaves:
@@ -137,8 +137,8 @@ class FitResult:
     # One dict per step: iteration, loss, batch_ms (host clock: sampling,
     # split, layouts, host to device, after the previous step has ended),
     # step_ms (CUDA events around the
-    # device step; None on the CPU), and the block kernel's forward and
-    # twin launches in the step.
+    # device step; None on the CPU), and the aggregation kernels' forward
+    # and twin launches in the step (staircase2.launch_counts).
     steps: list = field(default_factory=list)
 
 
@@ -237,8 +237,7 @@ class TrainLoop:
                 t0 = time.perf_counter()
                 batch = self.pipeline.next()
                 batch_ms = (time.perf_counter() - t0) * 1e3
-                fwd0 = staircase2.block_direction.launches
-                twin0 = staircase2.block_direction.twin_launches
+                fwd0, twin0 = staircase2.launch_counts()
                 events = None
                 if on_card:
                     events = (torch.cuda.Event(enable_timing=True),
@@ -248,10 +247,9 @@ class TrainLoop:
                                                       batch)
                 if on_card:
                     events[1].record()
+            fwd1, twin1 = staircase2.launch_counts()
             rec = {"iteration": i, "batch_ms": batch_ms, "step_ms": None,
-                   "launches": staircase2.block_direction.launches - fwd0,
-                   "twin_launches":
-                       staircase2.block_direction.twin_launches - twin0}
+                   "launches": fwd1 - fwd0, "twin_launches": twin1 - twin0}
             records.append(rec)
             pending.append((rec, loss_dev, events))
             if i == 1 or (report_every and i % report_every == 1):

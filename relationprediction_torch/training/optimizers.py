@@ -12,7 +12,7 @@ written out as the optax chain ``clip_by_global_norm(c) -> scale_by_adam
   and nu_hat likewise.
 
 The state is optax's: ``{"count", "mu", "nu"}`` with ``mu`` and ``nu``
-trees shaped as the params (the unused block-layer bias ``b`` included,
+trees shaped as the params (the GCN layers' unused bias ``b`` included,
 with zero gradients), so that optax's state maps onto it. Only Adam, the
 algorithm of the shipped settings, is ported.
 """

@@ -1,0 +1,192 @@
+"""The port's basis_direction (project, combine; twin pass for d features,
+torch ops for d W_flat and d C) on the CPU plain path, against the JAX
+package's staircase2.basis_direction run in Pallas interpret mode and
+jax.grad of it."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from relationprediction_tpu import graph as jax_graph
+from relationprediction_tpu.ops import staircase2 as jax_s2
+from relationprediction_torch import graph as torch_graph
+from relationprediction_torch.ops import staircase2 as torch_s2
+
+from test_torch_block_direction_grad import R, V, skewed_triples
+
+N_BASES, D_IN, D_OUT = 3, 12, 16
+TOL = dict(rtol=2e-4, atol=2e-4)        # tests/test_staircase2.py:191-192
+GRAD_TOL = dict(rtol=3e-4, atol=3e-4)   # tests/test_staircase2.py:196-198
+
+
+def dense_inputs(seed):
+    rng = np.random.default_rng(seed + 200)
+    x = rng.standard_normal((V, D_IN)).astype(np.float32)
+    w_flat = rng.standard_normal((D_IN, N_BASES * D_OUT)).astype(np.float32)
+    coef = rng.standard_normal((R, N_BASES)).astype(np.float32)
+    probe = rng.standard_normal((V, D_OUT)).astype(np.float32)
+    return x, w_flat, coef, probe
+
+
+def graphs(seed):
+    triples = skewed_triples(seed)
+    jg = jax_graph.build_graph_batch(triples, V, R, pad_to=512,
+                                     staircase2=True, s2_rb=64,
+                                     s2_chunk=128)
+    return triples, jg, torch_graph.build_graph_batch(triples, V, R)
+
+
+def layouts(jg, tg, direction):
+    if direction == "forward":
+        return jg.sc2_fwd, tg.fwd, tg.fwd_twin, tg.bwd
+    return jg.sc2_bwd, tg.bwd, tg.bwd_twin, tg.fwd
+
+
+def jax_grads(x, w_flat, coef, probe, pair):
+    def loss(f, w, c):
+        out = jax_s2.basis_direction(f, w, c, pair, N_BASES, V, True, None)
+        return jnp.sum(out * jnp.asarray(probe))
+    grads = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w_flat), jnp.asarray(coef))
+    return [np.asarray(g) for g in grads]
+
+
+def torch_grads(x, w_flat, coef, probe, layout, twin):
+    f, w, c = (torch.from_numpy(a).requires_grad_(True)
+               for a in (x, w_flat, coef))
+    out = torch_s2.basis_direction(f, w, c, layout, V, twin)
+    (out * torch.from_numpy(probe)).sum().backward()
+    return [t.grad.numpy() for t in (f, w, c)]
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_forward_matches_jax(direction):
+    """A skewed-degree graph with a repeated edge and an isolated
+    vertex."""
+    triples, jg, tg = graphs(0)
+    assert not np.isin(V - 1, triples[:, [0, 2]])
+    x, w_flat, coef, _ = dense_inputs(0)
+    pair, layout, _, _ = layouts(jg, tg, direction)
+    want = jax_s2.basis_direction(jnp.asarray(x), jnp.asarray(w_flat),
+                                  jnp.asarray(coef), pair, N_BASES, V, True,
+                                  None)
+    got = torch_s2.basis_direction(torch.from_numpy(x),
+                                   torch.from_numpy(w_flat),
+                                   torch.from_numpy(coef), layout, V)
+    assert got.shape == (V, D_OUT)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not got[V - 1].any()
+    # the plain version composed by hand gives the same
+    ref = torch_s2.basis_direction_reference(
+        torch.from_numpy(x), torch.from_numpy(w_flat),
+        torch.from_numpy(coef), layout, V)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_gradient_matches_jax_and_the_wrong_twin_differs(direction):
+    """d features, d W_flat and d C against jax.grad; the twin's weights
+    are the direction's own degree norms, so the opposite CSR (same edges,
+    other weights) as twin gives another d features."""
+    triples, jg, tg = graphs(1)
+    in_deg = np.bincount(triples[:, 2], minlength=V)
+    out_deg = np.bincount(triples[:, 0], minlength=V)
+    assert (in_deg != out_deg).mean() > 0.5
+    x, w_flat, coef, probe = dense_inputs(1)
+    pair, layout, twin, wrong = layouts(jg, tg, direction)
+    want = jax_grads(x, w_flat, coef, probe, pair)
+    got = torch_grads(x, w_flat, coef, probe, layout, twin)
+    for name, g, w in zip(("features", "W_flat", "C"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **GRAD_TOL)
+    assert not got[0][V - 1].any()  # the isolated vertex gets no gradient
+    gf_wrong = torch_grads(x, w_flat, coef, probe, layout, wrong)[0]
+    assert not np.allclose(gf_wrong, want[0], **GRAD_TOL)
+
+
+def test_one_edge_pins_the_twin_weights_orientation():
+    """On one edge 0 -> 1 of weight 0.5, relation 0, two bases:
+    out[1] = 0.5 sum_b C[0, b] x[0] @ W_b;
+    d x[0] = 0.5 sum_b C[0, b] W_b @ g[1];
+    d W_b = 0.5 C[0, b] x[0] (outer) g[1];
+    d C[0, b] = 0.5 <x[0] @ W_b, g[1]>.
+    A transposed or basis-minor w_t fails the d x line."""
+    rng = np.random.default_rng(4)
+    n_bases, d_in, d_out = 2, 3, 4
+    x = rng.standard_normal((2, d_in)).astype(np.float32)
+    w = rng.standard_normal((d_in, n_bases, d_out)).astype(np.float32)
+    c = rng.standard_normal((1, n_bases)).astype(np.float32)
+    g = rng.standard_normal((2, d_out)).astype(np.float32)
+    layout, _ = torch_graph.build_csr([0], [0], [1], [0.5], 2)
+    twin, _ = torch_graph.build_csr([1], [0], [0], [0.5], 2)
+    xt, wt, ct = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (x, w.reshape(d_in, -1), c))
+    out = torch_s2.basis_direction(xt, wt, ct, layout, 2, twin)
+    np.testing.assert_allclose(
+        out.detach().numpy()[1],
+        0.5 * np.einsum("b,i,ibo->o", c[0], x[0], w), rtol=1e-6, atol=1e-6)
+    assert not out[0].any()
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(
+        xt.grad[0].numpy(), 0.5 * np.einsum("b,ibo,o->i", c[0], w, g[1]),
+        rtol=1e-6, atol=1e-6)
+    assert not xt.grad[1].any()
+    np.testing.assert_allclose(
+        wt.grad.numpy().reshape(d_in, n_bases, d_out),
+        0.5 * np.einsum("b,i,o->ibo", c[0], x[0], g[1]), rtol=1e-6,
+        atol=1e-6)
+    np.testing.assert_allclose(
+        ct.grad.numpy()[0], 0.5 * np.einsum("i,ibo,o->b", x[0], w, g[1]),
+        rtol=1e-6, atol=1e-6)
+    # w_t is basis-major, then input feature: w_t[o, b*d_in + i] = W[i, b, o]
+    w_t = torch_s2.basis_twin_weights(torch.from_numpy(w.reshape(d_in, -1)),
+                                      n_bases).numpy()
+    assert w_t.shape == (d_out, n_bases * d_in)
+    np.testing.assert_array_equal(w_t.reshape(d_out, n_bases, d_in),
+                                  w.transpose(2, 1, 0))
+
+
+def test_dweights_chunks_and_flags():
+    """basis_direction_dweights gives the same sums in small chunks and
+    computes only what it is asked for."""
+    _, _, tg = graphs(2)
+    x, w_flat, coef, probe = (torch.from_numpy(a) for a in dense_inputs(2))
+    proj = torch_s2.basis_project_reference(x, w_flat)
+    whole = torch_s2.basis_direction_dweights(x, proj, probe, coef, tg.fwd)
+    chunked = torch_s2.basis_direction_dweights(x, proj, probe, coef, tg.fwd,
+                                                edge_chunk=37)
+    for a, b in zip(whole, chunked):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    dw, dc = torch_s2.basis_direction_dweights(x, proj, probe, coef, tg.fwd,
+                                               need_w=False)
+    assert dw is None and dc is not None
+    dw, dc = torch_s2.basis_direction_dweights(x, proj, probe, coef, tg.fwd,
+                                               need_c=False)
+    assert dw is not None and dc is None
+
+
+def test_cpu_path_launches_nothing_and_needs_the_twin():
+    _, _, tg = graphs(3)
+    x, w_flat, coef, probe = dense_inputs(3)
+    counts = ("launches", "twin_launches", "project_launches")
+    before = [getattr(torch_s2.basis_direction, k) for k in counts]
+    launch_counts = torch_s2.launch_counts()
+    torch_grads(x, w_flat, coef, probe, tg.fwd, tg.fwd_twin)
+    assert [getattr(torch_s2.basis_direction, k) for k in counts] == before
+    assert torch_s2.launch_counts() == launch_counts
+    with pytest.raises(ValueError, match="twin"):
+        torch_grads(x, w_flat, coef, probe, tg.fwd, None)
+    # d W_flat and d C alone need no twin
+    w = torch.from_numpy(w_flat).requires_grad_(True)
+    c = torch.from_numpy(coef).requires_grad_(True)
+    torch_s2.basis_direction(torch.from_numpy(x), w, c, tg.fwd, V).sum() \
+        .backward()
+    assert w.grad is not None and c.grad is not None
+
+
+def test_unsupported_device_raises():
+    _, _, tg = graphs(0)
+    x, w_flat, coef, _ = (torch.from_numpy(a) for a in dense_inputs(0))
+    with pytest.raises(ValueError, match="unsupported device"):
+        torch_s2.basis_direction(x.to("meta"), w_flat.to("meta"),
+                                 coef.to("meta"), tg.fwd, V)
