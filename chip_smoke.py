@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's serving and training paths of ``settings/gcn_block.exp``
-(d=500, 100 blocks of 5x5) and ``settings/gcn_basis.exp`` (d=500, 5 bases)
-at full width on the seeded ``synth:FB15k-237`` graph (V=14,541, R=237,
+(d=500, 100 blocks of 5x5), ``settings/gcn_basis.exp`` (d=500, 5 bases)
+with and without its input transform, and gcn_diag (d=500) at full width on the seeded ``synth:FB15k-237`` graph (V=14,541, R=237,
 E=272,115) with random weights from a seed. Each phase prints JSON lines,
 each with the seconds the phase has taken so far (``phase_s``):
 
@@ -49,12 +49,30 @@ Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
           forward and 4 twin combine launches a step, each after a project
           launch).
 
+Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
+gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
+messages with TPU kernel 3 (staircase_aggregate; TPU kernel 4, scatter2,
+runs on the same kernel):
+
+  kernel_staircase  staircase_aggregate_f32 in both directions on the full
+          train graph and on the first training batch's graph at d=500
+          against its plain version and a float64 sum within the rounding
+          its terms allow, the opposite direction's CSR outside it; its VJP
+          against float64 autograd through the plain version; scatter2 with
+          a random primary edge order (the perm path) against the same sum;
+          times (hub rows and the others apart) beside the bound and
+          torch.sparse.mm on the same [V, E] CSR matrix;
+  serve_onehot, train_onehot, serve_diag, train_diag  as serve and train,
+          through staircase.staircase_aggregate: 4 launches an encode and a
+          step, no twin pass, none of the fused kernels.
+
 Then a line listing every ported kernel with its numbers, nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
 without a CUDA card the script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -73,7 +91,7 @@ from relationprediction_torch.evaluation import ranking
 from relationprediction_torch.evaluation.scorer import Scorer
 from relationprediction_torch.graph import CsrLayout, build_graph_batch
 from relationprediction_torch.models import build
-from relationprediction_torch.ops import staircase2
+from relationprediction_torch.ops import staircase, staircase2
 from relationprediction_torch.params import map_tree, tree_leaves
 from relationprediction_torch.training import engine
 
@@ -88,6 +106,10 @@ REPLACES_TWIN = "relationprediction_tpu/ops/staircase2.py:721"
 # TPU kernel 2 (_make_basis_kernel) and its launch on the twin layout.
 REPLACES_BASIS = "relationprediction_tpu/ops/staircase2.py:505"
 REPLACES_BASIS_TWIN = "relationprediction_tpu/ops/staircase2.py:874"
+STAIRCASE_SOURCE = "relationprediction_torch/ops/csrc/staircase.cu"
+# TPU kernel 3 (_staircase_kernel) and kernel 4 (_scatter_kernel).
+REPLACES_STAIRCASE = "relationprediction_tpu/ops/staircase.py:191"
+REPLACES_SCATTER2 = "relationprediction_tpu/ops/staircase2.py:443"
 SERVE_TRIPLES = 2000
 TRAIN_STEPS = 20
 HUB_ROW = 1024  # rows longer than this are timed apart
@@ -190,6 +212,36 @@ def combine_bound(layout, n_rows, n_bases, d_out) -> dict:
             "gathered_rows": rows}
 
 
+def staircase_bound(layout, n_rows, d, perm=False) -> dict:
+    """staircase_aggregate on this layout: every message row read once
+    (E * d floats), ``out`` written once, the weights and row_ptr (and the
+    permutation on the scatter2 path), against 2 * E * d f32 operations
+    (one FMA an entry and column)."""
+    e = layout.n_edges
+    n_bytes = 4 * (e * d + n_rows * d + e + (n_rows + 1) + (e if perm else 0))
+    return least_time(n_bytes, 2 * e * d)
+
+
+def staircase_exact(msgs, layout, n_rows):
+    """The segment sum in float64 and its sum_allowance (one term an
+    entry)."""
+    exact = staircase.staircase_aggregate_reference(msgs.double(), layout,
+                                                    n_rows)
+    abs_sum = staircase.staircase_aggregate_reference(
+        msgs.double().abs(), with_weights(layout, layout.w.abs()), n_rows)
+    deg = layout.row_ptr.diff().long()[:, None]
+    return exact, sum_allowance(exact, abs_sum, deg)
+
+
+def model_label(cfg) -> str:
+    """Which configuration a phase ran: the encoder and its input stage."""
+    e = cfg.encoder
+    if e.name == "gcn_diag":
+        return "gcn_diag"
+    stage = "input transform" if e.use_input_transform else "one-hot input"
+    return f"gcn_basis/{e.gcn_variant}, {stage}"
+
+
 def sum_allowance(exact, abs_sum, n_terms):
     """What an f32 evaluation of a sum may differ from its float64 value
     ``exact`` at each element: 1e-5 + 1e-4 * |exact| (the kernel phase's
@@ -275,11 +327,19 @@ def over_allowance(got, exact, allowance) -> float:
     return ((got.double() - exact).abs() / allowance).max().item()
 
 
+def long_row_entries(layout, limit):
+    """[E] bool: the CSR entries of rows longer than ``limit`` edges."""
+    lengths = layout.row_ptr.diff()
+    return torch.repeat_interleave(lengths > limit, lengths.long())
+
+
 def split_rows(layout, limit):
     """Two layouts of the same rows: one keeps only the rows longer than
-    ``limit`` edges, the other only the rest (the dropped rows are empty)."""
+    ``limit`` edges, the other only the rest (the dropped rows are empty);
+    each keeps its entries in order (``long_row_entries`` and its
+    complement)."""
     lengths = layout.row_ptr.diff()
-    long_row = torch.repeat_interleave(lengths > limit, lengths.long())
+    long_row = long_row_entries(layout, limit)
     parts = []
     for keep_rows, keep_edges in ((lengths > limit, long_row),
                                   (lengths <= limit, ~long_row)):
@@ -341,16 +401,17 @@ def reset_launch_counts() -> None:
     for op in (staircase2.block_direction, staircase2.basis_direction):
         op.launches = op.twin_launches = 0
     staircase2.basis_direction.project_launches = 0
+    for op in (staircase.staircase_aggregate, staircase2.scatter2,
+               staircase2.scatter2_slot_order):
+        op.launches = 0
 
 
-def phase_serve(ds, device, settings=SETTINGS,
-                op=staircase2.block_direction, phase="serve"):
+def phase_serve(ds, device, cfg, op=staircase2.block_direction,
+                phase="serve"):
     """The serving path at full width, with the kernels' launch counts:
-    ``op`` (block_direction or basis_direction) must have launched once a
-    direction and layer, and nothing else launched."""
+    ``op`` (block_direction, basis_direction or staircase_aggregate) must
+    have launched once a direction and layer, and nothing else launched."""
     t_phase = time.perf_counter()
-    cfg = config.load(str(settings)).with_counts(
-        ds.n_entities, ds.n_relations, len(ds.train))
     model = build.build_model(cfg, device)
     params = model.init_params(torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
@@ -459,7 +520,7 @@ def phase_serve(ds, device, settings=SETTINGS,
            "mrr_filtered_cpu_plain": ref_summary.results["Filtered"]["MRR"],
            "max_memory_allocated": peak,
            "launches": launches, "project_launches": project_launches}
-    emit(phase, settings=Path(settings).name,
+    emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
     return row
 
@@ -715,6 +776,133 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
     return rows
 
 
+def phase_kernel_staircase(graphs, d, device):
+    """staircase_aggregate_f32 (TPU kernels 3 and 4) against a float64 sum
+    within the rounding its terms allow, in both directions of each graph:
+    the model path (messages in the CSR's entry order, no perm), the same
+    messages summed on the opposite direction's CSR (must fail the
+    allowance), the op's VJP against float64 autograd through the plain
+    version, and scatter2 with a random primary edge order (the perm
+    path). Times of the kernel, its plain version and torch.sparse.mm on
+    the [V, E] CSR matrix of weights, beside the bound; hub rows and the
+    others apart. Launches here go through staircase.launch or count on
+    counters the main paths reset."""
+    t_phase = time.perf_counter()
+    lib, _ = staircase.kernel_library()
+    rows = []
+    for graph_name, graph in graphs.items():
+        v = graph.n_vertices
+        for name, layout, wrong in (("forward", graph.fwd, graph.bwd),
+                                    ("backward", graph.bwd, graph.fwd)):
+            e = layout.n_edges
+            gen = torch.Generator().manual_seed(5)
+            msgs = torch.randn(e, d, generator=gen).to(device)
+            probe = torch.randn(v, d, generator=gen).to(device)
+            order = torch.randperm(e, generator=gen).to(device)
+            perm = order.to(torch.int32)
+            primary = torch.empty_like(msgs)
+            primary[order] = msgs  # CSR entry k is primary edge order[k]
+
+            got = staircase.launch(lib, msgs, layout, v)
+            plain = staircase.staircase_aggregate_reference(msgs, layout, v)
+            wrong_out = staircase.launch(lib, msgs, wrong, v)
+            scattered = staircase2.scatter2(primary, layout, v, perm)
+            m = msgs.clone().requires_grad_(True)
+            out = staircase.staircase_aggregate(m, layout, v)
+            (dm,) = torch.autograd.grad((out * probe).sum(), m)
+            exact, allowance = staircase_exact(msgs, layout, v)
+            m64 = msgs.double().requires_grad_(True)
+            (dm_ref,) = torch.autograd.grad(
+                (staircase.staircase_aggregate_reference(m64, layout, v)
+                 * probe.double()).sum(), m64)
+            torch.cuda.synchronize()
+            for t in (got, scattered, dm):
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"staircase {graph_name}/{name}: "
+                                         f"not finite")
+            torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-5)
+            over = over_allowance(got, exact, allowance)
+            scatter_over = over_allowance(scattered, exact, allowance)
+            wrong_over = over_allowance(wrong_out, exact, allowance)
+            # one term an element: w_k * g[row(k)]
+            dm_over = over_allowance(dm, dm_ref, sum_allowance(
+                dm_ref, dm_ref.abs(), torch.ones_like(dm_ref)))
+            if not (over <= 1 and scatter_over <= 1 and dm_over <= 1):
+                raise AssertionError(
+                    f"staircase {graph_name}/{name}: kernel, scatter2 or "
+                    f"the VJP beyond the f32 rounding allowance ({over}, "
+                    f"{scatter_over}, {dm_over} of it)")
+            if not wrong_over > 1:
+                raise AssertionError(
+                    f"staircase {graph_name}/{name}: the opposite CSR "
+                    f"passes the allowance ({wrong_over} of it)")
+
+            csr = torch.sparse_csr_tensor(
+                layout.row_ptr.long(), torch.arange(e, device=device),
+                layout.w, size=(v, e))
+            # scatter2's yardstick: the same matrix over primary edge
+            # columns, sorted within each row as a CSR matrix keeps them
+            by_col = torch.argsort(
+                staircase.row_of_entry(layout) * e + order)
+            csr_perm = torch.sparse_csr_tensor(
+                layout.row_ptr.long(), order[by_col], layout.w[by_col],
+                size=(v, e))
+            library_err = (torch.sparse.mm(csr, msgs).double()
+                           - exact).abs().max().item()
+            lengths = layout.row_ptr.diff()
+            long_entry = long_row_entries(layout, HUB_ROW)
+            hubs, rest = split_rows(layout, HUB_ROW)
+            hub_msgs = msgs[long_entry].contiguous()
+            rest_msgs = msgs[~long_entry].contiguous()
+            bound = staircase_bound(layout, v, d)
+            row = {"kernel": "staircase_aggregate", "graph": graph_name,
+                   "direction": name, "edges": e, "d": d,
+                   "max_abs_err": (got.double() - exact).abs().max().item(),
+                   "max_abs_diff_vs_plain": (got - plain).abs().max().item(),
+                   "over_allowance": over,
+                   "wrong_layout_over_allowance": wrong_over,
+                   "vjp_max_abs_err": (dm.double() - dm_ref).abs().max()
+                   .item(),
+                   "vjp_over_allowance": dm_over,
+                   "scatter2_max_abs_err": (scattered.double() - exact)
+                   .abs().max().item(),
+                   "scatter2_over_allowance": scatter_over,
+                   "library_max_abs_err": library_err,
+                   "kernel_ms": cuda_ms(
+                       lambda: staircase.launch(lib, msgs, layout, v), 20),
+                   "plain_ms": cuda_ms(
+                       lambda: staircase.staircase_aggregate_reference(
+                           msgs, layout, v), 3, warmup=1),
+                   "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, msgs),
+                                         20),
+                   "hub_rows_only_ms": cuda_ms(
+                       lambda: staircase.launch(lib, hub_msgs, hubs, v), 10),
+                   "other_rows_only_ms": cuda_ms(
+                       lambda: staircase.launch(lib, rest_msgs, rest, v),
+                       10),
+                   "vjp_ms": cuda_ms(lambda: torch.autograd.grad(
+                       (staircase.staircase_aggregate(m, layout, v)
+                        * probe).sum(), m), 5),
+                   "scatter2_ms": cuda_ms(lambda: staircase.launch(
+                       lib, primary, layout, v, perm), 20),
+                   "scatter2_plain_ms": cuda_ms(
+                       lambda: staircase.staircase_aggregate_reference(
+                           primary, layout, v, perm), 3, warmup=1),
+                   "scatter2_library_ms": cuda_ms(
+                       lambda: torch.sparse.mm(csr_perm, primary), 20),
+                   "scatter2_bound_ms": staircase_bound(
+                       layout, v, d, perm=True)["bound_ms"],
+                   f"rows_over_{HUB_ROW}": int((lengths > HUB_ROW).sum()
+                                               .item()),
+                   "largest_row": int(lengths.max().item()),
+                   "empty_rows": int((lengths == 0).sum().item()),
+                   **bound}
+            emit("kernel_staircase", phase_s=time.perf_counter() - t_phase,
+                 **row)
+            rows.append(row)
+    return rows
+
+
 def phase_grad_basis(graphs, n_rel, n_bases, d, device):
     """basis_direction's output and gradient (project + combine forward,
     twin pass, torch d W_flat and d C) against autograd through
@@ -806,9 +994,10 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                 phase="train", steps=TRAIN_STEPS):
     """One step on the card against the CPU plain path, then the training
     path through TrainLoop.fit with the kernels' launch counts: ``op``
-    (block_direction or basis_direction) must have launched once a
-    direction and layer in each step, forward and twin, and nothing else
-    launched."""
+    (block_direction, basis_direction or staircase_aggregate) must have
+    launched once a direction and layer in each step, and its twin pass as
+    often (staircase_aggregate has none: its gradient is a torch gather),
+    and nothing else launched."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     logged = []
@@ -859,20 +1048,24 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     result = loop.fit(params, opt_state, max_iterations=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, twin_launches = op.launches, op.twin_launches
+    launches = op.launches
+    twin_launches = getattr(op, "twin_launches", 0)
     project_launches = staircase2.basis_direction.project_launches
     peak = torch.cuda.max_memory_allocated()
     records = result.steps
     per_layer = 2 * cfg.encoder.n_layers
+    twin_per_layer = 0 if op is staircase.staircase_aggregate else per_layer
     for s in records:
-        if s["launches"] != per_layer or s["twin_launches"] != per_layer:
+        if s["launches"] != per_layer \
+                or s["twin_launches"] != twin_per_layer:
             raise AssertionError(f"step {s['iteration']}: "
                                  f"{s['launches']} forward and "
                                  f"{s['twin_launches']} twin launches, "
-                                 f"expected {per_layer} each")
+                                 f"expected {per_layer} and "
+                                 f"{twin_per_layer}")
     if staircase2.launch_counts() != (launches, twin_launches) \
             or launches != per_layer * steps \
-            or twin_launches != per_layer * steps:
+            or twin_launches != twin_per_layer * steps:
         raise AssertionError(f"fit launched {launches} forward and "
                              f"{twin_launches} twin passes of "
                              f"{op.__name__}, all ops "
@@ -903,7 +1096,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "twin_launches_per_step": twin_launches // steps,
            "project_launches_per_step": project_launches // steps,
            "max_memory_allocated": peak, "log": logged}
-    emit(phase, settings=cfg.training.experiment_name,
+    emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
     emit(f"{phase}_breakdown", **host_batch_breakdown(loop.pipeline, device),
          **profile_steps(loop, params, result.opt_state),
@@ -1059,13 +1252,51 @@ def basis_kernels_line(kb, serve, train) -> list:
         "full_train_twin_bound_ms": mean(full, "twin_bound_ms")}]
 
 
+def staircase_kernels_line(ks, runs) -> list:
+    """staircase_aggregate with this run's numbers, scatter2's (TPU kernel
+    4, the same kernel on the perm path) beside them. Timed on the full
+    train graph (the serving shape) and on the first training batch's
+    graph; times and bounds are means over the two directions. Launches
+    are those of the four main paths (``runs``: phase -> its row)."""
+    def mean(items, key):
+        return sum(r[key] for r in items) / len(items)
+    full = [r for r in ks if r["graph"] == "full_train"]
+    batch = [r for r in ks if r["graph"] == "train_batch"]
+    return [{
+        "name": "staircase_aggregate", "route": "cuda",
+        "source": STAIRCASE_SOURCE, "replaces": REPLACES_STAIRCASE,
+        "replaces_too": REPLACES_SCATTER2,
+        "launches": sum(r["launches"] for r in runs.values()),
+        "launches_by_path": {k: r["launches"] for k, r in runs.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in ks),
+        "max_over_allowance": max(r["over_allowance"] for r in ks),
+        "ms": mean(full, "kernel_ms"), "plain_ms": mean(full, "plain_ms"),
+        "bound_ms": mean(full, "bound_ms"), "bound_by": full[0]["bound_by"],
+        "library_ms": mean(full, "library_ms"),
+        "library": "torch.sparse.mm",
+        "hub_rows_only_ms": mean(full, "hub_rows_only_ms"),
+        "other_rows_only_ms": mean(full, "other_rows_only_ms"),
+        "train_batch_ms": mean(batch, "kernel_ms"),
+        "train_batch_plain_ms": mean(batch, "plain_ms"),
+        "train_batch_bound_ms": mean(batch, "bound_ms"),
+        "train_batch_library_ms": mean(batch, "library_ms"),
+        "scatter2_launches": staircase2.scatter2.launches,
+        "scatter2_max_abs_err": max(r["scatter2_max_abs_err"] for r in ks),
+        "scatter2_ms": mean(full, "scatter2_ms"),
+        "scatter2_plain_ms": mean(full, "scatter2_plain_ms"),
+        "scatter2_bound_ms": mean(full, "scatter2_bound_ms"),
+        "scatter2_library_ms": mean(full, "scatter2_library_ms"),
+        "train_batch_scatter2_ms": mean(batch, "scatter2_ms")}]
+
+
 def build_all() -> None:
-    """Build both kernel sources at once, one nvcc each."""
+    """Build every kernel source at once, one nvcc each."""
     t_phase = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futures = {source: pool.submit(fn) for source, fn in (
             (KERNEL_SOURCE, staircase2.kernel_library),
-            (BASIS_SOURCE, staircase2.basis_kernel_library))}
+            (BASIS_SOURCE, staircase2.basis_kernel_library),
+            (STAIRCASE_SOURCE, staircase.kernel_library))}
     for source, future in futures.items():
         _, info = future.result()
         emit("build", source=source, phase_s=time.perf_counter() - t_phase,
@@ -1100,7 +1331,7 @@ def main() -> int:
     # gcn_block.exp: 100 blocks of 5x5
     n_blocks, dr = 100, 5
     rows = phase_kernel(graph, ds.n_relations, n_blocks, dr, device)
-    serve = phase_serve(ds, device)
+    serve = phase_serve(ds, device, cfg)
     grads = phase_grad(graphs, ds.n_relations, n_blocks, dr, device)
     train = phase_train(cfg, ds, device)
 
@@ -1110,14 +1341,31 @@ def main() -> int:
     n_bases = basis_cfg.encoder.n_bases
     d = basis_cfg.encoder.internal_dimension
     kb = phase_kernel_basis(graphs, ds.n_relations, n_bases, d, device)
-    serve_b = phase_serve(ds, device, BASIS_SETTINGS,
+    serve_b = phase_serve(ds, device, basis_cfg,
                           staircase2.basis_direction, "serve_basis")
     phase_grad_basis(graphs, ds.n_relations, n_bases, d, device)
     train_b = phase_train(basis_cfg, ds, device, staircase2.basis_direction,
                           "train_basis")
 
+    # The one-hot-input model and gcn_diag, both from gcn_basis.exp, as
+    # tests/test_model_variants.py derives them: every layer sums per-edge
+    # messages with staircase_aggregate (TPU kernel 3).
+    ks = phase_kernel_staircase(graphs, d, device)
+    runs = {}
+    for label, change in (("onehot", dict(use_input_transform=False)),
+                          ("diag", dict(name="gcn_diag"))):
+        v1_cfg = dataclasses.replace(basis_cfg, encoder=dataclasses.replace(
+            basis_cfg.encoder, **change))
+        runs[f"serve_{label}"] = phase_serve(
+            ds, device, v1_cfg, staircase.staircase_aggregate,
+            f"serve_{label}")
+        runs[f"train_{label}"] = phase_train(
+            v1_cfg, ds, device, staircase.staircase_aggregate,
+            f"train_{label}")
+
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train)
-                      + basis_kernels_line(kb, serve_b, train_b)}),
+                      + basis_kernels_line(kb, serve_b, train_b)
+                      + staircase_kernels_line(ks, runs)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Counterpart of ``relationprediction_tpu/models/build.py`` for
 ``settings/gcn_block.exp`` and ``settings/gcn_basis.exp``: the
-block-diagonal or basis-decomposition R-GCN with an input transform and the
-DistMult decoder, encoded in test mode and scored against all
+block-diagonal or basis-decomposition R-GCN with an input transform, the
+basis R-GCN on one-hot input (``UseInputTransform=No``), and ``gcn_diag``,
+each with the DistMult decoder, encoded in test mode and scored against all
 entities, or encoded in train mode and scored by the factored binomial loss.
 Parameters are a plain dictionary of tensors with the JAX package's tree
 layout (params.py converts between the two).
@@ -68,18 +69,15 @@ class EncodeResult(NamedTuple):
 def _check_supported(config: RunConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     e = config.encoder
-    if e.name != "gcn_basis":
+    if e.name not in ("gcn_basis", "gcn_diag"):
         raise NotImplementedError(f"encoder {e.name!r} is not ported yet "
                                   f"(ROADMAP.md Queue 1 item 6)")
-    if e.gcn_variant not in enc.PORTED_VARIANTS:
+    if e.name == "gcn_basis" and e.gcn_variant not in enc.PORTED_VARIANTS:
         raise enc.not_ported(e.gcn_variant)
-    # Without an input transform the first layer takes one-hot input and
-    # runs the v1 staircase kernel (TPU kernel 3), not ported yet.
-    if not e.use_input_transform or e.random_input \
-            or e.partially_random_input or e.use_output_transform \
-            or e.skip_connections != "None":
-        raise NotImplementedError("only the gcn_block.exp / gcn_basis.exp "
-                                  "input/output stages are ported "
+    if e.random_input or e.partially_random_input \
+            or e.use_output_transform or e.skip_connections != "None":
+        raise NotImplementedError("random input, the output transform and "
+                                  "skip connections are not ported yet "
                                   "(ROADMAP.md Queue 1 item 6)")
     if e.message_precision != "float32":
         raise NotImplementedError("message_precision=bfloat16 is not ported "
@@ -98,6 +96,20 @@ class RGCNModel:
         self.device = torch.device(device)
         self.n_entities = config.entity_count
         self.n_relations = config.relation_count
+        e = config.encoder
+        # gcn_diag always builds an input transform (``build.py:125-130``);
+        # without one the first layer takes one-hot input.
+        self.has_input_transform = e.name == "gcn_diag" \
+            or e.use_input_transform
+        self.first_layer_onehot = not self.has_input_transform
+        # ``EncoderConfig.gcn_variant`` alone says "basis" for gcn_diag
+        # (``build.py:158``, ``:388``).
+        self.variant = "diag" if e.name == "gcn_diag" else e.gcn_variant
+        # The fused kernels (TPU kernels 1-2) serve block and basis layers
+        # after an input transform; every other layer sums per-edge
+        # messages with TPU kernel 3 (``build.py:270-278``).
+        self.preferred_staircase2 = e.use_input_transform \
+            and self.variant in ("block", "basis")
         self.decoder = decoders_lib.build_decoder(
             config.decoder.name,
             code_dimension=config.decoder.code_dimension,
@@ -111,19 +123,20 @@ class RGCNModel:
         moved to the model's device."""
         e = self.config.encoder
         d_int = e.internal_dimension
-        params: Dict = {
-            "input_transform": enc.init_affine(
-                generator, (self.n_entities, d_int), use_bias=True),
-            "gcn_layers": [
-                enc.init_gcn_layer(generator, e.gcn_variant,
-                                   n_relations=self.n_relations,
-                                   d_in=d_int, d_out=d_int,
-                                   n_bases=e.n_bases)
-                for _ in range(e.n_layers)],
-            "relation_embedding": enc.init_relation_embedding(
-                generator, self.n_relations, e.code_dimension),
-            "decoder": self.decoder.init(generator),
-        }
+        params: Dict = {}
+        if self.has_input_transform:
+            params["input_transform"] = enc.init_affine(
+                generator, (self.n_entities, d_int), use_bias=True)
+        params["gcn_layers"] = [
+            enc.init_gcn_layer(
+                generator, self.variant, n_relations=self.n_relations,
+                d_in=d_int, d_out=d_int, n_bases=e.n_bases,
+                onehot_dim=self.n_entities
+                if self.first_layer_onehot and layer == 0 else None)
+            for layer in range(e.n_layers)]
+        params["relation_embedding"] = enc.init_relation_embedding(
+            generator, self.n_relations, e.code_dimension)
+        params["decoder"] = self.decoder.init(generator)
         return map_tree(lambda t: t.to(self.device), params)
 
     def make_graph(self, triples: np.ndarray) -> GraphBatch:
@@ -148,12 +161,15 @@ class RGCNModel:
         given, else drawn from ``generator``.
         """
         e = self.config.encoder
-        features = enc.apply_affine(params["input_transform"], None,
-                                    onehot_input=True, use_bias=True,
-                                    use_nonlinearity=True)
+        features = None  # one-hot input to the first layer
+        if self.has_input_transform:
+            features = enc.apply_affine(params["input_transform"], None,
+                                        onehot_input=True, use_bias=True,
+                                        use_nonlinearity=True)
         for layer_idx, layer_params in enumerate(params["gcn_layers"]):
             features = enc.apply_gcn_layer(
-                layer_params, e.gcn_variant, graph, features,
+                layer_params, self.variant, graph, features,
+                fused=self.preferred_staircase2,
                 use_nonlinearity=layer_idx < e.n_layers - 1,
                 dropout_keep=e.dropout_keep_probability,
                 deterministic=deterministic, generator=generator,

@@ -1,0 +1,207 @@
+"""Weighted segment sum of per-edge messages over one direction's CSR: the
+CUDA kernel and its plain form.
+
+Counterpart of ``relationprediction_tpu/ops/staircase.py`` (same module
+name). ``staircase_aggregate`` computes
+
+    out[v] = sum over CSR entries k of row v of w_k * msgs[k]
+
+with ``msgs`` [E, d] in the layout's own entry order (the model path builds
+each direction's messages from that direction's ``src`` and ``rel``), and
+its gradient (the JAX package's VJP, a row gather, ``staircase.py:276-284``)
+
+    d msgs[k] = w_k * g[row(k)]
+
+as torch ops. The JAX op takes messages in primary edge order and fuses the
+permutation into its gather; here the same sum with a permutation is
+``staircase2.scatter2`` (the port's TPU kernel 4), which passes the CSR's
+``order`` as ``perm`` to the same kernel.
+
+On a CUDA tensor the forward launches ``staircase_aggregate_f32`` of
+``csrc/staircase.cu`` or raises; on a CPU tensor it runs
+``staircase_aggregate_reference``, the plain PyTorch version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..graph import CsrLayout
+from . import nvcc
+
+_SOURCE = "staircase.cu"
+_EDGE_CHUNK = 16384
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_library() -> tuple:
+    """Build (at first use) and bind the kernel: (CDLL, nvcc.BuildInfo)."""
+    lib, info = nvcc.load(_SOURCE)
+    return bind_library(lib), info
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from the kernel source."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.staircase_aggregate_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.staircase_aggregate_f32.restype = i
+    lib.staircase_error_string.argtypes = [i]
+    lib.staircase_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def row_of_entry(layout: CsrLayout) -> torch.Tensor:
+    """The row (target) of every CSR entry."""
+    return torch.repeat_interleave(
+        torch.arange(layout.n_rows, device=layout.row_ptr.device),
+        layout.row_ptr.diff().long())
+
+
+def staircase_aggregate_reference(msgs: torch.Tensor, layout: CsrLayout,
+                                  n_vertices: int,
+                                  perm: Optional[torch.Tensor] = None,
+                                  weighted: bool = True,
+                                  edge_chunk: int = _EDGE_CHUNK
+                                  ) -> torch.Tensor:
+    """Plain version: per chunk of entries, gather the messages (row
+    ``perm[k]`` where given, else row k), weight them by ``w`` (unless
+    ``weighted`` is false) and ``index_add_`` them into their rows. Sums in
+    the messages' dtype (float64 inputs give a float64 result)."""
+    rows = row_of_entry(layout)
+    out = torch.zeros(n_vertices, msgs.shape[1], dtype=msgs.dtype,
+                      device=msgs.device)
+    for start in range(0, layout.n_edges, edge_chunk):
+        sl = slice(start, start + edge_chunk)
+        m = msgs[perm[sl].long()] if perm is not None else msgs[sl]
+        if weighted:
+            m = m * layout.w[sl, None].to(msgs.dtype)
+        out.index_add_(0, rows[sl], m)
+    return out
+
+
+def staircase_aggregate(msgs: torch.Tensor, layout: CsrLayout,
+                        n_vertices: int) -> torch.Tensor:
+    """One direction's aggregation, differentiable; see the module
+    docstring.
+
+    msgs: [E, d] float32, entry k the message of the layout's entry k;
+    layout: the direction's CSR with n_vertices rows. Returns
+    [n_vertices, d] float32.
+    """
+    if msgs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"staircase_aggregate: unsupported device "
+                         f"{msgs.device}")
+    return _Aggregate.apply(msgs, layout, n_vertices, None, True,
+                            staircase_aggregate)
+
+
+# Kernel launches since the count was last set to 0 (CPU calls never
+# count).
+staircase_aggregate.launches = 0
+
+
+class _Aggregate(torch.autograd.Function):
+    """Forward: the kernel (``perm`` may be None; ``weighted`` false takes
+    every weight as 1), counted on ``counter.launches``. Backward: the row
+    gather d msgs[perm[k] or k] = w_k * g[row(k)]; messages no entry reads
+    (the padding edges of scatter2) get zero."""
+
+    @staticmethod
+    def forward(ctx, msgs, layout, n_vertices, perm, weighted, counter):
+        ctx.layout, ctx.perm, ctx.weighted = layout, perm, weighted
+        ctx.n_msgs = msgs.shape[0]
+        return aggregate(msgs, layout, n_vertices, perm, weighted=weighted,
+                         counter=counter)
+
+    @staticmethod
+    def backward(ctx, g):
+        layout = ctx.layout
+        d_entries = g[row_of_entry(layout)]
+        if ctx.weighted:
+            d_entries = d_entries * layout.w[:, None]
+        if ctx.perm is None:
+            return d_entries, None, None, None, None, None
+        d_msgs = g.new_zeros(ctx.n_msgs, g.shape[1])
+        d_msgs.index_copy_(0, ctx.perm.long(), d_entries)
+        return d_msgs, None, None, None, None, None
+
+
+def aggregate(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
+              perm: Optional[torch.Tensor] = None, *, weighted: bool = True,
+              counter=None) -> torch.Tensor:
+    """One kernel launch, which adds one to ``counter.launches`` where a
+    counter is given, or the plain version for a CPU tensor."""
+    if msgs.device.type == "cpu":
+        return staircase_aggregate_reference(msgs, layout, n_vertices, perm,
+                                             weighted)
+    _check(msgs, layout, n_vertices, perm)
+    out = launch(kernel_library()[0], msgs, layout, n_vertices, perm,
+                 weighted=weighted)
+    if counter is not None:
+        counter.launches += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, msgs: torch.Tensor, layout: CsrLayout,
+           n_vertices: int, perm: Optional[torch.Tensor] = None, *,
+           weighted: bool = True) -> torch.Tensor:
+    """One launch of staircase_aggregate_f32 on the current stream, on
+    inputs already checked; raises if the launch is refused. ``weighted``
+    false passes no weights (each entry's weight is 1)."""
+    out = torch.empty(n_vertices, msgs.shape[1], dtype=torch.float32,
+                      device=msgs.device)
+    stream = torch.cuda.current_stream(msgs.device).cuda_stream
+    rc = lib.staircase_aggregate_f32(
+        msgs.data_ptr(), None if perm is None else perm.data_ptr(),
+        layout.row_ptr.data_ptr(), layout.w.data_ptr() if weighted else None,
+        out.data_ptr(), n_vertices, msgs.shape[1], msgs.shape[0],
+        msgs.device.index, stream)
+    if rc != 0:
+        msg = lib.staircase_error_string(rc).decode()
+        raise RuntimeError(f"staircase_aggregate kernel launch failed: {msg} "
+                           f"({rc})")
+    return out
+
+
+def check_tensors(op: str, device, tensors: dict, dtypes: dict) -> None:
+    """Raise unless every tensor is on ``device``, of its dtype and
+    contiguous."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{op}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{op}: {name} is {t.dtype}, expected "
+                            f"{dtypes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} is not contiguous")
+
+
+def _check(msgs, layout, n_vertices, perm) -> None:
+    """Raise on anything the kernel does not take."""
+    tensors = {"msgs": msgs, "row_ptr": layout.row_ptr, "w": layout.w}
+    dtypes = {"msgs": torch.float32, "row_ptr": torch.int32,
+              "w": torch.float32}
+    if perm is not None:
+        tensors["perm"], dtypes["perm"] = perm, torch.int32
+    check_tensors("staircase_aggregate", msgs.device, tensors, dtypes)
+    if msgs.dim() != 2 or msgs.shape[1] < 1:
+        raise ValueError(f"staircase_aggregate: msgs must be [n, d] with "
+                         f"d >= 1, got {tuple(msgs.shape)}")
+    if max(msgs.shape[0], msgs.shape[1], n_vertices) >= 2 ** 31:
+        raise ValueError("staircase_aggregate: a dimension overflows int32")
+    if layout.n_rows != n_vertices:
+        raise ValueError(f"staircase_aggregate: layout has {layout.n_rows} "
+                         f"rows, expected {n_vertices}")
+    e = layout.n_edges
+    if layout.w.shape[0] != e:
+        raise ValueError("staircase_aggregate: src and w differ in length")
+    if perm is None and msgs.shape[0] != e:
+        raise ValueError(f"staircase_aggregate: {msgs.shape[0]} messages "
+                         f"for {e} entries")
+    if perm is not None and perm.shape != (e,):
+        raise ValueError(f"staircase_aggregate: perm {tuple(perm.shape)} "
+                         f"for {e} entries")

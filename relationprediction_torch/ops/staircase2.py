@@ -46,6 +46,10 @@ gradient is
 with ``w_t`` [d_out, B*d_in], w_t[o, b*d_in + i] = W_flat[i, b*d_out + o],
 the per-basis transposed stacks (``staircase2.py:859-861``). The last two
 are torch ops over chunks of edges (``basis_direction_dweights``).
+
+``scatter2`` and ``scatter2_slot_order`` (the JAX package's
+``staircase2.py:639-661``, TPU kernel 4) are the plain weighted scatter;
+they run the kernel of ``ops/staircase.py`` (``csrc/staircase.cu``).
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ import torch
 
 from ..device import exact_float32
 from ..graph import CsrLayout
-from . import nvcc
+from . import nvcc, staircase
+from .staircase import check_tensors
 
 _SOURCE = "block_direction.cu"
 _BASIS_SOURCE = "basis_direction.cu"
@@ -85,13 +90,6 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _row_of_edge(layout: CsrLayout) -> torch.Tensor:
-    """The row (target) of every CSR entry."""
-    return torch.repeat_interleave(
-        torch.arange(layout.n_rows, device=layout.row_ptr.device),
-        layout.row_ptr.diff().long())
-
-
 def block_direction_reference(features: torch.Tensor, blocks: torch.Tensor,
                               layout: CsrLayout, n_vertices: int,
                               edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
@@ -101,7 +99,7 @@ def block_direction_reference(features: torch.Tensor, blocks: torch.Tensor,
     exact_float32()
     n_rel, n_blocks, dr, _ = blocks.shape
     d = n_blocks * dr
-    targets = _row_of_edge(layout)
+    targets = staircase.row_of_entry(layout)
     out = torch.zeros(n_vertices, d, dtype=features.dtype,
                       device=features.device)
     for start in range(0, layout.n_edges, edge_chunk):
@@ -124,7 +122,7 @@ def block_direction_dblocks(features: torch.Tensor, g: torch.Tensor,
     2.7 GB)."""
     exact_float32()
     n_rel, n_blocks, dr, _ = blocks_shape
-    targets = _row_of_edge(layout)
+    targets = staircase.row_of_entry(layout)
     dw = torch.zeros(n_rel, n_blocks, dr, dr, dtype=torch.float32,
                      device=features.device)
     for start in range(0, layout.n_edges, edge_chunk):
@@ -227,22 +225,8 @@ def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
     return out
 
 
-def _check_tensors(op: str, device, tensors: dict, dtypes: dict) -> None:
-    """Raise unless every tensor is on ``device``, of its dtype and
-    contiguous."""
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{op}: {name} is on {t.device}, expected "
-                             f"{device}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{op}: {name} is {t.dtype}, expected "
-                            f"{dtypes[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{op}: {name} is not contiguous")
-
-
 def _csr_tensors(layout: CsrLayout) -> tuple:
-    """(tensors, dtypes) of a CSR layout, for ``_check_tensors``."""
+    """(tensors, dtypes) of a CSR layout, for ``check_tensors``."""
     return ({"row_ptr": layout.row_ptr, "src": layout.src,
              "rel": layout.rel, "w": layout.w},
             {"row_ptr": torch.int32, "src": torch.int32,
@@ -252,7 +236,7 @@ def _csr_tensors(layout: CsrLayout) -> tuple:
 def _check(features, blocks, layout, n_vertices) -> None:
     """Raise on anything the kernel does not take."""
     tensors, dtypes = _csr_tensors(layout)
-    _check_tensors("block_direction", features.device,
+    check_tensors("block_direction", features.device,
                    {"features": features, "blocks": blocks, **tensors},
                    {"features": torch.float32, "blocks": torch.float32,
                     **dtypes})
@@ -321,7 +305,7 @@ def basis_combine_reference(proj: torch.Tensor, coefficients: torch.Tensor,
     b and ``index_add_`` into the rows. Sums in ``proj``'s dtype."""
     n_bases = coefficients.shape[1]
     d_out = proj.shape[1] // n_bases
-    rows = _row_of_edge(layout)
+    rows = staircase.row_of_entry(layout)
     out = torch.zeros(n_rows, d_out, dtype=proj.dtype, device=proj.device)
     for start in range(0, layout.n_edges, edge_chunk):
         sl = slice(start, start + edge_chunk)
@@ -366,7 +350,7 @@ def basis_direction_dweights(features: torch.Tensor, proj: torch.Tensor,
     exact_float32()
     n_bases = coefficients.shape[1]
     d_out = g.shape[1]
-    targets = _row_of_edge(layout)
+    targets = staircase.row_of_entry(layout)
     dw = torch.zeros(features.shape[1], n_bases * d_out,
                      dtype=torch.float32, device=g.device) if need_w else None
     dc = torch.zeros_like(coefficients) if need_c else None
@@ -413,10 +397,13 @@ basis_direction.project_launches = 0
 
 
 def launch_counts() -> tuple:
-    """(forward, twin) aggregation launches of both ops so far: a layer
-    direction is one forward launch of ``block_direction`` or one
-    ``basis_combine`` launch, and its gradient one twin launch."""
-    return (block_direction.launches + basis_direction.launches,
+    """(forward, twin) aggregation launches of the model's ops so far: a
+    layer direction is one forward launch of ``block_direction``, one
+    ``basis_combine`` launch or one ``staircase.staircase_aggregate``
+    launch, and its gradient one twin launch (none for
+    ``staircase_aggregate``, whose gradient is a torch gather)."""
+    return (block_direction.launches + basis_direction.launches
+            + staircase.staircase_aggregate.launches,
             block_direction.twin_launches + basis_direction.twin_launches)
 
 
@@ -521,7 +508,7 @@ def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
 
 def _check_project(x, w) -> None:
     """Raise on anything basis_project_f32 does not take."""
-    _check_tensors("basis_project", x.device, {"x": x, "w": w},
+    check_tensors("basis_project", x.device, {"x": x, "w": w},
                    {"x": torch.float32, "w": torch.float32})
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"basis_project: cannot multiply "
@@ -533,7 +520,7 @@ def _check_project(x, w) -> None:
 def _check_combine(proj, coefficients, layout, n_rows) -> None:
     """Raise on anything basis_combine_f32 does not take."""
     tensors, dtypes = _csr_tensors(layout)
-    _check_tensors("basis_combine", proj.device,
+    check_tensors("basis_combine", proj.device,
                    {"proj": proj, "coefficients": coefficients, **tensors},
                    {"proj": torch.float32, "coefficients": torch.float32,
                     **dtypes})
@@ -556,3 +543,36 @@ def _check_combine(proj, coefficients, layout, n_rows) -> None:
     e = layout.n_edges
     if layout.rel.shape[0] != e or layout.w.shape[0] != e:
         raise ValueError("basis_combine: src, rel and w differ in length")
+
+
+# ---------------------------------------------------------------------------
+# scatter2 (TPU kernel 4), on the kernel of ops/staircase.py
+# ---------------------------------------------------------------------------
+
+def scatter2(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
+             order) -> torch.Tensor:
+    """out[v] = sum over edges e with target v of w_e * msgs[e], with
+    ``msgs`` [E_in, d] in primary (input) edge order: ``layout`` and
+    ``order`` are what ``graph.build_csr`` returned for those edges (CSR
+    entry k is input edge ``order[k]``; padding edges, dropped there, add
+    nothing). The permutation is fused into the kernel's gather.
+    Differentiable: d msgs[order[k]] = w_k * g[row(k)], zero for padding
+    edges. Returns [n_vertices, d] float32."""
+    perm = torch.as_tensor(order, dtype=torch.int32, device=msgs.device)
+    return staircase._Aggregate.apply(msgs, layout, n_vertices, perm, True,
+                                      scatter2)
+
+
+def scatter2_slot_order(msgs_csr: torch.Tensor, layout: CsrLayout,
+                        n_vertices: int) -> torch.Tensor:
+    """The scatter of messages already in the layout's entry order with
+    their weights applied: out[v] = sum over CSR entries k of row v of
+    msgs_csr[k]. Differentiable: d msgs_csr[k] = g[row(k)]."""
+    return staircase._Aggregate.apply(msgs_csr, layout, n_vertices, None,
+                                      False, scatter2_slot_order)
+
+
+# Kernel launches since the counts were last set to 0 (CPU calls never
+# count).
+scatter2.launches = 0
+scatter2_slot_order.launches = 0

@@ -5,8 +5,12 @@ The tree is ``{"input_transform": {W, b}, "gcn_layers": [layer, ...],
 ``{W_forward, W_backward, W_self, b}`` with block stacks in the JAX layout
 [R, B, dr, dr]; a basis layer is ``{C_backward, C_forward, W_backward,
 W_forward, W_self, b}`` with bases [d_in, B, d_out] and coefficients
-[R, B] (``jax.tree_util`` order: keys sorted). The port keeps that
-structure as dictionaries and lists of tensors.
+[R, B]; a diag layer (gcn_diag) is ``{D_types_backward, D_types_forward,
+W_self, b}`` with D_types [R, d_out] (``jax.tree_util`` order: keys
+sorted). A model without an input transform (one-hot input) has no
+``input_transform``, and its first basis layer has W_* [V, B, d_out] and
+W_self [V, d_out], one row per entity. The port keeps that structure as
+dictionaries and lists of tensors.
 """
 from __future__ import annotations
 
@@ -38,15 +42,19 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves):
     """``tree``'s structure with ``leaves`` (in ``tree_leaves`` order) in
     place of its leaves."""
-    it = iter(leaves)
+    return _rebuild(tree, iter(leaves))
 
-    def rebuild(t):
-        if isinstance(t, dict):
-            return {k: rebuild(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [rebuild(v) for v in t]
-        return next(it)
-    return rebuild(tree)
+
+def _rebuild(tree, leaves):
+    # A module-level function: a recursive closure is a reference cycle
+    # whose iterator keeps the whole ``leaves`` list (gradients, Adam's
+    # moments, the updates: 4 x the parameters a train step) alive until
+    # the cycle collector runs.
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, leaves) for v in tree]
+    return next(leaves)
 
 
 def params_from_jax(tree, device) -> dict:

@@ -31,10 +31,10 @@ from relationprediction_torch.params import (params_from_jax,
                                              params_to_numpy, tree_leaves)
 from relationprediction_torch.training.engine import (BatchPipeline,
                                                       loss_and_grads)
-from relationprediction_torch.training.optimizers import (apply_updates,
-                                                          build_optimizer)
+from relationprediction_torch.training.optimizers import build_optimizer
 
-from test_torch_train_step import jax_draws
+from test_torch_train_step import (check_params_after_adam_steps,
+                                   jax_draws)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SETTINGS = str(ROOT / "settings" / "gcn_basis.exp")
@@ -187,43 +187,12 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
 @pytest.mark.parametrize("name", CASES)
 def test_params_after_optimizer_steps_match_optax(name):
     """1 and 3 steps of clip -> Adam -> -lr from the same params, batches
-    and draws, within atol 1e-5 (tests/test_torch_train_step.py).
-
-    Adam's first step moves a weight by lr * g / (|g| + eps), eps = 1e-8.
-    Where |g| is a few eps, an f32 difference of 1e-9 in g (well inside
-    the gradient check's atol of 1e-6; the summation order of torch's CPU
-    kernels follows the thread count) moves the weight by ~1e-5. So the
-    few entries whose JAX gradient fell below that atol, but not to 0, at
-    some step are held within lr per step, and all others within 1e-5."""
+    and draws: entries with a tiny gradient within lr a step, all others
+    within 1e-5 (test_torch_train_step.check_params_after_adam_steps)."""
     _, (jcfg, _, jparams, _), (tcfg, _, _, _) = case(name)
     jpipe, tpipe = pipelines(name)
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                             CPU)
-    jopt, opt = jax_optimizer(jcfg.optimizer), build_optimizer(tcfg.optimizer)
-    jstate, state = jopt.init(jparams), opt.init(params)
-    lr = tcfg.optimizer.learning_rate
-    near_zero = [np.zeros(p.shape, bool) for p in tree_leaves(params)]
-    for step in range(1, 4):
-        _, jgrads, _, grads = both_steps(name, jparams, params, jpipe.next(),
-                                         tpipe.next(), step)
-        for mask, jg in zip(near_zero, jax.tree_util.tree_leaves(jgrads)):
-            jg = np.asarray(jg)
-            mask |= (np.abs(jg) < 1e-6) & (jg != 0)
-        updates, jstate = jopt.update(jgrads, jstate, jparams)
-        jparams = jax.tree_util.tree_map(lambda p, u: p + u, jparams,
-                                         updates)
-        updates, state = opt.update(grads, state)
-        apply_updates(params, updates)
-        if step in (1, 3):
-            for p, jp, mask in zip(tree_leaves(params),
-                                   jax.tree_util.tree_leaves(jparams),
-                                   near_zero):
-                diff = np.abs(p.numpy() - np.asarray(jp))
-                assert diff[~mask].max(initial=0.0) <= 1e-5
-                assert diff[mask].max(initial=0.0) <= lr * step
-    assert sum(m.sum() for m in near_zero) \
-        < 0.01 * sum(m.size for m in near_zero)
-    assert int(state["count"]) == 3
+    check_params_after_adam_steps(jcfg, tcfg, jparams, jpipe, tpipe,
+                                  functools.partial(both_steps, name))
 
 
 def test_train_cli_runs_gcn_basis_on_cpu_without_jax():
@@ -243,11 +212,24 @@ def test_train_cli_runs_gcn_basis_on_cpu_without_jax():
     assert "Final test metrics:" in proc.stdout
 
 
-def test_one_hot_first_layer_still_raises():
-    """Without an input transform the first layer runs TPU kernel 3, not
-    ported yet."""
-    ds, _, (tcfg, _, _, _) = case("toy")
-    cfg = dataclasses.replace(tcfg, encoder=dataclasses.replace(
-        tcfg.encoder, use_input_transform=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, CPU)
+def test_block_layer_on_one_hot_input_raises_as_in_jax():
+    """A block-diagonal first layer needs dense input: without an input
+    transform the JAX package raises ValueError when it encodes
+    (``encoders.py:209-212``); the port raises it when it builds the
+    layer's parameters."""
+    ds, _, _ = case("toy")
+    block = str(ROOT / "settings" / "gcn_block.exp")
+    jcfg, tcfg = (dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, use_input_transform=False, code_dimension=20,
+        internal_dimension=20, n_bases=4), decoder=dataclasses.replace(
+        cfg.decoder, code_dimension=20)).with_counts(
+        ds.n_entities, ds.n_relations, len(ds.train))
+        for cfg in (jax_config.load(block), torch_config.load(block)))
+    jmodel = jax_build(jcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="dense input"):
+        jmodel.encode(jparams, jmodel.make_graph(ds.train, pad_to=128),
+                      deterministic=True)
+    model = build_model(tcfg, CPU)
+    with pytest.raises(ValueError, match="dense input"):
+        model.init_params(torch.Generator().manual_seed(0))

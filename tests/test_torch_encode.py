@@ -155,7 +155,7 @@ def test_train_mode_dropout_touches_only_the_self_loop():
 def test_unported_configurations_raise():
     ds = jax_synthetic.generate(30, 3, 60, seed=0)
     base = small(torch_config.load(SETTINGS), ds)
-    for enc in (dict(use_input_transform=False),
+    for enc in (dict(use_input_transform=False, random_input=True),
                 dict(message_precision="bfloat16"),
                 dict(name="embedding")):
         cfg = dataclasses.replace(

@@ -148,32 +148,57 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
     assert any(g.abs().max() > 0 for g in leaves)
 
 
-@pytest.mark.parametrize("name", CASES)
-def test_params_after_optimizer_steps_match_optax(name):
+def check_params_after_adam_steps(jcfg, tcfg, jparams, jpipe, tpipe,
+                                  both_steps_fn):
     """1 and 3 steps of clip -> Adam -> -lr from the same params, batches
-    and draws. Adam moves each weight by about lr = 0.01 whatever the
-    gradient's size, so the params agree to the gradients' f32 noise
-    scaled by lr: atol 1e-5."""
-    _, (jcfg, _, jparams), (tcfg, _) = case(name)
-    jpipe, tpipe = pipelines(name)
+    and draws (``both_steps_fn(jparams, params, jbatch, batch, step)``
+    gives JAX's and the port's loss and gradients), the params compared
+    after steps 1 and 3.
+
+    Adam's first step moves a weight by lr * g / (|g| + eps), eps = 1e-8.
+    Where |g| is a few eps, an f32 difference of 1e-9 in g (well inside
+    the gradient checks' atol of 1e-6; the summation order of torch's CPU
+    kernels follows the thread count) moves the weight by ~1e-5. So the
+    entries whose JAX gradient fell below 1e-6, but not to 0, at some step
+    are held within lr per step, all others within 1e-5; fewer than 1 % of
+    the entries may be of the first kind."""
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                              CPU)
     jopt, opt = jax_optimizer(jcfg.optimizer), build_optimizer(tcfg.optimizer)
     jstate, state = jopt.init(jparams), opt.init(params)
+    lr = tcfg.optimizer.learning_rate
+    near_zero = [np.zeros(p.shape, bool) for p in tree_leaves(params)]
     for step in range(1, 4):
-        _, jgrads, _, grads = both_steps(name, jparams, params, jpipe.next(),
-                                         tpipe.next(), step)
+        _, jgrads, _, grads = both_steps_fn(jparams, params, jpipe.next(),
+                                            tpipe.next(), step)
+        for mask, jg in zip(near_zero, jax.tree_util.tree_leaves(jgrads)):
+            jg = np.asarray(jg)
+            mask |= (np.abs(jg) < 1e-6) & (jg != 0)
         updates, jstate = jopt.update(jgrads, jstate, jparams)
         jparams = jax.tree_util.tree_map(lambda p, u: p + u, jparams,
                                          updates)
         updates, state = opt.update(grads, state)
         apply_updates(params, updates)
         if step in (1, 3):
-            for p, jp in zip(tree_leaves(params),
-                             jax.tree_util.tree_leaves(jparams)):
-                np.testing.assert_allclose(p.numpy(), np.asarray(jp),
-                                           rtol=0, atol=1e-5)
+            for p, jp, mask in zip(tree_leaves(params),
+                                   jax.tree_util.tree_leaves(jparams),
+                                   near_zero):
+                diff = np.abs(p.numpy() - np.asarray(jp))
+                assert diff[~mask].max(initial=0.0) <= 1e-5
+                assert diff[mask].max(initial=0.0) <= lr * step
+    assert sum(m.sum() for m in near_zero) \
+        < 0.01 * sum(m.size for m in near_zero)
     assert int(state["count"]) == 3
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_params_after_optimizer_steps_match_optax(name):
+    """See check_params_after_adam_steps: entries with a tiny gradient
+    within lr a step, all others within 1e-5."""
+    _, (jcfg, _, jparams), (tcfg, _) = case(name)
+    jpipe, tpipe = pipelines(name)
+    check_params_after_adam_steps(jcfg, tcfg, jparams, jpipe, tpipe,
+                                  functools.partial(both_steps, name))
 
 
 def test_fit_reports_on_the_reference_cadence():
