@@ -36,9 +36,15 @@ each with the seconds the phase has taken so far (``phase_s``):
 
 Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
 
-  kernel_basis  basis_project against a float64 product within
-          sqrt(K) * 2^-24 * sum |x||w| per element, and torch.matmul's time,
-          at the forward and twin shapes and two odd shapes; basis_combine
+  kernel_basis  basis_project (a split pass, then 3xTF32 on the tensor
+          cores) against a float64 product within sqrt(K) * 2^-24 *
+          sum |x||w| per element, at the forward and twin shapes and two odd
+          shapes: the split equal to tf32_split_reference bit for bit, two
+          launches equal bit for bit, and TF32 torch.matmul as the control
+          that must fail the allowance at the forward and twin shapes;
+          times of the whole, the split and the product beside
+          torch.matmul (TF32 off, and on) and the 3xTF32 and f32 bounds;
+          basis_combine
           in both directions on the full train graph and on the first
           training batch's graph against a float64 sum within the rounding
           its terms allow, hub rows and the others timed apart; the twin
@@ -47,7 +53,7 @@ Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
   serve_basis, grad_basis, train_basis  as serve, grad and train, through
           staircase2.basis_direction (4 combine launches an encode; 4
           forward and 4 twin combine launches a step, each after a project
-          launch).
+          launch and its split pass).
 
 Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
 gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
@@ -60,11 +66,17 @@ runs on the same kernel):
           its terms allow, the opposite direction's CSR outside it; its VJP
           against float64 autograd through the plain version; scatter2 with
           a random primary edge order (the perm path) against the same sum;
-          times (hub rows and the others apart) beside the bound and
-          torch.sparse.mm on the same [V, E] CSR matrix;
+          the kernel's carry rows against merge_path_carry_rows and two
+          launches bit for bit; times (hub rows and the others apart, and
+          at every item count of SWEEP_ITEMS) beside the bound and
+          torch.sparse.mm on the same [V, E] CSR matrix; then layouts that
+          stress the merge-path partition (a 9,155-entry hub row, also on
+          the perm path, every entry in one row, no entries, rows of one
+          entry, d = 37);
   serve_onehot, train_onehot, serve_diag, train_diag  as serve and train,
           through staircase.staircase_aggregate: 4 launches an encode and a
-          step, no twin pass, none of the fused kernels.
+          step, each with its carry fix-up, no twin pass, none of the fused
+          kernels.
 
 Then a line listing every ported kernel with its numbers, nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
@@ -100,6 +112,7 @@ SETTINGS = ROOT / "settings" / "gcn_block.exp"
 BASIS_SETTINGS = ROOT / "settings" / "gcn_basis.exp"
 KERNEL_SOURCE = "relationprediction_torch/ops/csrc/block_direction.cu"
 BASIS_SOURCE = "relationprediction_torch/ops/csrc/basis_direction.cu"
+PROJECT_SOURCE = "relationprediction_torch/ops/csrc/basis_project.cu"
 REPLACES = "relationprediction_tpu/ops/staircase2.py:460"
 # The twin pass: the VJP's second launch of the same TPU kernel.
 REPLACES_TWIN = "relationprediction_tpu/ops/staircase2.py:721"
@@ -113,10 +126,14 @@ REPLACES_SCATTER2 = "relationprediction_tpu/ops/staircase2.py:443"
 SERVE_TRIPLES = 2000
 TRAIN_STEPS = 20
 HUB_ROW = 1024  # rows longer than this are timed apart
-# NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the
-# tensor cores, at the full 700 W power limit.
+# Items a block of staircase_aggregate_f32 takes, swept in
+# kernel_staircase (staircase.merge_path_items gives the port's).
+SWEEP_ITEMS = (16, 32, 64, 128, 256, 512, 1024)
+# NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor
+# cores and dense TF32 tensor-core rate, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 F32_UNIT_ROUNDOFF = 2.0 ** -24
 
 
@@ -182,19 +199,34 @@ def dblocks_bound(layout, n_vertices, n_rel, n_blocks, dr):
     return least_time(n_bytes, ops)
 
 
-def least_time(n_bytes, ops) -> dict:
-    """The least time for ``n_bytes`` of HBM traffic and ``ops`` f32
-    operations: the larger of the two times, and which it is."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def least_time(n_bytes, ops, ops_per_s=F32_OPS_PER_S) -> dict:
+    """The least time for ``n_bytes`` of HBM traffic and ``ops``
+    operations at ``ops_per_s`` (the f32 rate unless said): the larger of
+    the two times, and which it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bytes": n_bytes, "ops": ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def project_bound(m, k, n) -> dict:
-    """basis_project: read X [M, K] and W [K, N], write P [M, N], against
-    2 * M * K * N f32 operations."""
-    return least_time(4 * (m * k + k * n + m * n), 2 * m * k * n)
+    """basis_project as the kernel computes it, 3xTF32: read X [M, K] and
+    W [K, N], write P [M, N], against 3 * 2 * M * K * N operations at the
+    dense TF32 tensor-core rate; beside it the f32 FMA bound of the same
+    product (2 * M * K * N at the f32 rate), the route the kernel of PRs
+    3-4 was priced at."""
+    n_bytes = 4 * (m * k + k * n + m * n)
+    return {**least_time(n_bytes, 3 * 2 * m * k * n, TF32_OPS_PER_S),
+            "priced_at": "3xTF32, dense TF32 tensor-core rate",
+            "f32_fma_bound_ms": least_time(n_bytes, 2 * m * k * n)[
+                "bound_ms"]}
+
+
+def split_bound(m, k, n, kp, parts) -> dict:
+    """The split pass: read X [M, K] and W [K, N] once, write their TF32
+    parts [parts, M, Kp] and [parts, N, Kp]; no operations worth a
+    bound."""
+    return least_time(4 * (m * k + k * n + parts * (m + n) * kp), 0)
 
 
 def combine_bound(layout, n_rows, n_bases, d_out) -> dict:
@@ -222,13 +254,14 @@ def staircase_bound(layout, n_rows, d, perm=False) -> dict:
     return least_time(n_bytes, 2 * e * d)
 
 
-def staircase_exact(msgs, layout, n_rows):
+def staircase_exact(msgs, layout, n_rows, perm=None):
     """The segment sum in float64 and its sum_allowance (one term an
     entry)."""
     exact = staircase.staircase_aggregate_reference(msgs.double(), layout,
-                                                    n_rows)
+                                                    n_rows, perm)
     abs_sum = staircase.staircase_aggregate_reference(
-        msgs.double().abs(), with_weights(layout, layout.w.abs()), n_rows)
+        msgs.double().abs(), with_weights(layout, layout.w.abs()), n_rows,
+        perm)
     deg = layout.row_ptr.diff().long()[:, None]
     return exact, sum_allowance(exact, abs_sum, deg)
 
@@ -401,9 +434,25 @@ def reset_launch_counts() -> None:
     for op in (staircase2.block_direction, staircase2.basis_direction):
         op.launches = op.twin_launches = 0
     staircase2.basis_direction.project_launches = 0
+    staircase2.basis_direction.split_launches = 0
     for op in (staircase.staircase_aggregate, staircase2.scatter2,
                staircase2.scatter2_slot_order):
         op.launches = 0
+    staircase.staircase_aggregate.fixup_launches = 0
+
+
+def check_helper_launches(op, launches, project_launches, split_launches,
+                          fixup_launches) -> None:
+    """The kernels that run beside a main path's aggregation kernel: one
+    split pass before each basis_project launch, one carry fix-up after
+    each staircase_aggregate launch, and neither elsewhere."""
+    if split_launches != project_launches:
+        raise AssertionError(f"{split_launches} split passes for "
+                             f"{project_launches} basis_project launches")
+    want = launches if op is staircase.staircase_aggregate else 0
+    if fixup_launches != want:
+        raise AssertionError(f"{fixup_launches} carry fix-ups for {want} "
+                             f"staircase_aggregate launches")
 
 
 def phase_serve(ds, device, cfg, op=staircase2.block_direction,
@@ -441,7 +490,11 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     t2 = time.perf_counter()
     launches = op.launches
     project_launches = staircase2.basis_direction.project_launches
+    split_launches = staircase2.basis_direction.split_launches
+    fixup_launches = staircase.staircase_aggregate.fixup_launches
     peak = torch.cuda.max_memory_allocated()
+    check_helper_launches(op, launches, project_launches, split_launches,
+                          fixup_launches)
     if staircase2.launch_counts() != (launches, 0):
         raise AssertionError(f"an encode for serving ran a twin pass or "
                              f"another op: {staircase2.launch_counts()}")
@@ -519,7 +572,9 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
            "codes_max_abs_err_vs_cpu_plain": codes_err,
            "mrr_filtered_cpu_plain": ref_summary.results["Filtered"]["MRR"],
            "max_memory_allocated": peak,
-           "launches": launches, "project_launches": project_launches}
+           "launches": launches, "project_launches": project_launches,
+           "split_launches": split_launches,
+           "fixup_launches": fixup_launches}
     emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
     return row
@@ -653,17 +708,90 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
     return rows
 
 
+def split_matches_plain(xs, ws, a, b) -> bool:
+    """The split pass's parts equal tf32_split_reference bit for bit: xs
+    [parts, M, Kp] of a [M, K], ws [parts, N, Kp] of b [K, N] transposed,
+    the padding columns zero."""
+    k = a.shape[1]
+    for got, plain in ((xs, a), (ws, b.t())):
+        want = torch.stack(staircase2.tf32_split_reference(plain,
+                                                           xs.shape[0]))
+        if not (torch.equal(got[:, :, :k].contiguous().view(torch.int32),
+                            want.contiguous().view(torch.int32))
+                and not got[:, :, k:].any()):
+            return False
+    return True
+
+
+def project_checks(plib, name, a, b) -> dict:
+    """basis_project (split pass + 3xTF32 product) at one shape: within
+    project_exact's allowance, the split equal to its plain version bit for
+    bit, two launches equal bit for bit; TF32 torch.matmul held to the same
+    allowance as the control (reported; the caller requires it to fail at
+    the main path's shapes). Times of the whole, of the split and the
+    product apart, of the plain version and of torch.matmul."""
+    got = staircase2.launch_project(plib, a, b)
+    again = staircase2.launch_project(plib, a, b)
+    xs, ws = staircase2.launch_split(plib, a, b)
+    exact, allowance = project_exact(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = torch.matmul(a, b)
+    tf32_ms = cuda_ms(lambda: torch.matmul(a, b), 20)
+    exact_float32()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"basis_project {name}: not finite")
+    over = over_allowance(got, exact, allowance)
+    if not over <= 1:
+        raise AssertionError(f"basis_project {name}: {over} of the f32 "
+                             f"rounding allowance")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"basis_project {name}: two launches differ")
+    if not split_matches_plain(xs, ws, a, b):
+        raise AssertionError(f"basis_project {name}: the split pass differs "
+                             f"from tf32_split_reference")
+    (m, k), n = a.shape, b.shape[1]
+    kp = xs.shape[2]
+    return {"kernel": "basis_project", "shape": name, "m": m, "k": k,
+            "n": n, "kp": kp,
+            "max_abs_err": (got.double() - exact).abs().max().item(),
+            "over_allowance": over, "same_bits_twice": True,
+            "split_equals_plain": True,
+            "tf32_matmul_over_allowance": over_allowance(tf32, exact,
+                                                         allowance),
+            "kernel_ms": cuda_ms(
+                lambda: staircase2.launch_project(plib, a, b), 20),
+            "split_ms": cuda_ms(
+                lambda: staircase2.launch_split(plib, a, b), 20),
+            "product_ms": cuda_ms(
+                lambda: staircase2.launch_product(plib, xs, ws), 20),
+            "parts": xs.shape[0],
+            "split_plain_ms": cuda_ms(
+                lambda: (staircase2.tf32_split_reference(a, xs.shape[0]),
+                         staircase2.tf32_split_reference(b.t(),
+                                                         xs.shape[0])), 5),
+            "plain_ms": cuda_ms(
+                lambda: staircase2.basis_project_reference(a, b), 20),
+            "library_ms": cuda_ms(lambda: torch.matmul(a, b), 20),
+            "library_tf32_ms": tf32_ms,
+            "split_bound_ms": split_bound(m, k, n, kp, xs.shape[0])[
+                "bound_ms"],
+            **project_bound(m, k, n)}
+
+
 def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
     """basis_project against a float64 product at the forward and twin
-    shapes and two odd shapes; basis_combine and the twin pass (project g
-    by w_t, combine on the twin CSR) against float64 sums in both
-    directions of each graph; the twin pass on the wrong twin (the
-    opposite CSR) must fail its allowance. Times of each kernel, of its
-    plain version and, for basis_project, of torch.matmul (TF32 off), with
-    the bounds; hub rows and the others timed apart. Launches here go
+    shapes and two odd shapes (project_checks; TF32 torch.matmul must fail
+    the allowance at the forward and twin shapes); basis_combine and the
+    twin pass (project g by w_t, combine on the twin CSR) against float64
+    sums in both directions of each graph; the twin pass on the wrong twin
+    (the opposite CSR) must fail its allowance. Times of each kernel, of
+    its plain version and, for basis_project, of torch.matmul (TF32 off),
+    with the bounds; hub rows and the others timed apart. Launches here go
     through launch_project / launch_combine and count nowhere."""
     t_phase = time.perf_counter()
     lib, _ = staircase2.basis_kernel_library()
+    plib, _ = staircase2.project_kernel_library()
     gen = torch.Generator().manual_seed(3)
     v = next(iter(graphs.values())).n_vertices
     x = torch.randn(v, d, generator=gen).to(device)
@@ -679,31 +807,17 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
             torch.randn(m, k, generator=gen).to(device),
             torch.randn(k, n, generator=gen).to(device))
     for name, (a, b) in operands.items():
-        got = staircase2.launch_project(lib, a, b)
-        exact, allowance = project_exact(a, b)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"basis_project {name}: not finite")
-        over = over_allowance(got, exact, allowance)
-        if not over <= 1:
-            raise AssertionError(f"basis_project {name}: {over} of the "
-                                 f"f32 rounding allowance")
-        (m, k), n = a.shape, b.shape[1]
-        row = {"kernel": "basis_project", "shape": name, "m": m, "k": k,
-               "n": n,
-               "max_abs_err": (got.double() - exact).abs().max().item(),
-               "over_allowance": over,
-               "kernel_ms": cuda_ms(
-                   lambda: staircase2.launch_project(lib, a, b), 20),
-               "plain_ms": cuda_ms(
-                   lambda: staircase2.basis_project_reference(a, b), 20),
-               "library_ms": cuda_ms(lambda: torch.matmul(a, b), 20),
-               **project_bound(m, k, n)}
+        row = project_checks(plib, name, a, b)
+        if name in ("forward", "twin") \
+                and not row["tf32_matmul_over_allowance"] > 1:
+            raise AssertionError(f"basis_project {name}: TF32 matmul passes "
+                                 f"the allowance, which then cannot tell "
+                                 f"3xTF32 from TF32")
         emit("kernel_basis", phase_s=time.perf_counter() - t_phase, **row)
         rows.append(row)
 
-    proj = staircase2.launch_project(lib, x, w_flat)
-    q = staircase2.launch_project(lib, probe, w_t)
+    proj = staircase2.launch_project(plib, x, w_flat)
+    q = staircase2.launch_project(plib, probe, w_t)
     for graph_name, graph in graphs.items():
         for name, layout, twin, wrong in (
                 ("forward", graph.fwd, graph.fwd_twin, graph.bwd),
@@ -768,11 +882,91 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
             # w_t, then combine on the twin CSR.
             row["twin_pass_ms"] = cuda_ms(
                 lambda: staircase2.launch_combine(
-                    lib, staircase2.launch_project(lib, probe, w_t), coef,
+                    lib, staircase2.launch_project(plib, probe, w_t), coef,
                     twin, v), 20)
             emit("kernel_basis", phase_s=time.perf_counter() - t_phase,
                  **row)
             rows.append(row)
+    return rows
+
+
+def staircase_repeatable(lib, msgs, layout, v, perm=None):
+    """One launch of staircase_aggregate_f32 with its carry rows held
+    against merge_path_carry_rows, and a second launch that must give the
+    same bits. Returns the output."""
+    got, carry_rows = staircase.launch(lib, msgs, layout, v, perm,
+                                       carries=True)
+    again = staircase.launch(lib, msgs, layout, v, perm)
+    want_rows = staircase.merge_path_carry_rows(
+        layout.row_ptr, staircase.merge_path_items(v, layout.n_edges))
+    if not torch.equal(carry_rows.cpu(), want_rows):
+        raise AssertionError("staircase: the kernel's carry rows differ from "
+                             "merge_path_carry_rows")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("staircase: two launches differ")
+    return got
+
+
+def csr_of_counts(counts, gen, device):
+    """A layout with ``counts[v]`` entries in row v (src and rel 0,
+    weights in [0.1, 1.1))."""
+    row_ptr = torch.zeros(len(counts) + 1, dtype=torch.int64)
+    row_ptr[1:] = torch.cumsum(torch.as_tensor(counts), 0)
+    e = int(row_ptr[-1])
+    zeros = torch.zeros(e, dtype=torch.int32)
+    return CsrLayout(row_ptr=row_ptr.to(torch.int32), src=zeros, rel=zeros,
+                     w=torch.rand(e, generator=gen) + 0.1).to(device)
+
+
+def staircase_layouts(lib, graphs, d, device) -> list:
+    """staircase_aggregate_f32 on layouts that stress its partition, each
+    within the rounding allowance of a float64 sum, with carry rows equal
+    to merge_path_carry_rows and two launches equal bit for bit: one hub
+    row of 9,155 entries (FB15k-237's largest) among 14,541 rows, the same
+    on the perm path, every entry of the full graph (272,115) in the last
+    row (blocks holding only row ends, then ~1,000 carrying one row), no
+    entries at all, rows of one entry, and the training batch's layout at
+    d = 37 (the scalar path)."""
+    gen = torch.Generator().manual_seed(6)
+    full = graphs["full_train"]
+    v = full.n_vertices
+    hub = [0] * v
+    hub[v // 2] = 9155
+    last = [0] * v
+    last[-1] = full.fwd.n_edges
+    cases = {"hub_9155": (csr_of_counts(hub, gen, device), d, False),
+             "hub_9155_perm": (csr_of_counts(hub, gen, device), d, True),
+             "one_row_holds_every_entry": (csr_of_counts(last, gen, device),
+                                           d, False),
+             "no_entries": (csr_of_counts([0] * v, gen, device), d, False),
+             "rows_of_one_entry": (csr_of_counts([1] * v, gen, device), d,
+                                   False),
+             "train_batch_d37": (graphs["train_batch"].fwd, 37, False)}
+    rows = []
+    for name, (layout, width, use_perm) in cases.items():
+        e = layout.n_edges
+        msgs = torch.randn(e, width, generator=gen).to(device)
+        perm = (torch.randperm(e, generator=gen).to(torch.int32).to(device)
+                if use_perm else None)
+        got = staircase_repeatable(lib, msgs, layout, v, perm)
+        exact, allowance = staircase_exact(msgs, layout, v, perm)
+        torch.cuda.synchronize()
+        over = over_allowance(got, exact, allowance)
+        if not (torch.isfinite(got).all() and over <= 1):
+            raise AssertionError(f"staircase layout {name}: {over} of the "
+                                 f"f32 rounding allowance")
+        items = staircase.merge_path_items(v, e)
+        rows.append({"kernel": "staircase_aggregate", "layout": name,
+                     "edges": e, "d": width, "perm": use_perm,
+                     "items": items,
+                     "blocks": staircase.merge_path_blocks(v, e, items),
+                     "carrying_blocks": int((staircase.merge_path_carry_rows(
+                         layout.row_ptr, items) >= 0).sum()),
+                     "over_allowance": over, "same_bits_twice": True,
+                     "kernel_ms": cuda_ms(lambda: staircase.launch(
+                         lib, msgs, layout, v, perm), 10),
+                     **staircase_bound(layout, v, width,
+                                       perm=use_perm)})
     return rows
 
 
@@ -783,10 +977,12 @@ def phase_kernel_staircase(graphs, d, device):
     messages summed on the opposite direction's CSR (must fail the
     allowance), the op's VJP against float64 autograd through the plain
     version, and scatter2 with a random primary edge order (the perm
-    path). Times of the kernel, its plain version and torch.sparse.mm on
-    the [V, E] CSR matrix of weights, beside the bound; hub rows and the
-    others apart. Launches here go through staircase.launch or count on
-    counters the main paths reset."""
+    path); the kernel's carry rows equal merge_path_carry_rows and two
+    launches give the same bits. Times of the kernel, its plain version
+    and torch.sparse.mm on the [V, E] CSR matrix of weights, beside the
+    bound; hub rows and the others apart; the kernel at every item count
+    of SWEEP_ITEMS. Then staircase_layouts. Launches here go through
+    staircase.launch or count on counters the main paths reset."""
     t_phase = time.perf_counter()
     lib, _ = staircase.kernel_library()
     rows = []
@@ -803,7 +999,8 @@ def phase_kernel_staircase(graphs, d, device):
             primary = torch.empty_like(msgs)
             primary[order] = msgs  # CSR entry k is primary edge order[k]
 
-            got = staircase.launch(lib, msgs, layout, v)
+            got = staircase_repeatable(lib, msgs, layout, v)
+            staircase_repeatable(lib, primary, layout, v, perm)
             plain = staircase.staircase_aggregate_reference(msgs, layout, v)
             wrong_out = staircase.launch(lib, msgs, wrong, v)
             scattered = staircase2.scatter2(primary, layout, v, perm)
@@ -896,10 +1093,20 @@ def phase_kernel_staircase(graphs, d, device):
                                                .item()),
                    "largest_row": int(lengths.max().item()),
                    "empty_rows": int((lengths == 0).sum().item()),
+                   "items": staircase.merge_path_items(v, e),
+                   "items_sweep_ms": {str(items): cuda_ms(
+                       lambda: staircase.launch(lib, msgs, layout, v,
+                                                items=items), 20)
+                       for items in SWEEP_ITEMS},
+                   "same_bits_twice": True,
                    **bound}
             emit("kernel_staircase", phase_s=time.perf_counter() - t_phase,
                  **row)
             rows.append(row)
+    for row in staircase_layouts(lib, graphs, d, device):
+        emit("kernel_staircase", phase_s=time.perf_counter() - t_phase,
+             **row)
+        rows.append(row)
     return rows
 
 
@@ -914,7 +1121,7 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
     forward, of d W_flat + d C, of its whole backward and of the plain
     backward (float32)."""
     t_phase = time.perf_counter()
-    lib, _ = staircase2.basis_kernel_library()
+    plib, _ = staircase2.project_kernel_library()
     rows = []
     for graph_name, graph in graphs.items():
         v = graph.n_vertices
@@ -955,7 +1162,7 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
                 torch.testing.assert_close(
                     got, ref.float(), rtol=1e-4,
                     atol=1e-4 * ref.abs().max().item())
-            proj = staircase2.launch_project(lib, x, w_flat)
+            proj = staircase2.launch_project(plib, x, w_flat)
             xr = [t.clone().requires_grad_(True) for t in (x, w_flat, coef)]
             ref_loss = (staircase2.basis_direction_reference(*xr, layout, v)
                         * probe).sum()
@@ -1051,7 +1258,11 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     launches = op.launches
     twin_launches = getattr(op, "twin_launches", 0)
     project_launches = staircase2.basis_direction.project_launches
+    split_launches = staircase2.basis_direction.split_launches
+    fixup_launches = staircase.staircase_aggregate.fixup_launches
     peak = torch.cuda.max_memory_allocated()
+    check_helper_launches(op, launches, project_launches, split_launches,
+                          fixup_launches)
     records = result.steps
     per_layer = 2 * cfg.encoder.n_layers
     twin_per_layer = 0 if op is staircase.staircase_aggregate else per_layer
@@ -1095,6 +1306,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "launches_per_step": launches // steps,
            "twin_launches_per_step": twin_launches // steps,
            "project_launches_per_step": project_launches // steps,
+           "split_launches_per_step": split_launches // steps,
+           "fixup_launches_per_step": fixup_launches // steps,
            "max_memory_allocated": peak, "log": logged}
     emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
@@ -1102,7 +1315,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
          **profile_steps(loop, params, result.opt_state),
          phase_s=time.perf_counter() - t_phase)
     return {**row, "launches": launches, "twin_launches": twin_launches,
-            "project_launches": project_launches}
+            "project_launches": project_launches,
+            "split_launches": split_launches, "fixup_launches": fixup_launches}
 
 
 def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
@@ -1215,7 +1429,7 @@ def basis_kernels_line(kb, serve, train) -> list:
     batch = [r for r in comb if r["graph"] == "train_batch"]
     fwd, twin = proj["forward"], proj["twin"]
     return [{
-        "name": "basis_project", "route": "cuda", "source": BASIS_SOURCE,
+        "name": "basis_project", "route": "cuda", "source": PROJECT_SOURCE,
         "replaces": REPLACES_BASIS, "replaces_twin": REPLACES_BASIS_TWIN,
         "launches": train["project_launches"],
         "launches_forward": train["launches"],
@@ -1224,11 +1438,25 @@ def basis_kernels_line(kb, serve, train) -> list:
         "max_abs_err": max(r["max_abs_err"] for r in proj.values()),
         "max_over_allowance": max(r["over_allowance"]
                                   for r in proj.values()),
+        "tf32_matmul_over_allowance": min(
+            fwd["tf32_matmul_over_allowance"],
+            twin["tf32_matmul_over_allowance"]),
         "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "priced_at": fwd["priced_at"],
+        "f32_fma_bound_ms": fwd["f32_fma_bound_ms"],
         "library_ms": fwd["library_ms"],
+        "library_tf32_ms": fwd["library_tf32_ms"],
+        "product_ms": fwd["product_ms"], "split_ms": fwd["split_ms"],
         "twin_ms": twin["kernel_ms"], "twin_library_ms": twin["library_ms"],
         "twin_bound_ms": twin["bound_ms"]}, {
+        "name": "tf32_split", "route": "cuda", "source": PROJECT_SOURCE,
+        "replaces": REPLACES_BASIS, "launches": train["split_launches"],
+        "launches_serve": serve["split_launches"],
+        "max_abs_err": 0.0, "equals_plain_bitwise": True,
+        "ms": fwd["split_ms"], "plain_ms": fwd["split_plain_ms"],
+        "bound_ms": fwd["split_bound_ms"], "bound_by": "bytes",
+        "library_ms": None}, {
         "name": "basis_combine", "route": "cuda", "source": BASIS_SOURCE,
         "replaces": REPLACES_BASIS, "replaces_twin": REPLACES_BASIS_TWIN,
         "launches": train["launches"] + train["twin_launches"],
@@ -1258,18 +1486,24 @@ def staircase_kernels_line(ks, runs) -> list:
     train graph (the serving shape) and on the first training batch's
     graph; times and bounds are means over the two directions. Launches
     are those of the four main paths (``runs``: phase -> its row)."""
-    def mean(items, key):
-        return sum(r[key] for r in items) / len(items)
-    full = [r for r in ks if r["graph"] == "full_train"]
-    batch = [r for r in ks if r["graph"] == "train_batch"]
+    def mean(items, key, sub=None):
+        pick = (lambda r: r[key]) if sub is None else (lambda r: r[key][sub])
+        return sum(pick(r) for r in items) / len(items)
+    full = [r for r in ks if r.get("graph") == "full_train"]
+    batch = [r for r in ks if r.get("graph") == "train_batch"]
+    layouts = [r for r in ks if "layout" in r]
     return [{
         "name": "staircase_aggregate", "route": "cuda",
         "source": STAIRCASE_SOURCE, "replaces": REPLACES_STAIRCASE,
         "replaces_too": REPLACES_SCATTER2,
         "launches": sum(r["launches"] for r in runs.values()),
         "launches_by_path": {k: r["launches"] for k, r in runs.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in ks),
+        "fixup_launches": sum(r["fixup_launches"] for r in runs.values()),
+        "items": full[0]["items"],
+        "train_batch_items": batch[0]["items"],
+        "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(r["over_allowance"] for r in ks),
+        "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts},
         "ms": mean(full, "kernel_ms"), "plain_ms": mean(full, "plain_ms"),
         "bound_ms": mean(full, "bound_ms"), "bound_by": full[0]["bound_by"],
         "library_ms": mean(full, "library_ms"),
@@ -1281,21 +1515,28 @@ def staircase_kernels_line(ks, runs) -> list:
         "train_batch_bound_ms": mean(batch, "bound_ms"),
         "train_batch_library_ms": mean(batch, "library_ms"),
         "scatter2_launches": staircase2.scatter2.launches,
-        "scatter2_max_abs_err": max(r["scatter2_max_abs_err"] for r in ks),
+        "scatter2_max_abs_err": max(r["scatter2_max_abs_err"]
+                                    for r in full + batch),
         "scatter2_ms": mean(full, "scatter2_ms"),
         "scatter2_plain_ms": mean(full, "scatter2_plain_ms"),
         "scatter2_bound_ms": mean(full, "scatter2_bound_ms"),
         "scatter2_library_ms": mean(full, "scatter2_library_ms"),
-        "train_batch_scatter2_ms": mean(batch, "scatter2_ms")}]
+        "train_batch_scatter2_ms": mean(batch, "scatter2_ms"),
+        "items_sweep_ms": {k: mean(full, "items_sweep_ms", k)
+                           for k in full[0]["items_sweep_ms"]},
+        "train_batch_items_sweep_ms": {
+            k: mean(batch, "items_sweep_ms", k)
+            for k in batch[0]["items_sweep_ms"]}}]
 
 
 def build_all() -> None:
     """Build every kernel source at once, one nvcc each."""
     t_phase = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = {source: pool.submit(fn) for source, fn in (
             (KERNEL_SOURCE, staircase2.kernel_library),
             (BASIS_SOURCE, staircase2.basis_kernel_library),
+            (PROJECT_SOURCE, staircase2.project_kernel_library),
             (STAIRCASE_SOURCE, staircase.kernel_library))}
     for source, future in futures.items():
         _, info = future.result()

@@ -4,17 +4,16 @@
 //            w_e * sum_b C[r_e, b] * (x[src_e] @ W_b)
 //
 // x [V, d_in] f32, W_flat [d_in, B * d_out] f32 (W_b is columns
-// b*d_out .. (b+1)*d_out), C [R, B] f32, out [V, d_out] f32. Two kernels:
+// b*d_out .. (b+1)*d_out), C [R, B] f32, out [V, d_out] f32. Two steps:
 //
-// * basis_project_f32:  P = X @ W, X [M, K], W [K, N], P [M, N], all f32
-//   row-major. The forward projects every vertex once, P = x @ W_flat
-//   [V, B * d_out]; the twin pass projects the cotangent g by the per-basis
-//   transposed stacks, Q = g @ w_t [V, B * d_in], with w_t[o, b, i] =
-//   W_flat[i, b * d_out + o].
-// * basis_combine_f32:  out[v] = sum_{e in row v} w_e sum_b C[rel_e, b] *
-//   P[src_e, b, :] on a CSR (graph.py: row_ptr, src, rel, w). On the
-//   direction's twin CSR (rows are the edges' sources) with Q it gives
-//   d features[u] = sum_{e: src_e = u} w_e sum_b C[r_e, b] (g[tgt_e] @ W_b^T).
+// * the projection P = x @ W_flat [V, B * d_out] once per vertex (and, in
+//   the twin pass, Q = g @ w_t [V, B * d_in], with w_t[o, b, i] =
+//   W_flat[i, b * d_out + o]): basis_project_f32 of basis_project.cu;
+// * basis_combine_f32 (this file):  out[v] = sum_{e in row v} w_e sum_b
+//   C[rel_e, b] * P[src_e, b, :] on a CSR (graph.py: row_ptr, src, rel, w).
+//   On the direction's twin CSR (rows are the edges' sources) with Q it
+//   gives d features[u] = sum_{e: src_e = u} w_e sum_b C[r_e, b]
+//   (g[tgt_e] @ W_b^T).
 //
 // Replaces relationprediction_tpu/ops/staircase2.py:505-518
 // (_make_basis_kernel, launched by _call_basis at :601-632, and again on
@@ -26,14 +25,6 @@
 // is taken once per vertex (2 * V * d_in * B * d_out: 36.4 GFLOP at
 // V=14,541, d=500, B=5), the same function with the edge weight applied
 // after the product instead of before it (other rounding, same sum).
-//
-// basis_project_f32: 128x128 output tiles, 256 threads of 8x8 outputs
-// each, k-steps of 8 staged through shared memory, f32 FMA (no TF32, no
-// tensor cores: the port keeps full f32 products, device.exact_float32).
-// Every load is guarded, so any M, K, N work; loads are scalar, so any
-// alignment works. Bound on an H100: operations, 2*M*K*N over 67 TFLOP/s
-// f32 (0.54 ms at M=V, K=500, N=2,500); bytes (X, W, P once: 0.20 GB, 0.06
-// ms) are below that.
 //
 // basis_combine_f32: one thread block per output row, written once (no
 // atomics; an empty row writes zeros). kLanes lanes of kColThreads threads
@@ -54,88 +45,6 @@
 #include <cstdint>
 
 namespace {
-
-// ---- basis_project_f32 ------------------------------------------------
-
-constexpr int kTileM = 128;
-constexpr int kTileN = 128;
-constexpr int kTileK = 8;
-constexpr int kThreadRows = 8;   // outputs a thread owns along M
-constexpr int kThreadCols = 8;   // and along N
-constexpr int kProjectThreads =
-    (kTileM / kThreadRows) * (kTileN / kThreadCols);  // 256
-constexpr int kPadA = 4;  // As row padding: conflict-free transposed stores
-
-__global__ void __launch_bounds__(kProjectThreads)
-basis_project_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ p, int m, int k, int n) {
-  // As[kk][mm] holds x[m0 + mm, k0 + kk]; Bs[kk][nn] holds w[k0 + kk, n0 + nn].
-  __shared__ float as[kTileK][kTileM + kPadA];
-  __shared__ float bs[kTileK][kTileN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (kTileN / kThreadCols);  // 0..15: columns tx + 16 j
-  const int ty = tid / (kTileN / kThreadCols);  // 0..15: rows ty + 16 i
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kTileM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * kTileN;
-
-  float acc[kThreadRows][kThreadCols];
-#pragma unroll
-  for (int i = 0; i < kThreadRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < kThreadCols; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k; k0 += kTileK) {
-    // x tile: 8 consecutive k of a row per 8 threads (32-byte segments).
-#pragma unroll
-    for (int u = 0; u < kTileM * kTileK / kProjectThreads; ++u) {
-      const int idx = tid + u * kProjectThreads;
-      const int mm = idx / kTileK, kk = idx % kTileK;
-      const int64_t gm = m0 + mm;
-      const int gk = k0 + kk;
-      as[kk][mm] = (gm < m && gk < k) ? __ldg(x + gm * k + gk) : 0.f;
-    }
-    // w tile: consecutive threads on consecutive columns.
-#pragma unroll
-    for (int u = 0; u < kTileN * kTileK / kProjectThreads; ++u) {
-      const int idx = tid + u * kProjectThreads;
-      const int kk = idx / kTileN, nn = idx % kTileN;
-      const int gk = k0 + kk;
-      const int64_t gn = n0 + nn;
-      bs[kk][nn] = (gk < k && gn < n)
-                       ? __ldg(w + static_cast<int64_t>(gk) * n + gn)
-                       : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[kThreadRows], b[kThreadCols];
-#pragma unroll
-      for (int i = 0; i < kThreadRows; ++i) a[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kThreadCols; ++j) b[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kThreadRows; ++i) {
-#pragma unroll
-        for (int j = 0; j < kThreadCols; ++j) {
-          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kThreadRows; ++i) {
-    const int64_t gm = m0 + ty + 16 * i;
-    if (gm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kThreadCols; ++j) {
-      const int64_t gn = n0 + tx + 16 * j;
-      if (gn < n) p[gm * n + gn] = acc[i][j];
-    }
-  }
-}
 
 // ---- basis_combine_f32 ------------------------------------------------
 
@@ -267,31 +176,6 @@ extern "C" {
 // against them.
 int basis_direction_max_bases() { return kMaxBases; }
 int basis_direction_max_cols() { return kMaxCols; }
-
-// p = x @ w on `stream` of `device`; returns cudaGetLastError() after the
-// launch (0 on success), cudaErrorInvalidValue for a negative size or a
-// grid beyond the card's limits.
-int basis_project_f32(const float* x, const float* w, float* p, int m, int k,
-                      int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (m < 0 || k < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0 || n == 0) return 0;
-  const int64_t grid_m = (static_cast<int64_t>(m) + kTileM - 1) / kTileM;
-  const int64_t grid_n = (static_cast<int64_t>(n) + kTileN - 1) / kTileN;
-  if (grid_n > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (k == 0) {
-    return static_cast<int>(cudaMemsetAsync(
-        p, 0, sizeof(float) * static_cast<size_t>(m) * n,
-        static_cast<cudaStream_t>(stream)));
-  }
-  basis_project_kernel<<<dim3(static_cast<unsigned>(grid_m),
-                              static_cast<unsigned>(grid_n)),
-                         kProjectThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(x, w, p, m, k,
-                                                              n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // out [n_rows, d_out] from proj [*, n_bases * d_out] and coef [R, n_bases]
 // on a CSR of n_rows rows; n_bases outside [1, 8] or d_out outside

@@ -4,8 +4,10 @@
 //               w[k] * msgs[perm ? perm[k] : k, :]
 //
 // msgs [n_msgs, d] f32, perm [E] int32 or null, row_ptr [n_rows + 1]
-// int32, w [E] f32 or null (every weight 1), out [n_rows, d] f32, all
-// row-major and contiguous. One kernel, staircase_aggregate_f32.
+// int32 with row_ptr[0] = 0 and row_ptr[n_rows] = E, w [E] f32 or null
+// (every weight 1), out [n_rows, d] f32, all row-major and contiguous.
+// One C entry point, staircase_aggregate_f32, launching two kernels:
+// merge_path_kernel, then carry_fixup_kernel.
 //
 // Replaces two TPU kernels:
 // * relationprediction_tpu/ops/staircase.py:191 (_staircase_kernel,
@@ -14,10 +16,10 @@
 //   and weighted in XLA (msgs[perm] * w), then a sequential grid over
 //   512-slot chunks adds onehot([128, C]) @ msgs([C, d]) into a VMEM row
 //   block. Here the CSR by target (graph.py) is the layout: a row's entries
-//   are contiguous, so one thread block sums its row directly. The one-hot
-//   product, 2 * 128 * d operations of mostly zeros an edge, is not
-//   carried over. The model path builds its messages in each direction's
-//   CSR order, so perm is null there and no gather is needed.
+//   are contiguous, so they are summed directly. The one-hot product,
+//   2 * 128 * d operations of mostly zeros an edge, is not carried over.
+//   The model path builds its messages in each direction's CSR order, so
+//   perm is null there and no gather is needed.
 // * relationprediction_tpu/ops/staircase2.py:443 (_scatter_kernel,
 //   launched by _call_scatter at :533-557; ops scatter2 and
 //   scatter2_slot_order at :639-661): the same sum on the v2 slot layout.
@@ -26,42 +28,61 @@
 //   that the TPU op does in XLA; scatter2_slot_order passes messages in
 //   CSR order with the weights already applied (perm and w null).
 //
-// Design: one thread block per output row, written once (no atomics, no
-// second pass; a row without entries writes zeros, since the wrapper
-// allocates `out` with torch.empty). A block is kLanes lanes of 128
-// threads. Threads of a lane lie across the columns, each owning one float4
-// (d % 4 == 0 and 16-byte aligned msgs and out; d = 500 gives a 2,000-byte
-// pitch) or one float otherwise, with gridDim.y covering wider rows. The
-// lanes split the row's entries into kLanes contiguous parts; each thread
-// keeps its sums in registers and walks its part in CSR order, the loads
-// of kBatch entries in flight together, and the lanes add their sums
-// through shared memory at the end. Sums are f32.
-//
-// A row costs one memory round trip per kLanes * kBatch entries, so the
-// longest row sets a launch's time: the hub rows on the full graph, rows
-// of ~640 entries at the train shape. On an H100, blocks of one lane
-// with 4 entries in flight took 0.18 ms at the train shape; 4 lanes cut
-// that chain by 4 (PERF.md).
-//
 // Bound on an H100: bytes. Every message row is read once (E * d * 4:
 // 544 MB for the full FB15k-237 graph at d = 500), out written once
 // (29 MB), plus the CSR; 2 * E * d operations are far below the f32 rate.
-// Known limits: a hub row (up to 9,155 entries at FB15k-237 scale, 18 MB
-// of messages) is pulled by one thread block on one SM, so on the full
-// graph the few hub rows set the time; at the train shape (15,000 edges)
-// about 2/3 of the 14,541 rows are empty and their blocks only write
-// zeros. Splitting long rows over blocks and skipping empty ones is not
-// done here.
+// The graphs are skewed: hub rows of up to 9,155 entries (18 MB of
+// messages) beside rows of one entry, and at the train shape (15,000
+// entries) 2/3 of the 14,541 rows are empty.
+//
+// Design: merge-based CSR SpMM (Merrill and Garland, "Merge-based Parallel
+// Sparse Matrix-Vector Multiplication", SC'16), with the d columns across
+// the threads of a block.
+// * The partition. The merged list is the n_rows row ends and the E
+//   entries, row end v coming after row v's entries (entry k comes first
+//   iff k < row_ptr[v + 1]). Block b takes the items [b * items,
+//   (b + 1) * items) of it and finds where that range starts and ends, as
+//   (rows ended, entries taken), by a binary search over row_ptr on its
+//   two diagonals. A hub row is cut across blocks; a run of empty rows
+//   costs a block one item a row; every block has the same work. The grid
+//   is ceil((n_rows + E) / items) blocks, known from sizes alone.
+// * Inside a block. The block's row ends, message indices and weights are
+//   staged in shared memory. 128 threads lie across the columns, each
+//   owning one float4 (d % 4 == 0 and 16-byte aligned pointers; d = 500
+//   gives 125 threads) or one float otherwise, with gridDim.y covering
+//   wider rows. The block walks its entries in CSR order, the loads of
+//   kBatch entries in flight together, and writes each row that ends in
+//   its range once: the full sum of a row that began there, the block's
+//   partial sum of a row that began in an earlier block, zeros for an
+//   empty row. Sums are f32, in CSR order.
+// * Rows cut by a block boundary are finished without atomics. Block b
+//   writes a carry, the row in progress at its end (carry_row[b], -1 if
+//   none) and its partial sum of that row (carry[b, :]). The carries of a
+//   row sit in consecutive slots, since a row's blocks are consecutive.
+//   carry_fixup_kernel, launched after every merge_path_kernel (no host
+//   sync to see whether carries exist), lets the slot that heads each run
+//   add the run's carries in block order and then the partial that the
+//   row's last block wrote to out. The order is fixed, so two launches on
+//   the same inputs give the same bits.
+//
+// Cases that the tests and chip_smoke.py hold against the plain version:
+// a row spanning dozens of blocks (a 9,155-entry hub at 256 items is ~36
+// blocks); a block holding only row ends (a run of empty rows); a block
+// whose range starts and ends inside one row (its carry is its whole
+// sum); E = 0 (every row zero, no carries); every entry in one row;
+// n_rows + E near int32 (the wrapper raises); the perm path's gathered
+// rows; d % 4 != 0 (the scalar path).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;  // threads of a lane, across the columns
-constexpr int kLanes = 4;      // lanes of a block, over the row's entries
-constexpr int kBatch = 4;      // entries a thread has in flight together
+constexpr int kThreads = 128;   // threads of a block, across the columns
+constexpr int kBatch = 8;       // entries whose loads are in flight together
+constexpr int kMaxItems = 2048;  // staging: 3 ints an item, 24 KB at most
 
 __device__ __forceinline__ float zero_of(float) { return 0.f; }
 __device__ __forceinline__ float4 zero_of(float4) {
@@ -76,67 +97,176 @@ __device__ __forceinline__ void axpy(float a, float4 x, float4& acc) {
   acc.z = fmaf(a, x.z, acc.z);
   acc.w = fmaf(a, x.w, acc.w);
 }
+__device__ __forceinline__ void add(float x, float& acc) { acc += x; }
+__device__ __forceinline__ void add(float4 x, float4& acc) {
+  acc.x += x.x;
+  acc.y += x.y;
+  acc.z += x.z;
+  acc.w += x.w;
+}
+
+// Rows whose end comes before item `diag` of the merged list: the number
+// of v with row_ptr[v + 1] + v < diag (row end v is item row_ptr[v+1] + v).
+__device__ int rows_before(const int* __restrict__ row_ptr, int n_rows,
+                           int n_edges, int diag) {
+  int lo = max(diag - n_edges, 0);
+  int hi = min(diag, n_rows);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(row_ptr + mid + 1) + mid < diag) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
 
 // T is float4 (units = d / 4) or float (units = d). An entry whose message
 // index falls outside [0, n_msgs) adds nothing; the wrapper's checks keep
 // every index inside.
 template <typename T>
-__global__ void __launch_bounds__(kThreads * kLanes)
-staircase_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
-                 const int* __restrict__ row_ptr,
-                 const float* __restrict__ w, T* __restrict__ out,
-                 int units, int n_msgs) {
-  __shared__ T partial[kLanes - 1][kThreads];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x / kThreads;
-  const int t = threadIdx.x - lane * kThreads;
+__global__ void __launch_bounds__(kThreads)
+merge_path_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
+                  const int* __restrict__ row_ptr,
+                  const float* __restrict__ w, T* __restrict__ out,
+                  int* __restrict__ carry_row, T* __restrict__ carry,
+                  int n_rows, int n_edges, int units, int n_msgs,
+                  int items) {
+  extern __shared__ int staged[];  // row ends, message indices, weights
+  __shared__ int bounds[5];        // i0, j0, i1, j1, has_carry
+  const int t = threadIdx.x;
   const int u = blockIdx.y * kThreads + t;
-  const int start = row_ptr[row];
-  const int len = row_ptr[row + 1] - start;
-  const int begin = start + static_cast<int>(
-                                static_cast<int64_t>(len) * lane / kLanes);
-  const int end = start + static_cast<int>(
-                              static_cast<int64_t>(len) * (lane + 1) / kLanes);
+  const int64_t total = static_cast<int64_t>(n_rows) + n_edges;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * items;
+  const int64_t d1 = d0 + items < total ? d0 + items : total;
+  if (t == 0) {
+    const int i0 = rows_before(row_ptr, n_rows, n_edges, static_cast<int>(d0));
+    bounds[0] = i0;
+    bounds[1] = static_cast<int>(d0) - i0;
+  } else if (t == 32) {
+    const int i1 = rows_before(row_ptr, n_rows, n_edges, static_cast<int>(d1));
+    const int j1 = static_cast<int>(d1) - i1;
+    bounds[2] = i1;
+    bounds[3] = j1;
+    bounds[4] = i1 < n_rows && j1 > __ldg(row_ptr + i1);
+  }
+  __syncthreads();
+  const int i0 = bounds[0], j0 = bounds[1], i1 = bounds[2], j1 = bounds[3];
+  const int n_ends = i1 - i0;  // rows i0 .. i1 - 1 end in this block
+  const int n_ent = j1 - j0;   // entries j0 .. j1 - 1 are taken here
+  int* s_end = staged;
+  int* s_idx = staged + items;
+  float* s_w = reinterpret_cast<float*>(staged + 2 * items);
+  for (int r = t; r < n_ends; r += kThreads) {
+    s_end[r] = __ldg(row_ptr + i0 + r + 1);
+  }
+  for (int q = t; q < n_ent; q += kThreads) {
+    const int k = j0 + q;
+    s_idx[q] = perm ? __ldg(perm + k) : k;
+    s_w[q] = w ? __ldg(w + k) : 1.f;
+  }
+  __syncthreads();
+
+  const bool col = u < units;
   T acc = zero_of(T());
-  if (u < units) {
-    for (int k = begin; k < end; k += kBatch) {
-      int idx[kBatch];
-      float wk[kBatch];
+  int r = 0;  // row i0 + r takes the next entry
+  int row_end = n_ends > 0 ? s_end[0] : INT_MAX;
+  for (int q0 = 0; q0 < n_ent; q0 += kBatch) {
+    T v[kBatch];
+    float wk[kBatch];
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const bool live = k + b < end;
-        idx[b] = live ? (perm ? __ldg(perm + k + b) : k + b) : -1;
-        wk[b] = live ? (w ? __ldg(w + k + b) : 1.f) : 0.f;
+    for (int b = 0; b < kBatch; ++b) {
+      const int q = q0 + b;
+      const int idx = q < n_ent ? s_idx[q] : -1;
+      wk[b] = q < n_ent ? s_w[q] : 0.f;
+      v[b] = (col && idx >= 0 && idx < n_msgs)
+                 ? __ldg(msgs + static_cast<int64_t>(idx) * units + u)
+                 : zero_of(T());
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int q = q0 + b;
+      if (q >= n_ent) break;
+      while (j0 + q >= row_end) {  // row i0 + r ends before this entry
+        if (col) out[static_cast<int64_t>(i0 + r) * units + u] = acc;
+        acc = zero_of(T());
+        ++r;
+        row_end = r < n_ends ? s_end[r] : INT_MAX;
       }
-      T v[kBatch];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        v[b] = (idx[b] >= 0 && idx[b] < n_msgs)
-                   ? __ldg(msgs + static_cast<int64_t>(idx[b]) * units + u)
-                   : zero_of(T());
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) axpy(wk[b], v[b], acc);
+      axpy(wk[b], v[b], acc);
     }
   }
-  if (lane > 0) partial[lane - 1][t] = acc;
-  __syncthreads();
-  if (lane > 0 || u >= units) return;
+  for (; r < n_ends; ++r) {  // rows ending after the block's last entry
+    if (col) out[static_cast<int64_t>(i0 + r) * units + u] = acc;
+    acc = zero_of(T());
+  }
+  // acc is now the block's part of row i1, in progress at its end.
+  const bool has_carry = bounds[4] != 0;
+  if (blockIdx.y == 0 && t == 0) carry_row[blockIdx.x] = has_carry ? i1 : -1;
+  if (has_carry && col) {
+    carry[static_cast<int64_t>(blockIdx.x) * units + u] = acc;
+  }
+}
+
+// For each run of slots carrying the same row, its first slot adds the
+// run's carries in block order, then the partial the row's last block
+// wrote to out, and stores the sum in out.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+carry_fixup_kernel(const int* __restrict__ carry_row,
+                   const T* __restrict__ carry, T* __restrict__ out,
+                   int n_blocks, int units) {
+  const int b = blockIdx.x;
+  const int row = carry_row[b];
+  if (row < 0 || (b > 0 && carry_row[b - 1] == row)) return;
+  const int u = blockIdx.y * kThreads + threadIdx.x;
+  if (u >= units) return;
+  T sum = carry[static_cast<int64_t>(b) * units + u];
+  int c = b + 1;
+  bool more = c < n_blocks && carry_row[c] == row;
+  while (more) {  // kBatch carries' loads in flight, added in block order
+    T v[kBatch];
+    int taken = 0;
 #pragma unroll
-  for (int l = 0; l < kLanes - 1; ++l) axpy(1.f, partial[l][t], acc);
-  out[static_cast<int64_t>(row) * units + u] = acc;
+    for (int i = 0; i < kBatch; ++i) {
+      more = more && c + i < n_blocks && carry_row[c + i] == row;
+      v[i] = more ? carry[static_cast<int64_t>(c + i) * units + u]
+                  : zero_of(T());
+      taken += more;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (i < taken) add(v[i], sum);
+    }
+    c += taken;
+    more = taken == kBatch && c < n_blocks && carry_row[c] == row;
+  }
+  T* o = out + static_cast<int64_t>(row) * units + u;
+  add(*o, sum);
+  *o = sum;
 }
 
 template <typename T>
 int launch(const T* msgs, const int* perm, const int* row_ptr,
-           const float* w, T* out, int n_rows, int units, int n_msgs,
-           cudaStream_t s) {
+           const float* w, T* out, int* carry_row, T* carry, int n_rows,
+           int n_edges, int units, int n_msgs, int items, cudaStream_t s) {
   const int grid_y = (units + kThreads - 1) / kThreads;
-  if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(n_rows),
+  const int64_t n_blocks =
+      (static_cast<int64_t>(n_rows) + n_edges + items - 1) / items;
+  if (grid_y > 65535 || n_blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(n_blocks),
                   static_cast<unsigned>(grid_y));
-  staircase_kernel<T><<<grid, kThreads * kLanes, 0, s>>>(
-      msgs, perm, row_ptr, w, out, units, n_msgs);
+  const size_t smem = sizeof(int) * 3 * static_cast<size_t>(items);
+  merge_path_kernel<T><<<grid, kThreads, smem, s>>>(
+      msgs, perm, row_ptr, w, out, carry_row, carry, n_rows, n_edges, units,
+      n_msgs, items);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  carry_fixup_kernel<T><<<grid, kThreads, 0, s>>>(
+      carry_row, carry, out, static_cast<int>(n_blocks), units);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -148,25 +278,38 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// out [n_rows, d] on `stream` of `device`; returns cudaGetLastError()
-// after the launch (0 on success), cudaErrorInvalidValue for a negative
-// size, d < 1 or a grid beyond the card's limits.
+// Largest `items` a block takes; the Python wrapper checks against it.
+int staircase_max_items() { return kMaxItems; }
+
+// out [n_rows, d] on `stream` of `device`, with carry_row [n_blocks] int32
+// and carry [n_blocks, d] f32 as scratch, n_blocks = ceil((n_rows +
+// n_edges) / items); carry_row is left holding each block's carried row
+// (-1 for none). Returns cudaGetLastError() after the launches (0 on
+// success), cudaErrorInvalidValue for a negative size, d < 1, items
+// outside [1, staircase_max_items()], n_rows + n_edges beyond int32 or a
+// grid beyond the card's limits.
 int staircase_aggregate_f32(const float* msgs, const int* perm,
                             const int* row_ptr, const float* w, float* out,
-                            int n_rows, int d, int n_msgs, int device,
-                            void* stream) {
+                            int* carry_row, float* carry, int n_rows,
+                            int n_edges, int d, int n_msgs, int items,
+                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows < 0 || d < 1 || n_msgs < 0) {
+  if (n_rows < 0 || n_edges < 0 || d < 1 || n_msgs < 0 || items < 1 ||
+      items > kMaxItems ||
+      static_cast<int64_t>(n_rows) + n_edges > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0 && aligned16(msgs) && aligned16(out)) {
+  if (d % 4 == 0 && aligned16(msgs) && aligned16(out) && aligned16(carry)) {
     return launch(reinterpret_cast<const float4*>(msgs), perm, row_ptr, w,
-                  reinterpret_cast<float4*>(out), n_rows, d / 4, n_msgs, s);
+                  reinterpret_cast<float4*>(out), carry_row,
+                  reinterpret_cast<float4*>(carry), n_rows, n_edges, d / 4,
+                  n_msgs, items, s);
   }
-  return launch(msgs, perm, row_ptr, w, out, n_rows, d, n_msgs, s);
+  return launch(msgs, perm, row_ptr, w, out, carry_row, carry, n_rows,
+                n_edges, d, n_msgs, items, s);
 }
 
 const char* staircase_error_string(int code) {

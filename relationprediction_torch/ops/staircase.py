@@ -19,7 +19,12 @@ permutation into its gather; here the same sum with a permutation is
 
 On a CUDA tensor the forward launches ``staircase_aggregate_f32`` of
 ``csrc/staircase.cu`` or raises; on a CPU tensor it runs
-``staircase_aggregate_reference``, the plain PyTorch version.
+``staircase_aggregate_reference``, the plain PyTorch version. The kernel
+splits the merged list of row ends and entries into blocks of
+``merge_path_items`` items (a merge path, see the source);
+``merge_path_split`` and ``merge_path_carry_rows`` state that partition in
+Python for the tests and ``chip_smoke.py``, and nothing on the main path
+calls them.
 """
 from __future__ import annotations
 
@@ -34,6 +39,11 @@ from . import nvcc
 
 _SOURCE = "staircase.cu"
 _EDGE_CHUNK = 16384
+# Items (row ends + entries) a thread block of the kernel takes: the most,
+# up to _MAX_ITEMS, that still make _MIN_BLOCKS blocks, and at least
+# _MIN_ITEMS; chosen by the sweep in chip_smoke.py's kernel_staircase phase
+# (PERF.md).
+_MIN_ITEMS, _MAX_ITEMS, _MIN_BLOCKS = 32, 512, 512
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,8 +56,11 @@ def kernel_library() -> tuple:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the kernel source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.staircase_aggregate_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.staircase_aggregate_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                            i, i, p]
     lib.staircase_aggregate_f32.restype = i
+    lib.staircase_max_items.argtypes = []
+    lib.staircase_max_items.restype = i
     lib.staircase_error_string.argtypes = [i]
     lib.staircase_error_string.restype = ctypes.c_char_p
     return lib
@@ -58,6 +71,56 @@ def row_of_entry(layout: CsrLayout) -> torch.Tensor:
     return torch.repeat_interleave(
         torch.arange(layout.n_rows, device=layout.row_ptr.device),
         layout.row_ptr.diff().long())
+
+
+def merge_path_blocks(n_rows: int, n_edges: int, items: int) -> int:
+    """Thread blocks of one launch, ceil((n_rows + E) / items); raises
+    where the merged list's length overflows the kernel's int32."""
+    if items < 1:
+        raise ValueError(f"staircase_aggregate: items must be >= 1, got "
+                         f"{items}")
+    if n_rows + n_edges >= 2 ** 31:
+        raise ValueError(f"staircase_aggregate: n_rows + E = "
+                         f"{n_rows + n_edges} overflows int32")
+    return -(-(n_rows + n_edges) // items)
+
+
+def merge_path_items(n_rows: int, n_edges: int) -> int:
+    """Items a block takes for a list of n_rows row ends and n_edges
+    entries: 512 on the full FB15k-237 graph (287k items), 32 at the train
+    shape (29.5k)."""
+    items = _MAX_ITEMS
+    while items > _MIN_ITEMS and n_rows + n_edges < _MIN_BLOCKS * items:
+        items //= 2
+    return items
+
+
+def merge_path_split(row_ptr: torch.Tensor, items: int) -> tuple:
+    """Where each block of the kernel's partition starts: (rows, entries),
+    each int64 [n_blocks + 1], the merge-path coordinate at item
+    b * items (the last at the list's end). Row end v is item
+    row_ptr[v + 1] + v of the merged list, so the rows ended before item k
+    are those with row_ptr[v + 1] + v < k."""
+    n_rows = row_ptr.shape[0] - 1
+    n_edges = int(row_ptr[-1])
+    total = n_rows + n_edges
+    n_blocks = merge_path_blocks(n_rows, n_edges, items)
+    diag = torch.clamp(torch.arange(n_blocks + 1, dtype=torch.int64) * items,
+                       max=total)
+    keys = row_ptr[1:].long().cpu() + torch.arange(n_rows)
+    rows = torch.searchsorted(keys, diag, side="left")
+    return rows, diag - rows
+
+
+def merge_path_carry_rows(row_ptr: torch.Tensor, items: int) -> torch.Tensor:
+    """int32 [n_blocks]: the row in progress at the end of each block (it
+    began there or earlier and ends in a later block), -1 where none; what
+    the kernel leaves in its carry_row buffer."""
+    rows, entries = merge_path_split(row_ptr, items)
+    end_rows, end_entries = rows[1:], entries[1:]
+    starts = row_ptr.long().cpu()[torch.clamp(end_rows, max=len(row_ptr) - 1)]
+    carried = (end_rows < len(row_ptr) - 1) & (end_entries > starts)
+    return torch.where(carried, end_rows, -1).to(torch.int32)
 
 
 def staircase_aggregate_reference(msgs: torch.Tensor, layout: CsrLayout,
@@ -98,9 +161,12 @@ def staircase_aggregate(msgs: torch.Tensor, layout: CsrLayout,
                             staircase_aggregate)
 
 
-# Kernel launches since the count was last set to 0 (CPU calls never
-# count).
+# Kernel launches since the counts were last set to 0 (CPU calls never
+# count): the merge-path kernel of this op, and the carry fix-up kernel
+# that follows every merge-path launch of this op, scatter2 and
+# scatter2_slot_order.
 staircase_aggregate.launches = 0
+staircase_aggregate.fixup_launches = 0
 
 
 class _Aggregate(torch.autograd.Function):
@@ -132,8 +198,10 @@ class _Aggregate(torch.autograd.Function):
 def aggregate(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
               perm: Optional[torch.Tensor] = None, *, weighted: bool = True,
               counter=None) -> torch.Tensor:
-    """One kernel launch, which adds one to ``counter.launches`` where a
-    counter is given, or the plain version for a CPU tensor."""
+    """One kernel call (the merge-path kernel and its carry fix-up), which
+    adds one to ``counter.launches`` where a counter is given and to
+    ``staircase_aggregate.fixup_launches``, or the plain version for a CPU
+    tensor."""
     if msgs.device.type == "cpu":
         return staircase_aggregate_reference(msgs, layout, n_vertices, perm,
                                              weighted)
@@ -142,28 +210,42 @@ def aggregate(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
                  weighted=weighted)
     if counter is not None:
         counter.launches += 1
+    staircase_aggregate.fixup_launches += 1
     return out
 
 
 def launch(lib: ctypes.CDLL, msgs: torch.Tensor, layout: CsrLayout,
            n_vertices: int, perm: Optional[torch.Tensor] = None, *,
-           weighted: bool = True) -> torch.Tensor:
-    """One launch of staircase_aggregate_f32 on the current stream, on
-    inputs already checked; raises if the launch is refused. ``weighted``
-    false passes no weights (each entry's weight is 1)."""
-    out = torch.empty(n_vertices, msgs.shape[1], dtype=torch.float32,
-                      device=msgs.device)
+           weighted: bool = True, items: Optional[int] = None,
+           carries: bool = False):
+    """One call of staircase_aggregate_f32 (the merge-path kernel, then its
+    carry fix-up) on the current stream, on inputs already checked; raises
+    if a launch is refused. ``weighted`` false passes no weights (each
+    entry's weight is 1). Returns ``out``, or (out, carry_rows) with
+    ``carries``: the kernel's carried row of each block (see
+    ``merge_path_carry_rows``). ``items`` defaults to
+    ``merge_path_items``."""
+    if items is None:
+        items = merge_path_items(n_vertices, layout.n_edges)
+    n_blocks = merge_path_blocks(n_vertices, layout.n_edges, items)
+    if items > lib.staircase_max_items():
+        raise ValueError(f"staircase_aggregate: kernel takes items <= "
+                         f"{lib.staircase_max_items()}, got {items}")
+    d = msgs.shape[1]
+    out = torch.empty(n_vertices, d, dtype=torch.float32, device=msgs.device)
+    carry_rows = torch.empty(n_blocks, dtype=torch.int32, device=msgs.device)
+    carry = torch.empty(n_blocks, d, dtype=torch.float32, device=msgs.device)
     stream = torch.cuda.current_stream(msgs.device).cuda_stream
     rc = lib.staircase_aggregate_f32(
         msgs.data_ptr(), None if perm is None else perm.data_ptr(),
         layout.row_ptr.data_ptr(), layout.w.data_ptr() if weighted else None,
-        out.data_ptr(), n_vertices, msgs.shape[1], msgs.shape[0],
-        msgs.device.index, stream)
+        out.data_ptr(), carry_rows.data_ptr(), carry.data_ptr(), n_vertices,
+        layout.n_edges, d, msgs.shape[0], items, msgs.device.index, stream)
     if rc != 0:
         msg = lib.staircase_error_string(rc).decode()
         raise RuntimeError(f"staircase_aggregate kernel launch failed: {msg} "
                            f"({rc})")
-    return out
+    return (out, carry_rows) if carries else out
 
 
 def check_tensors(op: str, device, tensors: dict, dtypes: dict) -> None:

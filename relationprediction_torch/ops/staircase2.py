@@ -32,10 +32,11 @@ runs the same backward formulas (twin layout, twin weights, d blocks).
              w_e * sum_b C[r_e, b] * (features[src_e] @ W_b)
 
 with ``W_flat`` [d_in, B*d_out] (W_b its columns b*d_out..(b+1)*d_out) and
-C [R, B], as two kernels of ``csrc/basis_direction.cu``: ``basis_project``
-(P = features @ W_flat, once per vertex) and ``basis_combine`` (per target
-row, sum over its edges of w_e * sum_b C[r_e, b] * P[src_e, b, :]). Its
-gradient is
+C [R, B], as two kernels: ``basis_project`` (P = features @ W_flat, once
+per vertex, in 3xTF32 on the tensor cores after a split pass;
+``csrc/basis_project.cu``) and ``basis_combine`` (per target row, sum over
+its edges of w_e * sum_b C[r_e, b] * P[src_e, b, :];
+``csrc/basis_direction.cu``). Its gradient is
 
     d features = basis_combine(g @ w_t, C, twin)   (the twin pass)
     d W_flat[i, b*d_out + o] = sum over edges e of
@@ -66,6 +67,7 @@ from .staircase import check_tensors
 
 _SOURCE = "block_direction.cu"
 _BASIS_SOURCE = "basis_direction.cu"
+_PROJECT_SOURCE = "basis_project.cu"
 _MAX_DR = 8
 _EDGE_CHUNK = 16384
 
@@ -268,17 +270,40 @@ def _check(features, blocks, layout, n_vertices) -> None:
 
 @functools.lru_cache(maxsize=None)
 def basis_kernel_library() -> tuple:
-    """Build (at first use) and bind the basis kernels: (CDLL,
+    """Build (at first use) and bind basis_combine: (CDLL,
     nvcc.BuildInfo)."""
     lib, info = nvcc.load(_BASIS_SOURCE)
     return bind_basis_library(lib), info
 
 
+@functools.lru_cache(maxsize=None)
+def project_kernel_library() -> tuple:
+    """Build (at first use) and bind basis_project and its split pass:
+    (CDLL, nvcc.BuildInfo)."""
+    lib, info = nvcc.load(_PROJECT_SOURCE)
+    return bind_project_library(lib), info
+
+
+def bind_project_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from the project
+    source."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tf32_split_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.tf32_split_f32.restype = i
+    lib.basis_project_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.basis_project_f32.restype = i
+    lib.basis_project_k_tile.argtypes = []
+    lib.basis_project_k_tile.restype = i
+    lib.basis_project_parts.argtypes = [i]
+    lib.basis_project_parts.restype = i
+    lib.basis_project_error_string.argtypes = [i]
+    lib.basis_project_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def bind_basis_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the basis source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.basis_project_f32.argtypes = [p, p, p, i, i, i, i, p]
-    lib.basis_project_f32.restype = i
     lib.basis_combine_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.basis_combine_f32.restype = i
     for fn in (lib.basis_direction_max_bases, lib.basis_direction_max_cols):
@@ -295,6 +320,31 @@ def basis_project_reference(x: torch.Tensor, w: torch.Tensor
     inputs' dtype)."""
     exact_float32()
     return torch.matmul(x, w)
+
+
+def tf32_rna_reference(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, on its bits, as ``cvt.rna.tf32.f32``: the low 13
+    mantissa bits become 0. Inf and NaN pass through."""
+    bits = a.contiguous().view(torch.int32)
+    magnitude = bits & 0x7FFFFFFF
+    rounded = (magnitude + 0x1000) & ~0x1FFF
+    special = magnitude >= 0x7F800000
+    out = torch.where(special, bits, (bits & ~0x7FFFFFFF) | rounded)
+    return out.view(torch.float32)
+
+
+def tf32_split_reference(a: torch.Tensor, parts: int = 2) -> tuple:
+    """Plain version of the split pass: ``parts`` TF32 parts of ``a``,
+    a_0 = tf32_rna(a), a_1 = tf32_rna(a - a_0), a_2 = tf32_rna(a - a_0 -
+    a_1). a_0 + a_1 holds ~22 bits of ``a`` (within 2^-22 |a|); with a_2
+    the sum is ``a`` exactly (normal floats). The kernel writes them
+    K-major and zero-padded (``launch_split``)."""
+    out, rest = [], a
+    for _ in range(parts):
+        out.append(tf32_rna_reference(rest))
+        rest = rest - out[-1]
+    return tuple(out)
 
 
 def basis_combine_reference(proj: torch.Tensor, coefficients: torch.Tensor,
@@ -390,10 +440,12 @@ def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
 
 # Kernel launches since the counts were last set to 0 (CPU calls never
 # count): basis_combine in forward passes and in twin passes, and
-# basis_project in both (one before each combine).
+# basis_project in both (one before each combine), each after one launch of
+# its split pass.
 basis_direction.launches = 0
 basis_direction.twin_launches = 0
 basis_direction.project_launches = 0
+basis_direction.split_launches = 0
 
 
 def launch_counts() -> tuple:
@@ -443,12 +495,13 @@ class _BasisDirection(torch.autograd.Function):
 
 
 def _project(x, w):
-    """x @ w: the basis_project kernel, or its plain version for a CPU
-    tensor."""
+    """x @ w: the split pass and the basis_project kernel, or its plain
+    version for a CPU tensor."""
     if x.device.type == "cpu":
         return basis_project_reference(x, w)
     _check_project(x, w)
-    out = launch_project(basis_kernel_library()[0], x, w)
+    out = launch_project(project_kernel_library()[0], x, w)
+    basis_direction.split_launches += 1
     basis_direction.project_launches += 1
     return out
 
@@ -468,21 +521,54 @@ def _combine(proj, coefficients, layout, n_rows, *, twin: bool):
     return out
 
 
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.basis_project_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def launch_split(lib: ctypes.CDLL, x: torch.Tensor,
+                 w: torch.Tensor) -> tuple:
+    """One launch of tf32_split_f32 on the current stream, on inputs
+    already checked: (xs [parts, m, kp], ws [parts, n, kp]), the TF32
+    parts of x and of w transposed (``tf32_split_reference``), K
+    zero-padded to kp, a multiple of the kernel's k-tile; parts is 2, or 3
+    for a short K (the kernel's ``basis_project_parts``). Raises if the
+    launch is refused."""
+    (m, k), n = x.shape, w.shape[1]
+    tile = lib.basis_project_k_tile()
+    kp = -(-k // tile) * tile
+    parts = lib.basis_project_parts(k)
+    xs = torch.empty(parts, m, kp, dtype=torch.float32, device=x.device)
+    ws = torch.empty(parts, n, kp, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib, lib.tf32_split_f32(
+        x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), m, k, n,
+        kp, parts, x.device.index, stream), "tf32_split")
+    return xs, ws
+
+
+def launch_product(lib: ctypes.CDLL, xs: torch.Tensor,
+                   ws: torch.Tensor) -> torch.Tensor:
+    """One launch of basis_project_f32 on the split parts (launch_split's
+    output): P [m, n], the sum of the part products on the tensor cores.
+    Raises if the launch is refused."""
+    parts, m, kp = xs.shape
+    n = ws.shape[1]
+    out = torch.empty(m, n, dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    _raise_on(lib, lib.basis_project_f32(
+        xs.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, kp, parts,
+        xs.device.index, stream), "basis_project")
+    return out
+
+
 def launch_project(lib: ctypes.CDLL, x: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
-    """One launch of basis_project_f32 on the current stream, on inputs
-    already checked; raises if the launch is refused."""
-    m, k = x.shape
-    n = w.shape[1]
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.basis_project_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                               m, k, n, x.device.index, stream)
-    if rc != 0:
-        msg = lib.basis_direction_error_string(rc).decode()
-        raise RuntimeError(f"basis_project kernel launch failed: {msg} "
-                           f"({rc})")
-    return out
+    """x @ w on the current stream, on inputs already checked: the split
+    pass, then basis_project_f32 (two launches); raises if one is
+    refused."""
+    return launch_product(lib, *launch_split(lib, x, w))
 
 
 def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,

@@ -190,3 +190,159 @@ def test_unsupported_device_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         torch_s2.basis_direction(x.to("meta"), w_flat.to("meta"),
                                  coef.to("meta"), tg.fwd, V)
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 split of basis_project (csrc/basis_project.cu)
+# ---------------------------------------------------------------------------
+
+def f32_bits(a):
+    return torch.as_tensor(np.asarray(a, np.float32)).view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["wide_range", "ties", "specials",
+                                  "three_parts"])
+def test_tf32_split_rounds_to_nearest_away_and_rebuilds(case):
+    rng = np.random.default_rng(7)
+    if case == "three_parts":
+        x = (rng.standard_normal(20000)
+             * 10.0 ** rng.uniform(-25, 25, 20000)).astype(np.float32)
+        parts = torch_s2.tf32_split_reference(torch.from_numpy(x), 3)
+        for part in parts:
+            assert not (part.view(torch.int32) & 0x1FFF).any()
+        # three parts hold every bit of a normal float
+        rebuilt = sum(part.double() for part in parts)
+        np.testing.assert_array_equal(rebuilt.numpy(), x.astype(np.float64))
+        assert torch.equal(parts[0], torch_s2.tf32_split_reference(
+            torch.from_numpy(x))[0])
+        return
+    if case == "wide_range":
+        x = (rng.standard_normal(20000)
+             * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32)
+        x[:3] = [0.0, -0.0, 1e-40]  # zeros and a subnormal
+    elif case == "ties":
+        # low 13 bits exactly half of TF32's last place: away from zero
+        base = (rng.integers(0x00800000, 0x7F000000, 1000) & ~0x1FFF) \
+            .astype(np.int64)
+        bits = np.concatenate([base | 0x1000, base | 0x0FFF, base | 0x1001])
+        x = bits.astype(np.uint32).view(np.float32)
+        x = np.concatenate([x, -x])
+    else:
+        top = np.finfo(np.float32).max
+        x = np.array([np.inf, -np.inf, np.nan, top, -top], np.float32)
+    t = torch.from_numpy(x)
+    big, small = torch_s2.tf32_split_reference(t)
+    for half in (big, small):
+        finite = torch.isfinite(half)
+        assert not (half.view(torch.int32)[finite] & 0x1FFF).any()
+    if case == "ties":
+        n = 1000
+        b = big.view(torch.int32).numpy() & 0x7FFFFFFF
+        m = np.concatenate([base, base, base]).astype(np.int64)
+        np.testing.assert_array_equal(b[:n], m[:n] + 0x2000)      # tie: up
+        np.testing.assert_array_equal(b[n:2 * n], m[:n])          # below
+        np.testing.assert_array_equal(b[2 * n:3 * n], m[:n] + 0x2000)
+        np.testing.assert_array_equal(b[3 * n:], b[:3 * n])       # sign
+    if case == "specials":
+        got = big.numpy()
+        assert got[0] == np.inf and got[1] == -np.inf and np.isnan(got[2])
+        # the largest finite floats round past TF32's largest to inf
+        assert got[3] == np.inf and got[4] == -np.inf
+        return
+    rebuilt = big.double() + small.double()
+    err = (rebuilt - t.double()).abs()
+    # where the remainder x - big is a normal float (|x| >= 2^-100), so
+    # that small keeps its 11 bits
+    normal = t.abs() >= 2.0 ** -100
+    assert (err <= 2.0 ** -22 * t.double().abs())[normal].all()
+    # a rounding by truncation would leave the whole remainder to small
+    assert (f32_bits(small).numpy() != 0).any()
+
+
+def test_3xtf32_meets_the_f32_allowance_and_1xtf32_does_not():
+    """The precision the card's basis_project is held to
+    (chip_smoke.project_exact's allowance) at 512 x 500 x 512: three TF32
+    products of the halves, summed in f32, meet it; one product of the
+    rounded operands, what TF32 matmul gives, does not."""
+    import chip_smoke
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((512, 500)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((500, 512)).astype(np.float32))
+    exact, allowance = chip_smoke.project_exact(x, w)
+    (xb, xs), (wb, ws) = (torch_s2.tf32_split_reference(a) for a in (x, w))
+    three = xs @ wb + xb @ ws + xb @ wb
+    one = xb @ wb
+    assert chip_smoke.over_allowance(three, exact, allowance) <= 0.5
+    assert chip_smoke.over_allowance(one, exact, allowance) > 10
+    assert chip_smoke.over_allowance(x @ w, exact, allowance) <= 0.5
+
+
+def truncate_to_f32(a):
+    """float64 -> float32 rounding toward zero."""
+    f = a.astype(np.float32)
+    past = np.abs(f.astype(np.float64)) > np.abs(a)
+    f[past] = np.nextafter(f[past], np.float32(0))
+    return f
+
+
+def tensor_core_model(x, w, scheme, parts):
+    """The kernel's arithmetic with the tensor cores modelled as exact
+    products summed, then truncated to f32, at every k-step of 8 (the
+    rounding of their accumulator). "kernel": the products of a k-tile of
+    32 into an accumulator that starts afresh every k-tile and is added
+    into an f32 sum (round to nearest) after it, except that with 3 parts
+    the correction products run into one accumulator over K, added last;
+    "one_accumulator": all products into one accumulator."""
+    m, k = x.shape
+    kp = -(-k // 32) * 32
+    pad = [np.zeros((m, kp), np.float32), np.zeros((kp, w.shape[1]),
+                                                   np.float32)]
+    pad[0][:, :k], pad[1][:k] = x, w
+    xp, wp = (tuple(t.numpy().astype(np.float64)
+                    for t in torch_s2.tf32_split_reference(
+                        torch.from_numpy(a), parts)) for a in pad)
+    corr = ([(1, 0), (0, 1)] if parts == 2
+            else [(2, 0), (0, 2), (1, 1), (1, 0), (0, 1)])
+    total = np.zeros((m, w.shape[1]), np.float32)
+    acc = np.zeros_like(total)
+    for k0 in range(0, kp, 32):
+        lead = np.zeros_like(total)
+        for s in range(k0, k0 + 32, 8):
+            for i, j in corr:
+                step = xp[i][:, s:s + 8] @ wp[j][s:s + 8]
+                if scheme == "kernel" and parts == 2:
+                    lead = truncate_to_f32(lead + step)
+                else:
+                    acc = truncate_to_f32(acc + step)
+            step = xp[0][:, s:s + 8] @ wp[0][s:s + 8]
+            if scheme == "kernel":
+                lead = truncate_to_f32(lead + step)
+            else:
+                acc = truncate_to_f32(acc + step)
+        total = total + lead
+    return torch.from_numpy(total + acc)
+
+
+@pytest.mark.parametrize("scheme,parts,shape,within", [
+    ("kernel", 2, (512, 500, 512), True),
+    ("kernel", 3, (129, 33, 65), True),
+    ("kernel", 3, (1, 1, 7), True),
+    ("one_accumulator", 2, (512, 500, 512), False),
+    ("kernel", 2, (1, 1, 7), False)])
+def test_split_tf32_under_truncating_accumulation(scheme, parts, shape,
+                                                   within):
+    """Why basis_project.cu sums as it does: with the tensor cores'
+    accumulator truncating, three products into one accumulator over K =
+    500 miss the allowance, the kernel's promotion of the leading product
+    every k-tile meets it; and at K = 1 two parts (22 bits) miss it where
+    three (exact) meet it, so a short K takes three parts."""
+    import chip_smoke
+    m, k, n = shape
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    exact, allowance = chip_smoke.project_exact(torch.from_numpy(x),
+                                                torch.from_numpy(w))
+    over = chip_smoke.over_allowance(tensor_core_model(x, w, scheme, parts),
+                                     exact, allowance)
+    assert (over <= 0.8) if within else (over > 1.1)

@@ -174,3 +174,127 @@ def test_cpu_path_counts_nothing_and_checks_what_the_kernel_takes():
                           order[1:], dtype=torch.int32)), ValueError)):
         with pytest.raises(kind):
             staircase._check(*bad)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's merge-path partition (csrc/staircase.cu), walked in Python
+# ---------------------------------------------------------------------------
+
+def partition_layout(kind):
+    """(row_ptr int32, n_rows) of a layout that stresses the partition."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "hub_holds_every_entry":
+        counts = np.zeros(50, np.int64)
+        counts[17] = 600
+    elif kind == "all_rows_empty":
+        counts = np.zeros(40, np.int64)
+    elif kind == "empty_runs":  # blocks that hold only row ends
+        counts = np.zeros(700, np.int64)
+        counts[[0, 3, 350, 699]] = [5, 1, 40, 2]
+    elif kind == "rows_of_one_entry":
+        counts = np.ones(90, np.int64)
+    else:  # a small Zipf-skewed graph: hubs, short rows and empty rows
+        counts = np.minimum(rng.zipf(1.6, 300) - 1, 400)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return torch.from_numpy(row_ptr), len(counts)
+
+
+def walk_merge_path(row_ptr, msgs, w, items):
+    """What the kernel does, block by block in block order: each block
+    walks its entries in CSR order, writes every row that ends in its range
+    once, and keeps its part of the row in progress at its end as a carry;
+    then the first slot of each run of carries of one row adds the run in
+    block order, then the partial the row's last block wrote."""
+    starts, entries = staircase.merge_path_split(row_ptr, items)
+    carry_rows = staircase.merge_path_carry_rows(row_ptr, items).tolist()
+    rp = row_ptr.tolist()
+    out = np.full((len(rp) - 1, msgs.shape[1]), np.nan)
+    carries = {}
+    for b in range(len(carry_rows)):
+        i, (j0, i1, j1) = int(starts[b]), map(
+            int, (entries[b], starts[b + 1], entries[b + 1]))
+        acc = np.zeros(msgs.shape[1])
+        for k in range(j0, j1):
+            while k >= rp[i + 1]:
+                assert np.isnan(out[i]).all()  # each row written once
+                out[i], acc, i = acc, np.zeros_like(acc), i + 1
+            acc = acc + w[k] * msgs[k]
+        while i < i1:
+            assert np.isnan(out[i]).all()
+            out[i], acc, i = acc, np.zeros_like(acc), i + 1
+        if carry_rows[b] >= 0:
+            assert carry_rows[b] == i1 and j1 > rp[i1]
+            carries[b] = acc
+        else:
+            assert i1 == len(rp) - 1 or j1 == rp[i1]
+    for b, row in enumerate(carry_rows):
+        if row < 0 or (b > 0 and carry_rows[b - 1] == row):
+            continue
+        total, c = carries[b], b + 1
+        while c < len(carry_rows) and carry_rows[c] == row:
+            total, c = total + carries[c], c + 1
+        out[row] = total + out[row]
+    return out
+
+
+@pytest.mark.parametrize("items", [1, 7, 256])
+@pytest.mark.parametrize("kind", ["hub_holds_every_entry", "all_rows_empty",
+                                  "empty_runs", "rows_of_one_entry", "zipf"])
+def test_merge_path_partition_covers_everything_once_and_sums(kind, items):
+    row_ptr, n_rows = partition_layout(kind)
+    e = int(row_ptr[-1])
+    starts, entries = staircase.merge_path_split(row_ptr, items)
+    n_blocks = staircase.merge_path_blocks(n_rows, e, items)
+    assert len(starts) == n_blocks + 1
+    # the blocks' ranges tile [0, n_rows] row ends and [0, E) entries in
+    # order, each block taking `items` of them (the last block the rest)
+    assert starts[0] == 0 and entries[0] == 0
+    assert starts[-1] == n_rows and entries[-1] == e
+    assert (starts.diff() >= 0).all() and (entries.diff() >= 0).all()
+    taken = starts.diff() + entries.diff()
+    assert (taken[:-1] == items).all() and 0 < taken[-1] <= items
+    # every boundary lies on the merge path: rows before it are complete,
+    # and the entries taken do not pass the next row's end
+    rp = row_ptr.long()
+    inner = starts < n_rows
+    assert (rp[starts[inner]] <= entries[inner]).all()
+    assert (entries[inner] <= rp[starts[inner] + 1]).all()
+    # the walk with its carries in block order is the segment sum
+    rng = np.random.default_rng(items)
+    msgs = rng.standard_normal((e, 6))
+    w = rng.random(e) + 0.1
+    layout = torch_graph.CsrLayout(
+        row_ptr=row_ptr, src=torch.zeros(e, dtype=torch.int32),
+        rel=torch.zeros(e, dtype=torch.int32), w=torch.from_numpy(w))
+    want = staircase.staircase_aggregate_reference(
+        torch.from_numpy(msgs), layout, n_rows).numpy()
+    got = walk_merge_path(row_ptr, msgs, w, items)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    if kind == "hub_holds_every_entry" and items == 7:
+        # the hub spans ~86 blocks, all carrying it but the one it ends in
+        carry = staircase.merge_path_carry_rows(row_ptr, items)
+        assert (carry == 17).sum() >= 80
+
+
+def test_merge_path_sizes_raise_beyond_int32():
+    assert staircase.merge_path_blocks(10, 0, 256) == 1
+    assert staircase.merge_path_blocks(0, 0, 256) == 0
+    assert staircase.merge_path_blocks(2 ** 31 - 11, 10, 256) == 2 ** 23
+    with pytest.raises(ValueError, match="overflows int32"):
+        staircase.merge_path_blocks(2 ** 31 - 5, 10, 256)
+    with pytest.raises(ValueError, match="items"):
+        staircase.merge_path_blocks(10, 10, 0)
+
+
+def test_merge_path_items_follow_the_graph_size():
+    """512 items a block on the full FB15k-237 graph (14,541 rows, 272,115
+    entries), down to 32 where that would leave fewer than 512 blocks (the
+    training batch's 15,000 entries)."""
+    assert staircase.merge_path_items(14541, 272115) == 512
+    assert staircase.merge_path_items(14541, 15000) == 32
+    assert staircase.merge_path_items(0, 0) == 32
+    for total in (1, 1000, 65536, 10 ** 6):
+        items = staircase.merge_path_items(total, 0)
+        assert 32 <= items <= 512
+        assert items == 32 or staircase.merge_path_blocks(total, 0,
+                                                          items) >= 512
