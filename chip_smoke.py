@@ -13,9 +13,16 @@ each with the seconds the phase has taken so far (``phase_s``):
   build   the kernels built from relationprediction_torch/ops/csrc with nvcc
           for sm_90a, one nvcc per source, all started together: build
           time, registers and spills;
-  kernel  block_direction against block_direction_reference in both
-          directions on random inputs, within rtol=1e-4, atol=1e-5; the
-          time of each (CUDA events) beside the bound computed from shapes;
+  kernel  block_direction (a merge-path kernel and its carry fix-up) in
+          both directions of the full train graph and of the first training
+          batch's graph against a float64 sum within the rounding its terms
+          allow, the opposite direction's CSR outside it; its carry rows
+          against merge_path_carry_rows and two launches bit for bit; the
+          time of each (CUDA events) beside the bound computed from shapes,
+          the plain version, the hub rows and the others apart, the same
+          CSR with every relation 0 (W[0] stays in L1: only the x gathers
+          and the partition remain) and every item count of SWEEP_ITEMS;
+          then the stress layouts of block_layouts, forward and twin;
   serve   init, graph, one encode and Scorer.compute_scores on the first
           2,000 test triples; the kernel's launch count over that run (must
           be 4: 2 layers x 2 directions), MRR and Hits@10, and the codes
@@ -26,8 +33,10 @@ each with the seconds the phase has taken so far (``phase_s``):
           directions, on the full train graph and on the first training
           batch's graph; d features and the twin pass within the rounding
           an f32 sum of their terms may have, and the twin pass on the
-          wrong twin outside it; times of both kernels, the d blocks
-          contraction and the plain backward, and the bounds;
+          wrong twin outside it; the twin pass's carry rows and two
+          launches bit for bit; times of both kernels (the twin pass also
+          on the hub rows and the others apart, and at every item count),
+          the d blocks contraction and the plain backward, and the bounds;
   train   one train step on the card against the same step (params, batch,
           draws, masks) on the CPU plain path, then 20 steps of
           TrainLoop.fit: host batch and device step times, the loss at
@@ -44,16 +53,24 @@ Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
           that must fail the allowance at the forward and twin shapes;
           times of the whole, the split and the product beside
           torch.matmul (TF32 off, and on) and the 3xTF32 and f32 bounds;
-          basis_combine
+          basis_combine (a merge-path kernel and its carry fix-up)
           in both directions on the full train graph and on the first
           training batch's graph against a float64 sum within the rounding
-          its terms allow, hub rows and the others timed apart; the twin
-          pass (project g by w_t, combine on the twin CSR) likewise, and on
-          the wrong twin outside that allowance;
+          its terms allow, hub rows and the others timed apart, every item
+          count of SWEEP_ITEMS, torch.sparse.mm on the same [V, V*B] CSR
+          matrix beside it; the twin pass (project g by w_t, combine on the
+          twin CSR) likewise, and on the wrong twin outside that allowance;
+          carry rows against merge_path_carry_rows and two launches bit for
+          bit; then the stress layouts (B = 5, d = 500; and B = 1, 8 at
+          d_out = 37, the scalar path);
   serve_basis, grad_basis, train_basis  as serve, grad and train, through
           staircase2.basis_direction (4 combine launches an encode; 4
           forward and 4 twin combine launches a step, each after a project
           launch and its split pass).
+
+Every aggregation launch of the main paths (block_direction and its twin,
+basis_combine forward and twin, staircase_aggregate) is followed by one
+launch of its carry fix-up, counted apart and checked on every path.
 
 Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
 gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
@@ -126,8 +143,10 @@ REPLACES_SCATTER2 = "relationprediction_tpu/ops/staircase2.py:443"
 SERVE_TRIPLES = 2000
 TRAIN_STEPS = 20
 HUB_ROW = 1024  # rows longer than this are timed apart
-# Items a block of staircase_aggregate_f32 takes, swept in
-# kernel_staircase (staircase.merge_path_items gives the port's).
+# Items a block of a merge-path kernel takes, swept in kernel and grad
+# (block_direction and its twin), kernel_basis (basis_combine) and
+# kernel_staircase; staircase.block_direction_items, basis_combine_items
+# and merge_path_items give the port's.
 SWEEP_ITEMS = (16, 32, 64, 128, 256, 512, 1024)
 # NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor
 # cores and dense TF32 tensor-core rate, at the full 700 W power limit.
@@ -335,6 +354,18 @@ def basis_exact(x, w_flat, coef, layout, n_vertices, probe):
                               deg_src[:, None] * n_bases * probe.shape[1]))
 
 
+def block_exact(x, blocks, layout, n_rows):
+    """block_direction in float64 and its sum_allowance (dr terms an
+    edge); ``blocks`` transposed gives the twin pass's."""
+    exact = staircase2.block_direction_reference(x.double(), blocks.double(),
+                                                 layout, n_rows)
+    abs_sum = staircase2.block_direction_reference(
+        x.double().abs(), blocks.double().abs(),
+        with_weights(layout, layout.w.abs()), n_rows)
+    deg = layout.row_ptr.diff().long()[:, None] * blocks.shape[-1]
+    return exact, sum_allowance(exact, abs_sum, deg)
+
+
 def combine_exact(proj, coef, layout, n_rows):
     """basis_combine in float64 and its sum_allowance (B terms an edge)."""
     exact = staircase2.basis_combine_reference(proj.double(), coef.double(),
@@ -385,48 +416,133 @@ def split_rows(layout, limit):
     return parts
 
 
-def phase_kernel(graph, n_rel, n_blocks, dr, device):
-    """block_direction against its plain version, both directions."""
+def repeatable(what, launch, row_ptr, items):
+    """One call of a merge-path kernel (``launch(carries)``, which returns
+    (out, carry_rows) when ``carries`` is true) with its carry rows held
+    against merge_path_carry_rows(row_ptr, items), and a second call that
+    must give the same bits. Returns the output."""
+    got, carry_rows = launch(True)
+    again = launch(False)
+    if not torch.equal(carry_rows.cpu(),
+                       staircase.merge_path_carry_rows(row_ptr, items)):
+        raise AssertionError(f"{what}: the kernel's carry rows differ from "
+                             f"merge_path_carry_rows")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{what}: two launches differ")
+    return got
+
+
+def grouped_w_tiles(layout, v, items) -> int:
+    """W tiles a launch would load if each block loaded each of its
+    relations once (grouping its runs by relation) instead of once a
+    relation run: the (block, relation) pairs of the partition at
+    ``items``."""
+    if layout.n_edges == 0:
+        return 0
+    _, entries = staircase.merge_path_split(layout.row_ptr, items)
+    block = torch.searchsorted(entries[1:], torch.arange(layout.n_edges),
+                               right=True)
+    rel = layout.rel.long().cpu()
+    return int(torch.unique(block * (int(rel.max()) + 1) + rel).numel())
+
+
+def block_timings(lib, x, w, layout, v, n_rel, *, twin=False) -> dict:
+    """Times of one block_direction pass on ``layout`` beside its bound:
+    the kernel, the hub rows and the others apart, every item count of
+    SWEEP_ITEMS, and the same CSR with every relation 0, where W[0] stays
+    in L1 and only the x gathers and the partition remain (beside the
+    bytes the x gathers and the W reloads of the relation runs move, and
+    the W tiles a block grouping its runs by relation would load at each
+    item count)."""
+    n_blocks, dr = w.shape[1], w.shape[2]
+    e, d = layout.n_edges, n_blocks * dr
+    bound = block_direction_bound(layout, v, n_rel, n_blocks, dr)
+    hubs, rest = split_rows(layout, HUB_ROW)
+    one_rel = dataclasses.replace(layout, rel=torch.zeros_like(layout.rel))
+    lengths = layout.row_ptr.diff()
+    def run(lay, **kw):
+        return lambda: staircase2.launch(lib, x, w, lay, v, twin=twin, **kw)
+    return {"kernel_ms": cuda_ms(run(layout), 50),
+            "items": staircase.block_direction_items(v, e),
+            "hub_rows_only_ms": cuda_ms(run(hubs), 20),
+            "other_rows_only_ms": cuda_ms(run(rest), 20),
+            "relation_0_ms": cuda_ms(run(one_rel), 20),
+            "x_gather_bytes": 4 * e * d,
+            "w_reload_bytes": 4 * bound["runs"] * n_blocks * dr * dr,
+            "items_sweep_ms": {str(items): cuda_ms(run(layout, items=items),
+                                                   20)
+                               for items in SWEEP_ITEMS},
+            "grouped_w_tiles": {str(items): grouped_w_tiles(layout, v, items)
+                                for items in SWEEP_ITEMS},
+            f"rows_over_{HUB_ROW}": int((lengths > HUB_ROW).sum().item()),
+            "largest_row": int(lengths.max().item()),
+            "empty_rows": int((lengths == 0).sum().item()),
+            "edges": e, **bound}
+
+
+def phase_kernel(graphs, n_rel, n_blocks, dr, device):
+    """block_direction (the op, a merge-path kernel and its carry fix-up)
+    in both directions of each graph against a float64 sum within the
+    rounding its terms allow (block_exact), the opposite direction's CSR
+    outside it, the kernel's carry rows against merge_path_carry_rows and
+    two launches bit for bit; times (block_timings) beside the plain
+    version. Then block_layouts, forward and twin."""
     t_phase = time.perf_counter()
-    v = graph.n_vertices
-    gen = torch.Generator().manual_seed(1)
-    x = torch.randn(v, n_blocks * dr, generator=gen).to(device)
-    w = torch.randn(n_rel, n_blocks, dr, dr, generator=gen).to(device)
+    lib, _ = staircase2.kernel_library()
     rows = []
-    for name, layout in (("forward", graph.fwd), ("backward", graph.bwd)):
-        got = staircase2.block_direction(x, w, layout, v)
-        want = staircase2.block_direction_reference(x, w, layout, v)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: kernel output is not finite")
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-        err = (got - want).abs().max().item()
-        kernel_ms = cuda_ms(
-            lambda: staircase2.block_direction(x, w, layout, v), 50)
-        plain_ms = cuda_ms(
-            lambda: staircase2.block_direction_reference(
-                x, w, layout, v), 3, warmup=1)
-        bound = block_direction_bound(layout, v, n_rel, n_blocks, dr)
-        # Where the launch's time goes: the same launch over only the rows
-        # longer than HUB_ROW edges, and over only the others.
-        hubs, rest = split_rows(layout, HUB_ROW)
-        hub_ms = cuda_ms(
-            lambda: staircase2.block_direction(x, w, hubs, v), 20)
-        rest_ms = cuda_ms(
-            lambda: staircase2.block_direction(x, w, rest, v), 20)
-        row = {"direction": name, "max_abs_err": err,
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               f"rows_over_{HUB_ROW}": int(
-                   (hubs.row_ptr.diff() > 0).sum().item()),
-               "hub_rows_only_ms": hub_ms, "other_rows_only_ms": rest_ms,
-               "bound_us": bound["bound_ms"] * 1e3,
-               "largest_row": int(layout.row_ptr.diff().max().item()),
-               "empty_rows": int((layout.row_ptr.diff() == 0).sum().item()),
-               "edges": layout.n_edges, **bound}
-        emit("kernel", kernel="block_direction",
-             phase_s=time.perf_counter() - t_phase, **row)
+    for graph_name, graph in graphs.items():
+        v = graph.n_vertices
+        gen = torch.Generator().manual_seed(1)
+        x = torch.randn(v, n_blocks * dr, generator=gen).to(device)
+        w = torch.randn(n_rel, n_blocks, dr, dr, generator=gen).to(device)
+        for name, layout, wrong in (("forward", graph.fwd, graph.bwd),
+                                    ("backward", graph.bwd, graph.fwd)):
+            items = staircase.block_direction_items(v, layout.n_edges)
+            got = staircase2.block_direction(x, w, layout, v)
+            checked = repeatable(
+                "block_direction", lambda c: staircase2.launch(
+                    lib, x, w, layout, v, carries=c), layout.row_ptr, items)
+            want = staircase2.block_direction_reference(x, w, layout, v)
+            wrong_out = staircase2.launch(lib, x, w, wrong, v)
+            exact, allowance = block_exact(x, w, layout, v)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{graph_name}/{name}: kernel output "
+                                     f"is not finite")
+            if not torch.equal(got.view(torch.int32),
+                               checked.view(torch.int32)):
+                raise AssertionError(f"{graph_name}/{name}: the op and its "
+                                     f"launch differ")
+            over = over_allowance(got, exact, allowance)
+            wrong_over = over_allowance(wrong_out, exact, allowance)
+            if not over <= 1:
+                raise AssertionError(f"block_direction {graph_name}/{name}: "
+                                     f"{over} of the f32 rounding allowance")
+            if not wrong_over > 1:
+                raise AssertionError(
+                    f"block_direction {graph_name}/{name}: the opposite CSR "
+                    f"passes the allowance ({wrong_over} of it)")
+            row = {"graph": graph_name, "direction": name,
+                   "max_abs_err": (got.double() - exact).abs().max().item(),
+                   "max_abs_diff_vs_plain": (got - want).abs().max().item(),
+                   "over_allowance": over,
+                   "wrong_layout_over_allowance": wrong_over,
+                   "same_bits_twice": True,
+                   "plain_ms": cuda_ms(
+                       lambda: staircase2.block_direction_reference(
+                           x, w, layout, v), 3, warmup=1),
+                   **block_timings(lib, x, w, layout, v, n_rel)}
+            emit("kernel", kernel="block_direction",
+                 phase_s=time.perf_counter() - t_phase, **row)
+            rows.append(row)
+    for row in block_layouts(lib, graphs, n_rel, device):
+        emit("kernel", phase_s=time.perf_counter() - t_phase, **row)
         rows.append(row)
     return rows
+
+
+FIXUP_OPS = (staircase2.block_direction, staircase2.basis_direction,
+             staircase.staircase_aggregate)
 
 
 def reset_launch_counts() -> None:
@@ -438,21 +554,28 @@ def reset_launch_counts() -> None:
     for op in (staircase.staircase_aggregate, staircase2.scatter2,
                staircase2.scatter2_slot_order):
         op.launches = 0
-    staircase.staircase_aggregate.fixup_launches = 0
+    for op in FIXUP_OPS:
+        op.fixup_launches = 0
 
 
-def check_helper_launches(op, launches, project_launches, split_launches,
-                          fixup_launches) -> None:
+def fixup_counts() -> dict:
+    """The carry fix-up launches of each aggregation op since the counts
+    were set to 0."""
+    return {op.__name__: op.fixup_launches for op in FIXUP_OPS}
+
+
+def check_helper_launches(op, launches, twin_launches, project_launches,
+                          split_launches, fixups) -> None:
     """The kernels that run beside a main path's aggregation kernel: one
     split pass before each basis_project launch, one carry fix-up after
-    each staircase_aggregate launch, and neither elsewhere."""
+    each launch of ``op`` (forward and twin), and neither elsewhere."""
     if split_launches != project_launches:
         raise AssertionError(f"{split_launches} split passes for "
                              f"{project_launches} basis_project launches")
-    want = launches if op is staircase.staircase_aggregate else 0
-    if fixup_launches != want:
-        raise AssertionError(f"{fixup_launches} carry fix-ups for {want} "
-                             f"staircase_aggregate launches")
+    want = {name: 0 for name in fixups}
+    want[op.__name__] = launches + twin_launches
+    if fixups != want:
+        raise AssertionError(f"carry fix-ups {fixups}, expected {want}")
 
 
 def phase_serve(ds, device, cfg, op=staircase2.block_direction,
@@ -491,10 +614,11 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     launches = op.launches
     project_launches = staircase2.basis_direction.project_launches
     split_launches = staircase2.basis_direction.split_launches
-    fixup_launches = staircase.staircase_aggregate.fixup_launches
+    fixups = fixup_counts()
+    fixup_launches = sum(fixups.values())
     peak = torch.cuda.max_memory_allocated()
-    check_helper_launches(op, launches, project_launches, split_launches,
-                          fixup_launches)
+    check_helper_launches(op, launches, 0, project_launches, split_launches,
+                          fixups)
     if staircase2.launch_counts() != (launches, 0):
         raise AssertionError(f"an encode for serving ran a twin pass or "
                              f"another op: {staircase2.launch_counts()}")
@@ -598,7 +722,9 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
     not 1/degree of that row, so its f32 partial sums reach tens while the
     result may be near 0. The twin pass on the wrong twin (the opposite
     direction's CSR: the same edges with the other weights) must fail that
-    allowance. Plain times are those of the float32 plain version."""
+    allowance; its carry rows equal merge_path_carry_rows and two launches
+    give the same bits. Plain times are those of the float32 plain
+    version; the twin pass is timed as block_timings times the forward."""
     t_phase = time.perf_counter()
     lib, _ = staircase2.kernel_library()
     rows = []
@@ -623,7 +749,11 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
                                          w64)[0].float()
             out_ref = out_ref.detach().float()
             gx_ref, allowance = twin_sum_allowance(probe, w, layout, v)
-            twin_out = staircase2.launch(lib, probe, w, twin, v, twin=True)
+            twin_out = repeatable(
+                "block_direction_twin", lambda c: staircase2.launch(
+                    lib, probe, w, twin, v, twin=True, carries=c),
+                twin.row_ptr,
+                staircase.block_direction_items(v, twin.n_edges))
             wrong_out = staircase2.launch(lib, probe, w, wrong_twin, v,
                                           twin=True)
             xr = x.clone().requires_grad_(True)
@@ -658,13 +788,6 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
             gw_scale = gw_ref.abs().max().item()
             torch.testing.assert_close(gw, gw_ref, rtol=1e-4,
                                        atol=1e-4 * gw_scale)
-            twin_ms = cuda_ms(lambda: staircase2.launch(
-                lib, probe, w, twin, v, twin=True), 50)
-            fwd_ms = cuda_ms(lambda: staircase2.launch(lib, x, w, layout, v),
-                             50)
-            fwd_plain_ms = cuda_ms(
-                lambda: staircase2.block_direction_reference(x, w, layout,
-                                                             v), 3, warmup=1)
             dblocks_ms = cuda_ms(lambda: staircase2.block_direction_dblocks(
                 x, probe, w.shape, layout), 10)
             twin_plain_ms = cuda_ms(
@@ -672,8 +795,6 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
                     probe, w_t, twin, v), 3, warmup=1)
             plain_backward_ms = cuda_ms(lambda: torch.autograd.grad(
                 ref_loss, (xr, wr), retain_graph=True), 3, warmup=1)
-            bound = block_direction_bound(twin, v, n_rel, n_blocks, dr)
-            lengths = twin.row_ptr.diff()
             row = {"graph": graph_name, "direction": name,
                    "edges": layout.n_edges,
                    "forward_max_abs_err":
@@ -688,21 +809,14 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
                    "twin_beyond_rtol1e-4_atol1e-5":
                        int((twin_err > fixed).sum().item()),
                    "wrong_twin_over_allowance": wrong_over,
-                   "twin_kernel_ms": twin_ms, "twin_plain_ms": twin_plain_ms,
-                   "twin_bound_ms": bound["bound_ms"],
-                   "twin_bound_by": bound["bound_by"],
-                   "twin_bytes": bound["bytes"],
-                   "forward_kernel_ms": fwd_ms,
-                   "forward_plain_ms": fwd_plain_ms,
-                   "forward_bound_ms": block_direction_bound(
-                       layout, v, n_rel, n_blocks, dr)["bound_ms"],
+                   "twin_same_bits_twice": True,
+                   "twin_plain_ms": twin_plain_ms,
                    "dblocks_ms": dblocks_ms,
                    "dblocks_bound_ms": dblocks_bound(
                        layout, v, n_rel, n_blocks, dr)["bound_ms"],
                    "plain_backward_ms": plain_backward_ms,
-                   "largest_row": int(layout.row_ptr.diff().max().item()),
-                   "twin_largest_row": int(lengths.max().item()),
-                   "twin_empty_rows": int((lengths == 0).sum().item())}
+                   **{f"twin_{k}": val for k, val in block_timings(
+                       lib, probe, w, twin, v, n_rel, twin=True).items()}}
             emit("grad", phase_s=time.perf_counter() - t_phase, **row)
             rows.append(row)
     return rows
@@ -785,10 +899,14 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
     the allowance at the forward and twin shapes); basis_combine and the
     twin pass (project g by w_t, combine on the twin CSR) against float64
     sums in both directions of each graph; the twin pass on the wrong twin
-    (the opposite CSR) must fail its allowance. Times of each kernel, of
-    its plain version and, for basis_project, of torch.matmul (TF32 off),
-    with the bounds; hub rows and the others timed apart. Launches here go
-    through launch_project / launch_combine and count nowhere."""
+    (the opposite CSR) must fail its allowance; basis_combine's carry rows
+    equal merge_path_carry_rows and two launches give the same bits. Times
+    of each kernel, of its plain version and of one PyTorch call for the
+    same function (torch.matmul, TF32 off, for basis_project;
+    torch.sparse.mm of combine_matrix for basis_combine), with the bounds;
+    hub rows and the others timed apart, and basis_combine at every item
+    count of SWEEP_ITEMS. Then combine_layouts. Launches here go through
+    launch_project / launch_combine and count nowhere."""
     t_phase = time.perf_counter()
     lib, _ = staircase2.basis_kernel_library()
     plib, _ = staircase2.project_kernel_library()
@@ -822,8 +940,11 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
         for name, layout, twin, wrong in (
                 ("forward", graph.fwd, graph.fwd_twin, graph.bwd),
                 ("backward", graph.bwd, graph.bwd_twin, graph.fwd)):
-            got = staircase2.launch_combine(lib, proj, coef, layout, v)
-            twin_out = staircase2.launch_combine(lib, q, coef, twin, v)
+            got, twin_out = (repeatable(
+                "basis_combine", lambda c: staircase2.launch_combine(
+                    lib, p, coef, lay, v, carries=c), lay.row_ptr,
+                staircase.basis_combine_items(v, lay.n_edges))
+                for p, lay in ((proj, layout), (q, twin)))
             wrong_out = staircase2.launch_combine(lib, q, coef, wrong, v)
             exact, allowance = combine_exact(proj, coef, layout, v)
             _, _, dx, dx_allowance = basis_exact(x, w_flat, coef, layout, v,
@@ -852,12 +973,35 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
                    "twin_max_abs_err": (twin_out.double() - dx).abs().max()
                    .item(),
                    "twin_over_allowance": twin_over,
-                   "wrong_twin_over_allowance": wrong_over}
-            for part, lay, p in (("", layout, proj), ("twin_", twin, q)):
+                   "wrong_twin_over_allowance": wrong_over,
+                   "same_bits_twice": True}
+            for part, lay, p, want in (("", layout, proj, exact),
+                                       ("twin_", twin, q, dx)):
                 hubs, rest = split_rows(lay, HUB_ROW)
                 lengths = lay.row_ptr.diff()
                 b = combine_bound(lay, v, n_bases, d)
+                matrix = combine_matrix(coef, lay, v, v)
+                merged = combine_matrix(coef, lay, v, v, coalesced=True)
+                p_rows = p.view(-1, d)
                 row.update({
+                    f"{part}library_ms": cuda_ms(
+                        lambda: torch.sparse.mm(matrix, p_rows), 20),
+                    f"{part}library_max_abs_err": (
+                        torch.sparse.mm(matrix, p_rows).double() - want)
+                    .abs().max().item(),
+                    f"{part}library_coalesced_ms": cuda_ms(
+                        lambda: torch.sparse.mm(merged, p_rows), 20),
+                    f"{part}library_coalesced_max_abs_err": (
+                        torch.sparse.mm(merged, p_rows).double() - want)
+                    .abs().max().item(),
+                    f"{part}library_nnz": matrix.values().numel(),
+                    f"{part}library_coalesced_nnz": merged.values().numel(),
+                    f"{part}items": staircase.basis_combine_items(
+                        v, lay.n_edges),
+                    f"{part}items_sweep_ms": {str(items): cuda_ms(
+                        lambda: staircase2.launch_combine(
+                            lib, p, coef, lay, v, items=items), 20)
+                        for items in SWEEP_ITEMS},
                     f"{part}kernel_ms": cuda_ms(
                         lambda: staircase2.launch_combine(lib, p, coef, lay,
                                                           v), 20),
@@ -887,61 +1031,102 @@ def phase_kernel_basis(graphs, n_rel, n_bases, d, device):
             emit("kernel_basis", phase_s=time.perf_counter() - t_phase,
                  **row)
             rows.append(row)
+    for row in combine_layouts(lib, graphs, n_rel, device):
+        emit("kernel_basis", phase_s=time.perf_counter() - t_phase, **row)
+        rows.append(row)
     return rows
 
 
+def combine_matrix(coef, layout, n_rows, n_src, coalesced=False):
+    """basis_combine as one sparse matrix, the library's form of it:
+    [n_rows, n_src * B] CSR with entry (row of e, src_e * B + b) = w_e *
+    C[r_e, b]; times P viewed as [n_src * B, d_out] it gives the combine's
+    output. E * B entries, columns ascending within a row, an edge that
+    repeats a (target, source) pair kept apart: the kernel's work. With
+    ``coalesced`` such entries are summed into one (10.6 % fewer on the
+    full graph), work the kernel does not skip."""
+    n_bases = coef.shape[1]
+    rows = staircase.row_of_entry(layout).repeat_interleave(n_bases)
+    cols = (layout.src.long()[:, None] * n_bases
+            + torch.arange(n_bases, device=coef.device)).reshape(-1)
+    vals = (layout.w[:, None] * coef[layout.rel.long()]).reshape(-1)
+    size = (n_rows, n_src * n_bases)
+    if coalesced:
+        return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                       size).coalesce().to_sparse_csr()
+    order = torch.argsort(rows * size[1] + cols, stable=True)
+    return torch.sparse_csr_tensor(layout.row_ptr.long() * n_bases,
+                                   cols[order], vals[order], size)
+
+
 def staircase_repeatable(lib, msgs, layout, v, perm=None):
-    """One launch of staircase_aggregate_f32 with its carry rows held
-    against merge_path_carry_rows, and a second launch that must give the
-    same bits. Returns the output."""
-    got, carry_rows = staircase.launch(lib, msgs, layout, v, perm,
-                                       carries=True)
-    again = staircase.launch(lib, msgs, layout, v, perm)
-    want_rows = staircase.merge_path_carry_rows(
+    """repeatable() for staircase_aggregate_f32 at its items rule."""
+    return repeatable(
+        "staircase", lambda c: staircase.launch(lib, msgs, layout, v, perm,
+                                                carries=c),
         layout.row_ptr, staircase.merge_path_items(v, layout.n_edges))
-    if not torch.equal(carry_rows.cpu(), want_rows):
-        raise AssertionError("staircase: the kernel's carry rows differ from "
-                             "merge_path_carry_rows")
-    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError("staircase: two launches differ")
-    return got
 
 
-def csr_of_counts(counts, gen, device):
-    """A layout with ``counts[v]`` entries in row v (src and rel 0,
-    weights in [0.1, 1.1))."""
+def csr_of_counts(counts, gen, device, n_src=1, n_rel=1):
+    """A layout with ``counts[v]`` entries in row v: weights in [0.1, 1.1),
+    src uniform over [0, n_src), rel uniform over [0, n_rel) and ascending
+    within each row (0 where n_src or n_rel is 1)."""
+    counts = torch.as_tensor(counts)
     row_ptr = torch.zeros(len(counts) + 1, dtype=torch.int64)
-    row_ptr[1:] = torch.cumsum(torch.as_tensor(counts), 0)
+    row_ptr[1:] = torch.cumsum(counts, 0)
     e = int(row_ptr[-1])
-    zeros = torch.zeros(e, dtype=torch.int32)
-    return CsrLayout(row_ptr=row_ptr.to(torch.int32), src=zeros, rel=zeros,
-                     w=torch.rand(e, generator=gen) + 0.1).to(device)
+    w = torch.rand(e, generator=gen) + 0.1
+    src = (torch.randint(n_src, (e,), generator=gen) if n_src > 1
+           else torch.zeros(e, dtype=torch.int64))
+    rel = torch.zeros(e, dtype=torch.int64)
+    if n_rel > 1:
+        rows = torch.repeat_interleave(torch.arange(len(counts)), counts)
+        rel = torch.randint(n_rel, (e,), generator=gen)
+        rel = rel[torch.argsort(rows * n_rel + rel, stable=True)]
+    return CsrLayout(row_ptr=row_ptr.to(torch.int32),
+                     src=src.to(torch.int32), rel=rel.to(torch.int32),
+                     w=w).to(device)
 
 
-def staircase_layouts(lib, graphs, d, device) -> list:
-    """staircase_aggregate_f32 on layouts that stress its partition, each
-    within the rounding allowance of a float64 sum, with carry rows equal
-    to merge_path_carry_rows and two launches equal bit for bit: one hub
-    row of 9,155 entries (FB15k-237's largest) among 14,541 rows, the same
-    on the perm path, every entry of the full graph (272,115) in the last
-    row (blocks holding only row ends, then ~1,000 carrying one row), no
-    entries at all, rows of one entry, and the training batch's layout at
-    d = 37 (the scalar path)."""
-    gen = torch.Generator().manual_seed(6)
+def stress_counts(graphs) -> dict:
+    """Row lengths over the full graph's 14,541 rows that stress the
+    merge-path partition: one hub row of 9,155 entries (FB15k-237's
+    largest), every entry of the full graph (272,115) in the last row
+    (blocks holding only row ends, then ~1,000 carrying one row), no
+    entries at all, rows of one entry."""
     full = graphs["full_train"]
     v = full.n_vertices
     hub = [0] * v
     hub[v // 2] = 9155
     last = [0] * v
     last[-1] = full.fwd.n_edges
-    cases = {"hub_9155": (csr_of_counts(hub, gen, device), d, False),
-             "hub_9155_perm": (csr_of_counts(hub, gen, device), d, True),
-             "one_row_holds_every_entry": (csr_of_counts(last, gen, device),
-                                           d, False),
-             "no_entries": (csr_of_counts([0] * v, gen, device), d, False),
-             "rows_of_one_entry": (csr_of_counts([1] * v, gen, device), d,
-                                   False),
-             "train_batch_d37": (graphs["train_batch"].fwd, 37, False)}
+    return {"hub_9155": hub, "one_row_holds_every_entry": last,
+            "no_entries": [0] * v, "rows_of_one_entry": [1] * v}
+
+
+def partition_row(layout, v, items) -> dict:
+    """The partition a stress layout gets: items, blocks, carrying
+    blocks."""
+    return {"edges": layout.n_edges, "items": items,
+            "blocks": staircase.merge_path_blocks(v, layout.n_edges, items),
+            "carrying_blocks": int((staircase.merge_path_carry_rows(
+                layout.row_ptr, items) >= 0).sum())}
+
+
+def staircase_layouts(lib, graphs, d, device) -> list:
+    """staircase_aggregate_f32 on the layouts of stress_counts, the hub
+    also on the perm path, and the training batch's layout at d = 37 (the
+    scalar path), each within the rounding allowance of a float64 sum,
+    with carry rows equal to merge_path_carry_rows and two launches equal
+    bit for bit."""
+    gen = torch.Generator().manual_seed(6)
+    v = graphs["full_train"].n_vertices
+    counts = stress_counts(graphs)
+    cases = {name: (csr_of_counts(c, gen, device), d, False)
+             for name, c in counts.items()}
+    cases["hub_9155_perm"] = (csr_of_counts(counts["hub_9155"], gen, device),
+                              d, True)
+    cases["train_batch_d37"] = (graphs["train_batch"].fwd, 37, False)
     rows = []
     for name, (layout, width, use_perm) in cases.items():
         e = layout.n_edges
@@ -955,18 +1140,102 @@ def staircase_layouts(lib, graphs, d, device) -> list:
         if not (torch.isfinite(got).all() and over <= 1):
             raise AssertionError(f"staircase layout {name}: {over} of the "
                                  f"f32 rounding allowance")
-        items = staircase.merge_path_items(v, e)
         rows.append({"kernel": "staircase_aggregate", "layout": name,
-                     "edges": e, "d": width, "perm": use_perm,
-                     "items": items,
-                     "blocks": staircase.merge_path_blocks(v, e, items),
-                     "carrying_blocks": int((staircase.merge_path_carry_rows(
-                         layout.row_ptr, items) >= 0).sum()),
+                     "d": width, "perm": use_perm,
+                     **partition_row(layout, v,
+                                     staircase.merge_path_items(v, e)),
                      "over_allowance": over, "same_bits_twice": True,
                      "kernel_ms": cuda_ms(lambda: staircase.launch(
                          lib, msgs, layout, v, perm), 10),
                      **staircase_bound(layout, v, width,
                                        perm=use_perm)})
+    return rows
+
+
+def block_layouts(lib, graphs, n_rel, device) -> list:
+    """block_direction_f32 and its twin entry point on the layouts of
+    stress_counts at B = 100, dr = 5 (sources uniform over the rows,
+    relations ascending within a row), on the hub as one relation run
+    across ~18 blocks, and on the training batch's layout at dr = 1, 3, 8
+    (B = 128, 42, 64); each within the rounding allowance of a float64
+    sum, with carry rows equal to merge_path_carry_rows and two launches
+    equal bit for bit."""
+    gen = torch.Generator().manual_seed(7)
+    v = graphs["full_train"].n_vertices
+    counts = stress_counts(graphs)
+    cases = {name: (csr_of_counts(c, gen, device, v, n_rel), 100, 5)
+             for name, c in counts.items()}
+    cases["one_run_9155"] = (csr_of_counts(counts["hub_9155"], gen, device,
+                                           v), 100, 5)
+    for n_blocks, dr in ((128, 1), (42, 3), (64, 8)):
+        cases[f"train_batch_B{n_blocks}_dr{dr}"] = (
+            graphs["train_batch"].fwd, n_blocks, dr)
+    rows = []
+    for name, (layout, n_blocks, dr) in cases.items():
+        x = torch.randn(v, n_blocks * dr, generator=gen).to(device)
+        w = torch.randn(n_rel, n_blocks, dr, dr, generator=gen).to(device)
+        items = staircase.block_direction_items(v, layout.n_edges)
+        for kernel, twin in (("block_direction", False),
+                             ("block_direction_twin", True)):
+            got = repeatable(f"{kernel} layout {name}",
+                             lambda c: staircase2.launch(
+                                 lib, x, w, layout, v, twin=twin,
+                                 carries=c), layout.row_ptr, items)
+            exact, allowance = block_exact(
+                x, w.transpose(-1, -2) if twin else w, layout, v)
+            torch.cuda.synchronize()
+            over = over_allowance(got, exact, allowance)
+            if not (torch.isfinite(got).all() and over <= 1):
+                raise AssertionError(f"{kernel} layout {name}: {over} of "
+                                     f"the f32 rounding allowance")
+            bound = block_direction_bound(layout, v, n_rel, n_blocks, dr)
+            rows.append({"kernel": kernel, "layout": name, "B": n_blocks,
+                         "dr": dr, **partition_row(layout, v, items),
+                         "runs": bound["runs"], "over_allowance": over,
+                         "same_bits_twice": True,
+                         "kernel_ms": cuda_ms(lambda: staircase2.launch(
+                             lib, x, w, layout, v, twin=twin), 10),
+                         "bound_ms": bound["bound_ms"]})
+    return rows
+
+
+def combine_layouts(lib, graphs, n_rel, device) -> list:
+    """basis_combine_f32 (forward and twin pass are one entry point) on
+    the layouts of stress_counts at B = 5, d_out = 500 (sources uniform
+    over the rows, relations ascending within a row), and on the training
+    batch's layout at B = 1 and 8 with d_out = 37 (the scalar path); each
+    within the rounding allowance of a float64 sum, with carry rows equal
+    to merge_path_carry_rows and two launches equal bit for bit."""
+    gen = torch.Generator().manual_seed(8)
+    v = graphs["full_train"].n_vertices
+    cases = {name: (csr_of_counts(c, gen, device, v, n_rel), 5, 500)
+             for name, c in stress_counts(graphs).items()}
+    for n_bases in (1, 8):
+        cases[f"train_batch_B{n_bases}_d37"] = (graphs["train_batch"].fwd,
+                                                n_bases, 37)
+    rows = []
+    for name, (layout, n_bases, d_out) in cases.items():
+        proj = torch.randn(v, n_bases * d_out, generator=gen).to(device)
+        coef = torch.randn(n_rel, n_bases, generator=gen).to(device)
+        items = staircase.basis_combine_items(v, layout.n_edges)
+        got = repeatable(f"basis_combine layout {name}",
+                         lambda c: staircase2.launch_combine(
+                             lib, proj, coef, layout, v, carries=c),
+                         layout.row_ptr, items)
+        exact, allowance = combine_exact(proj, coef, layout, v)
+        torch.cuda.synchronize()
+        over = over_allowance(got, exact, allowance)
+        if not (torch.isfinite(got).all() and over <= 1):
+            raise AssertionError(f"basis_combine layout {name}: {over} of "
+                                 f"the f32 rounding allowance")
+        rows.append({"kernel": "basis_combine", "layout": name,
+                     "B": n_bases, "d_out": d_out,
+                     **partition_row(layout, v, items),
+                     "over_allowance": over, "same_bits_twice": True,
+                     "kernel_ms": cuda_ms(lambda: staircase2.launch_combine(
+                         lib, proj, coef, layout, v), 10),
+                     "bound_ms": combine_bound(layout, v, n_bases,
+                                               d_out)["bound_ms"]})
     return rows
 
 
@@ -1259,10 +1528,11 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     twin_launches = getattr(op, "twin_launches", 0)
     project_launches = staircase2.basis_direction.project_launches
     split_launches = staircase2.basis_direction.split_launches
-    fixup_launches = staircase.staircase_aggregate.fixup_launches
+    fixups = fixup_counts()
+    fixup_launches = sum(fixups.values())
     peak = torch.cuda.max_memory_allocated()
-    check_helper_launches(op, launches, project_launches, split_launches,
-                          fixup_launches)
+    check_helper_launches(op, launches, twin_launches, project_launches,
+                          split_launches, fixups)
     records = result.steps
     per_layer = 2 * cfg.encoder.n_layers
     twin_per_layer = 0 if op is staircase.staircase_aggregate else per_layer
@@ -1376,41 +1646,82 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
             "top_kernels": top(kernels), "top_ops_inclusive": top(ops)}
 
 
+def mean_of(items, key, sub=None) -> float:
+    """The mean of ``key`` (of its entry ``sub``) over phase rows."""
+    pick = (lambda r: r[key]) if sub is None else (lambda r: r[key][sub])
+    return sum(pick(r) for r in items) / len(items)
+
+
+def merge_path_numbers(full, batch, prefix="") -> dict:
+    """A merge-path kernel's items, hub/other times and items sweeps, means
+    over the two directions of the full graph and of the training batch's
+    graph (phase rows whose keys carry ``prefix``)."""
+    sweep = f"{prefix}items_sweep_ms"
+    return {"items": full[0][f"{prefix}items"],
+            "train_batch_items": batch[0][f"{prefix}items"],
+            "hub_rows_only_ms": mean_of(full, f"{prefix}hub_rows_only_ms"),
+            "other_rows_only_ms": mean_of(full,
+                                          f"{prefix}other_rows_only_ms"),
+            "items_sweep_ms": {k: mean_of(full, sweep, k)
+                               for k in full[0][sweep]},
+            "train_batch_items_sweep_ms": {k: mean_of(batch, sweep, k)
+                                           for k in batch[0][sweep]}}
+
+
 def kernels_line(rows, serve, grads, train) -> list:
     """The block kernel's two entries with this run's numbers.
     block_direction is timed on the full train graph (the serving path's
     shape) and on the first training batch's graph; block_direction_twin
-    on the training batch (its path) and on the full train graph. Times and bounds are means
-    over the two directions; launches are the training run's."""
-    def mean(items, key):
-        return sum(r[key] for r in items) / len(items)
-    batch = [r for r in grads if r["graph"] == "train_batch"]
-    full = [r for r in grads if r["graph"] == "full_train"]
+    on the training batch (its path) and on the full train graph. Times and
+    bounds are means over the two directions; launches are the training
+    run's."""
+    full = [r for r in rows if r.get("graph") == "full_train"]
+    batch = [r for r in rows if r.get("graph") == "train_batch"]
+    layouts = [r for r in rows if "layout" in r]
+    g_batch = [r for r in grads if r["graph"] == "train_batch"]
+    g_full = [r for r in grads if r["graph"] == "full_train"]
     return [{
         "name": "block_direction", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": train["launches"],
         "launches_serve": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "train_batch_max_abs_err": max(r["forward_max_abs_err"]
-                                       for r in batch),
-        "ms": mean(rows, "kernel_ms"), "plain_ms": mean(rows, "plain_ms"),
-        "bound_ms": mean(rows, "bound_ms"),
-        "bound_by": rows[0]["bound_by"], "library_ms": None,
-        "train_batch_ms": mean(batch, "forward_kernel_ms"),
-        "train_batch_plain_ms": mean(batch, "forward_plain_ms"),
-        "train_batch_bound_ms": mean(batch, "forward_bound_ms")}, {
+        "fixup_launches": train["fixup_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in full + batch),
+        "max_over_allowance": max(r["over_allowance"] for r in rows),
+        "ms": mean_of(full, "kernel_ms"), "plain_ms": mean_of(full,
+                                                              "plain_ms"),
+        "bound_ms": mean_of(full, "bound_ms"),
+        "bound_by": full[0]["bound_by"], "library_ms": None,
+        "library": "none: the one-call form is a [V*d, V*d] sparse matrix "
+                   "of E*B*dr*dr entries",
+        **merge_path_numbers(full, batch),
+        "relation_0_ms": mean_of(full, "relation_0_ms"),
+        "runs": mean_of(full, "runs"),
+        "grouped_w_tiles": {k: mean_of(full, "grouped_w_tiles", k)
+                            for k in full[0]["grouped_w_tiles"]},
+        "x_gather_bytes": mean_of(full, "x_gather_bytes"),
+        "w_reload_bytes": mean_of(full, "w_reload_bytes"),
+        "train_batch_ms": mean_of(batch, "kernel_ms"),
+        "train_batch_plain_ms": mean_of(batch, "plain_ms"),
+        "train_batch_bound_ms": mean_of(batch, "bound_ms"),
+        "train_batch_relation_0_ms": mean_of(batch, "relation_0_ms"),
+        "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts
+                       if r["kernel"] == "block_direction"}}, {
         "name": "block_direction_twin", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES_TWIN,
         "launches": train["twin_launches"],
         "max_abs_err": max(r["twin_max_abs_err"] for r in grads),
         "max_over_allowance": max(r["twin_over_allowance"] for r in grads),
-        "ms": mean(batch, "twin_kernel_ms"),
-        "plain_ms": mean(batch, "twin_plain_ms"),
-        "bound_ms": mean(batch, "twin_bound_ms"),
-        "bound_by": batch[0]["twin_bound_by"], "library_ms": None,
-        "full_train_ms": mean(full, "twin_kernel_ms"),
-        "full_train_plain_ms": mean(full, "twin_plain_ms"),
-        "full_train_bound_ms": mean(full, "twin_bound_ms")}]
+        "ms": mean_of(g_batch, "twin_kernel_ms"),
+        "plain_ms": mean_of(g_batch, "twin_plain_ms"),
+        "bound_ms": mean_of(g_batch, "twin_bound_ms"),
+        "bound_by": g_batch[0]["twin_bound_by"], "library_ms": None,
+        **merge_path_numbers(g_full, g_batch, "twin_"),
+        "full_train_ms": mean_of(g_full, "twin_kernel_ms"),
+        "full_train_plain_ms": mean_of(g_full, "twin_plain_ms"),
+        "full_train_bound_ms": mean_of(g_full, "twin_bound_ms"),
+        "full_train_relation_0_ms": mean_of(g_full, "twin_relation_0_ms"),
+        "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts
+                       if r["kernel"] == "block_direction_twin"}}]
 
 
 def basis_kernels_line(kb, serve, train) -> list:
@@ -1419,14 +1730,14 @@ def basis_kernels_line(kb, serve, train) -> list:
     twin shape (g [V, d] @ w_t), torch.matmul beside it. basis_combine is
     timed on the full train graph (the serving path's shape) and on the
     first training batch's graph, forward and twin; times and bounds are
-    means over the two directions. Launches are the training run's, split
-    into forward and twin passes, and the serving run's."""
-    def mean(items, key):
-        return sum(r[key] for r in items) / len(items)
+    means over the two directions, torch.sparse.mm of combine_matrix
+    beside them. Launches are the training run's, split into forward and
+    twin passes, and the serving run's."""
     proj = {r["shape"]: r for r in kb if r["kernel"] == "basis_project"}
     comb = [r for r in kb if r["kernel"] == "basis_combine"]
-    full = [r for r in comb if r["graph"] == "full_train"]
-    batch = [r for r in comb if r["graph"] == "train_batch"]
+    full = [r for r in comb if r.get("graph") == "full_train"]
+    batch = [r for r in comb if r.get("graph") == "train_batch"]
+    layouts = [r for r in comb if "layout" in r]
     fwd, twin = proj["forward"], proj["twin"]
     return [{
         "name": "basis_project", "route": "cuda", "source": PROJECT_SOURCE,
@@ -1463,21 +1774,33 @@ def basis_kernels_line(kb, serve, train) -> list:
         "launches_forward": train["launches"],
         "launches_twin": train["twin_launches"],
         "launches_serve": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in comb),
+        "fixup_launches": train["fixup_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(max(r["over_allowance"],
-                                      r["twin_over_allowance"])
+                                      r.get("twin_over_allowance", 0))
                                   for r in comb),
-        "ms": mean(full, "kernel_ms"), "plain_ms": mean(full, "plain_ms"),
-        "bound_ms": mean(full, "bound_ms"), "bound_by": full[0]["bound_by"],
-        "library_ms": None,
-        "train_batch_ms": mean(batch, "kernel_ms"),
-        "train_batch_plain_ms": mean(batch, "plain_ms"),
-        "train_batch_bound_ms": mean(batch, "bound_ms"),
-        "train_batch_twin_ms": mean(batch, "twin_kernel_ms"),
-        "train_batch_twin_plain_ms": mean(batch, "twin_plain_ms"),
-        "train_batch_twin_bound_ms": mean(batch, "twin_bound_ms"),
-        "full_train_twin_ms": mean(full, "twin_kernel_ms"),
-        "full_train_twin_bound_ms": mean(full, "twin_bound_ms")}]
+        "ms": mean_of(full, "kernel_ms"),
+        "plain_ms": mean_of(full, "plain_ms"),
+        "bound_ms": mean_of(full, "bound_ms"), "bound_by": full[0]["bound_by"],
+        "library_ms": mean_of(full, "library_ms"),
+        "library": "torch.sparse.mm of the [V, V*B] CSR matrix, E*B "
+                   "entries",
+        "library_coalesced_ms": mean_of(full, "library_coalesced_ms"),
+        **merge_path_numbers(full, batch),
+        "train_batch_library_ms": mean_of(batch, "library_ms"),
+        "full_train_twin_library_ms": mean_of(full, "twin_library_ms"),
+        "train_batch_twin_library_ms": mean_of(batch, "twin_library_ms"),
+        "twin_hub_rows_only_ms": mean_of(full, "twin_hub_rows_only_ms"),
+        "twin_other_rows_only_ms": mean_of(full, "twin_other_rows_only_ms"),
+        "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts},
+        "train_batch_ms": mean_of(batch, "kernel_ms"),
+        "train_batch_plain_ms": mean_of(batch, "plain_ms"),
+        "train_batch_bound_ms": mean_of(batch, "bound_ms"),
+        "train_batch_twin_ms": mean_of(batch, "twin_kernel_ms"),
+        "train_batch_twin_plain_ms": mean_of(batch, "twin_plain_ms"),
+        "train_batch_twin_bound_ms": mean_of(batch, "twin_bound_ms"),
+        "full_train_twin_ms": mean_of(full, "twin_kernel_ms"),
+        "full_train_twin_bound_ms": mean_of(full, "twin_bound_ms")}]
 
 
 def staircase_kernels_line(ks, runs) -> list:
@@ -1486,9 +1809,6 @@ def staircase_kernels_line(ks, runs) -> list:
     train graph (the serving shape) and on the first training batch's
     graph; times and bounds are means over the two directions. Launches
     are those of the four main paths (``runs``: phase -> its row)."""
-    def mean(items, key, sub=None):
-        pick = (lambda r: r[key]) if sub is None else (lambda r: r[key][sub])
-        return sum(pick(r) for r in items) / len(items)
     full = [r for r in ks if r.get("graph") == "full_train"]
     batch = [r for r in ks if r.get("graph") == "train_batch"]
     layouts = [r for r in ks if "layout" in r]
@@ -1499,34 +1819,27 @@ def staircase_kernels_line(ks, runs) -> list:
         "launches": sum(r["launches"] for r in runs.values()),
         "launches_by_path": {k: r["launches"] for k, r in runs.items()},
         "fixup_launches": sum(r["fixup_launches"] for r in runs.values()),
-        "items": full[0]["items"],
-        "train_batch_items": batch[0]["items"],
         "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(r["over_allowance"] for r in ks),
         "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts},
-        "ms": mean(full, "kernel_ms"), "plain_ms": mean(full, "plain_ms"),
-        "bound_ms": mean(full, "bound_ms"), "bound_by": full[0]["bound_by"],
-        "library_ms": mean(full, "library_ms"),
+        "ms": mean_of(full, "kernel_ms"),
+        "plain_ms": mean_of(full, "plain_ms"),
+        "bound_ms": mean_of(full, "bound_ms"), "bound_by": full[0]["bound_by"],
+        "library_ms": mean_of(full, "library_ms"),
         "library": "torch.sparse.mm",
-        "hub_rows_only_ms": mean(full, "hub_rows_only_ms"),
-        "other_rows_only_ms": mean(full, "other_rows_only_ms"),
-        "train_batch_ms": mean(batch, "kernel_ms"),
-        "train_batch_plain_ms": mean(batch, "plain_ms"),
-        "train_batch_bound_ms": mean(batch, "bound_ms"),
-        "train_batch_library_ms": mean(batch, "library_ms"),
+        **merge_path_numbers(full, batch),
+        "train_batch_ms": mean_of(batch, "kernel_ms"),
+        "train_batch_plain_ms": mean_of(batch, "plain_ms"),
+        "train_batch_bound_ms": mean_of(batch, "bound_ms"),
+        "train_batch_library_ms": mean_of(batch, "library_ms"),
         "scatter2_launches": staircase2.scatter2.launches,
         "scatter2_max_abs_err": max(r["scatter2_max_abs_err"]
                                     for r in full + batch),
-        "scatter2_ms": mean(full, "scatter2_ms"),
-        "scatter2_plain_ms": mean(full, "scatter2_plain_ms"),
-        "scatter2_bound_ms": mean(full, "scatter2_bound_ms"),
-        "scatter2_library_ms": mean(full, "scatter2_library_ms"),
-        "train_batch_scatter2_ms": mean(batch, "scatter2_ms"),
-        "items_sweep_ms": {k: mean(full, "items_sweep_ms", k)
-                           for k in full[0]["items_sweep_ms"]},
-        "train_batch_items_sweep_ms": {
-            k: mean(batch, "items_sweep_ms", k)
-            for k in batch[0]["items_sweep_ms"]}}]
+        "scatter2_ms": mean_of(full, "scatter2_ms"),
+        "scatter2_plain_ms": mean_of(full, "scatter2_plain_ms"),
+        "scatter2_bound_ms": mean_of(full, "scatter2_bound_ms"),
+        "scatter2_library_ms": mean_of(full, "scatter2_library_ms"),
+        "train_batch_scatter2_ms": mean_of(batch, "scatter2_ms")}]
 
 
 def build_all() -> None:
@@ -1571,7 +1884,7 @@ def main() -> int:
 
     # gcn_block.exp: 100 blocks of 5x5
     n_blocks, dr = 100, 5
-    rows = phase_kernel(graph, ds.n_relations, n_blocks, dr, device)
+    rows = phase_kernel(graphs, ds.n_relations, n_blocks, dr, device)
     serve = phase_serve(ds, device, cfg)
     grads = phase_grad(graphs, ds.n_relations, n_blocks, dr, device)
     train = phase_train(cfg, ds, device)

@@ -26,182 +26,210 @@
 // V=14,541, d=500, B=5), the same function with the edge weight applied
 // after the product instead of before it (other rounding, same sum).
 //
-// basis_combine_f32: one thread block per output row, written once (no
-// atomics; an empty row writes zeros). kLanes lanes of kColThreads threads
-// take contiguous parts of the row's edges; thread t of a lane owns
-// columns t, t + kColThreads, ... and adds the edge's B coefficient-scaled
-// P values to them, the loads of kBatch edges in flight together; the
-// lanes add their partial sums through shared memory at the end. Sums are
-// f32, per edge in order of the CSR. Bound: bytes, each gathered P row
-// (B * d_out floats, 10 KB at d=500, B=5) once, plus out, C and the CSR.
-// A gathered row is read once per edge, not once per vertex, and P (145 MB
-// at full width) does not fit the 50 MB L2, so the time is set by the
-// gathers (2.7 GB on the full graph) and, for a hub row (about 9k edges at
-// FB15k-237 scale, one thread block), by the bandwidth one SM can pull.
-// Splitting long rows over several blocks is not done here.
+// What bounds basis_combine_f32 on an H100: bytes, each gathered P row
+// (B * d_out floats, 10 KB at d=500, B=5) once, plus out, C and the CSR
+// (0.053 ms on the full graph). A per-edge gather reads a P row once per
+// edge, not once per vertex: 2.72 GB a launch on the full graph from a P
+// of 145 MB that does not fit the 50 MB L2, so the gathers set the time of
+// any design of this shape. Summing the weighted x rows per basis first and
+// projecting after would cut those bytes; that reorders basis_project's
+// work and is not done here.
+//
+// Design: the merge-path partition of merge_path.cuh. Each thread block
+// takes `items` row ends + entries, so a hub row (about 9k edges at
+// FB15k-237 scale, 90 MB of gathers) is cut across many blocks and a run
+// of empty rows costs a block one item a row; rows cut by a block boundary
+// are finished by the carry fix-up in block order (no atomics, the same
+// bits on every launch). The block stages its row ends, sources and the
+// B values w_e * C[r_e, b] of its entries in shared memory. 128 threads lie
+// across the d_out columns, each owning one float4 (d_out % 4 == 0 and
+// 16-byte aligned pointers; d_out = 500 gives 125 threads) or one float
+// otherwise, with gridDim.y covering wider rows. An entry adds its B
+// coefficient-scaled P values to the thread's columns, the loads of kBatch
+// entries in flight together; the B parts are combined before any carry is
+// written, so a carry is [d_out]. Sums are f32, in CSR order.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
+
+#include "merge_path.cuh"
 
 namespace {
 
-// ---- basis_combine_f32 ------------------------------------------------
+using merge_path::axpy;
+using merge_path::zero_of;
 
-constexpr int kLanes = 4;          // edge lanes per output row
-constexpr int kColThreads = 128;   // threads of a lane, over the columns
-constexpr int kBatch = 2;          // edges whose loads are in flight together
+constexpr int kThreads = 128;    // threads of a block, across the columns
+constexpr int kBatch = 4;        // entries whose loads are in flight together
 constexpr int kMaxBases = 8;
-constexpr int kMaxColsPerThread = 8;
-constexpr int kMaxCols = kColThreads * kMaxColsPerThread;  // d_out <= 1024
+constexpr int kMaxItems = 1024;  // staging: 2 + B words an item, 40 KB at most
 
-template <int NB, int COLS>
-__global__ void __launch_bounds__(kLanes * kColThreads)
-basis_combine_kernel(const float* __restrict__ proj,
+// T is float4 (units = d_out / 4) or float (units = d_out); P rows are
+// NB * units T wide.
+template <int NB, typename T>
+__global__ void __launch_bounds__(kThreads)
+basis_combine_kernel(const T* __restrict__ proj,
                      const float* __restrict__ coef,
                      const int* __restrict__ row_ptr,
                      const int* __restrict__ src,
                      const int* __restrict__ rel,
-                     const float* __restrict__ wt,
-                     float* __restrict__ out, int d_out) {
-  extern __shared__ float partial[];  // [(kLanes - 1) * d_out]
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x / kColThreads;
-  const int t = threadIdx.x - lane * kColThreads;
-  const int64_t pitch = static_cast<int64_t>(NB) * d_out;
-
-  const int start = row_ptr[row];
-  const int len = row_ptr[row + 1] - start;
-  const int e_begin = start + static_cast<int>(
-                                  static_cast<int64_t>(len) * lane / kLanes);
-  const int e_end = start + static_cast<int>(
-                                static_cast<int64_t>(len) * (lane + 1) /
-                                kLanes);
-
-  float y[COLS];
-#pragma unroll
-  for (int c = 0; c < COLS; ++c) y[c] = 0.f;
-
-  for (int e = e_begin; e < e_end; e += kBatch) {
-    float cb[kBatch][NB];
-    int s[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const bool live = e + u < e_end;
-      s[u] = live ? __ldg(src + e + u) : 0;
-      const int r = live ? __ldg(rel + e + u) : 0;
-      const float we = live ? __ldg(wt + e + u) : 0.f;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        cb[u][b] = we * __ldg(coef + static_cast<int64_t>(r) * NB + b);
-      }
-    }
-    float pv[kBatch][NB][COLS];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const bool live = e + u < e_end;
-      const float* ps = proj + static_cast<int64_t>(s[u]) * pitch + t;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          const int col = t + c * kColThreads;
-          pv[u][b][c] = (live && col < d_out)
-                            ? __ldg(ps + b * d_out + c * kColThreads)
-                            : 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) y[c] = fmaf(cb[u][b], pv[u][b][c], y[c]);
-      }
-    }
+                     const float* __restrict__ wt, T* __restrict__ out,
+                     int* __restrict__ carry_row, T* __restrict__ carry,
+                     int n_rows, int n_edges, int units, int items) {
+  extern __shared__ int staged[];  // row ends, sources, B coefficients
+  const int t = threadIdx.x;
+  const int u = blockIdx.y * kThreads + t;
+  const merge_path::Range g =
+      merge_path::find_range(row_ptr, n_rows, n_edges, items);
+  const int n_ends = g.i1 - g.i0;  // rows i0 .. i1 - 1 end in this block
+  const int n_ent = g.j1 - g.j0;   // entries j0 .. j1 - 1 are taken here
+  int* s_end = staged;
+  int* s_src = staged + items;
+  float* s_c = reinterpret_cast<float*>(staged + 2 * items);  // [NB][items]
+  for (int r = t; r < n_ends; r += kThreads) {
+    s_end[r] = __ldg(row_ptr + g.i0 + r + 1);
   }
-
-  if (lane > 0) {
-    float* pp = partial + static_cast<int64_t>(lane - 1) * d_out;
+  for (int q = t; q < n_ent; q += kThreads) {
+    const int k = g.j0 + q;
+    s_src[q] = __ldg(src + k);
+    const float we = __ldg(wt + k);
+    const float* c = coef + static_cast<int64_t>(__ldg(rel + k)) * NB;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int col = t + c * kColThreads;
-      if (col < d_out) pp[col] = y[c];
-    }
+    for (int b = 0; b < NB; ++b) s_c[b * items + q] = we * __ldg(c + b);
   }
   __syncthreads();
-  if (lane == 0) {
-    float* o = out + static_cast<int64_t>(row) * d_out;
+
+  const bool col = u < units;
+  const int64_t pitch = static_cast<int64_t>(NB) * units;
+  T acc = zero_of(T());
+  int r = 0;  // row i0 + r takes the next entry
+  int row_end = n_ends > 0 ? s_end[0] : INT_MAX;
+  for (int q0 = 0; q0 < n_ent; q0 += kBatch) {
+    T v[kBatch][NB];
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int col = t + c * kColThreads;
-      if (col >= d_out) continue;
-      float v = y[c];
-      for (int l = 1; l < kLanes; ++l) {
-        v += partial[static_cast<int64_t>(l - 1) * d_out + col];
+    for (int e = 0; e < kBatch; ++e) {
+      const bool live = col && q0 + e < n_ent;
+      const T* p = proj + (live ? s_src[q0 + e] : 0) * pitch + u;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        v[e][b] = live ? __ldg(p + b * units) : zero_of(T());
       }
-      o[col] = v;
     }
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      const int q = q0 + e;
+      if (q >= n_ent) break;
+      while (g.j0 + q >= row_end) {  // row i0 + r ends before this entry
+        if (col) out[static_cast<int64_t>(g.i0 + r) * units + u] = acc;
+        acc = zero_of(T());
+        ++r;
+        row_end = r < n_ends ? s_end[r] : INT_MAX;
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) axpy(s_c[b * items + q], v[e][b], acc);
+    }
+  }
+  for (; r < n_ends; ++r) {  // rows ending after the block's last entry
+    if (col) out[static_cast<int64_t>(g.i0 + r) * units + u] = acc;
+    acc = zero_of(T());
+  }
+  // acc is now the block's part of row i1, in progress at its end.
+  if (blockIdx.y == 0 && t == 0) {
+    carry_row[blockIdx.x] = g.has_carry ? g.i1 : -1;
+  }
+  if (g.has_carry && col) {
+    carry[static_cast<int64_t>(blockIdx.x) * units + u] = acc;
   }
 }
 
-template <int NB, int COLS>
-int launch_combine(const float* proj, const float* coef, const int* row_ptr,
-                   const int* src, const int* rel, const float* w, float* out,
-                   int n_rows, int d_out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kLanes - 1) * d_out;
-  basis_combine_kernel<NB, COLS>
-      <<<n_rows, kLanes * kColThreads, smem, stream>>>(
-          proj, coef, row_ptr, src, rel, w, out, d_out);
-  return static_cast<int>(cudaGetLastError());
+template <int NB, typename T>
+int launch(const T* proj, const float* coef, const int* row_ptr,
+           const int* src, const int* rel, const float* w, T* out,
+           int* carry_row, T* carry, int n_rows, int n_edges, int units,
+           int items, cudaStream_t s) {
+  const int grid_y = (units + kThreads - 1) / kThreads;
+  const int64_t n_blocks = merge_path::grid_blocks(n_rows, n_edges, items);
+  if (grid_y > 65535 || n_blocks < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(n_blocks),
+                  static_cast<unsigned>(grid_y));
+  const size_t smem = sizeof(int) * (2 + NB) * static_cast<size_t>(items);
+  basis_combine_kernel<NB, T><<<grid, kThreads, smem, s>>>(
+      proj, coef, row_ptr, src, rel, w, out, carry_row, carry, n_rows,
+      n_edges, units, items);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return merge_path::launch_fixup(carry_row, carry, out,
+                                  static_cast<int>(n_blocks), units, s);
 }
 
 template <int NB>
-int dispatch_cols(const float* proj, const float* coef, const int* row_ptr,
-                  const int* src, const int* rel, const float* w, float* out,
-                  int n_rows, int d_out, cudaStream_t s) {
-  const int cols = (d_out + kColThreads - 1) / kColThreads;
-  if (cols <= 1) return launch_combine<NB, 1>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-  if (cols <= 2) return launch_combine<NB, 2>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-  if (cols <= 4) return launch_combine<NB, 4>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-  return launch_combine<NB, 8>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
+int dispatch(const float* proj, const float* coef, const int* row_ptr,
+             const int* src, const int* rel, const float* w, float* out,
+             int* carry_row, float* carry, int n_rows, int n_edges,
+             int d_out, int items, cudaStream_t s) {
+  if (d_out % 4 == 0 && merge_path::aligned16(proj) &&
+      merge_path::aligned16(out) && merge_path::aligned16(carry)) {
+    return launch<NB>(reinterpret_cast<const float4*>(proj), coef, row_ptr,
+                      src, rel, w, reinterpret_cast<float4*>(out), carry_row,
+                      reinterpret_cast<float4*>(carry), n_rows, n_edges,
+                      d_out / 4, items, s);
+  }
+  return launch<NB>(proj, coef, row_ptr, src, rel, w, out, carry_row, carry,
+                    n_rows, n_edges, d_out, items, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest B and d_out basis_combine_f32 takes; the Python wrapper checks
+// Largest B and `items` basis_combine_f32 takes; the Python wrapper checks
 // against them.
 int basis_direction_max_bases() { return kMaxBases; }
-int basis_direction_max_cols() { return kMaxCols; }
+int basis_combine_max_items() { return kMaxItems; }
 
 // out [n_rows, d_out] from proj [*, n_bases * d_out] and coef [R, n_bases]
-// on a CSR of n_rows rows; n_bases outside [1, 8] or d_out outside
-// [1, 1024] returns cudaErrorInvalidValue.
+// on a CSR of n_rows rows and n_edges entries, on `stream` of `device`,
+// with carry_row [n_blocks] int32 and carry [n_blocks, d_out] f32 as
+// scratch, n_blocks = ceil((n_rows + n_edges) / items); carry_row is left
+// holding each block's carried row (-1 for none). Returns
+// cudaGetLastError() after the launches (0 on success);
+// cudaErrorInvalidValue for a negative size, n_bases outside [1, 8],
+// d_out < 1, items outside [1, basis_combine_max_items()], n_rows +
+// n_edges beyond int32 or a grid beyond the card's limits.
 int basis_combine_f32(const float* proj, const float* coef,
                       const int* row_ptr, const int* src, const int* rel,
-                      const float* w, float* out, int n_rows, int n_bases,
-                      int d_out, int device, void* stream) {
+                      const float* w, float* out, int* carry_row,
+                      float* carry, int n_rows, int n_edges, int n_bases,
+                      int d_out, int items, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (d_out < 1 || d_out > kMaxCols) {
+  if (n_rows < 0 || n_edges < 0 || d_out < 1 || items < 1 ||
+      items > kMaxItems ||
+      static_cast<int64_t>(n_rows) + n_edges > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BASIS_COMBINE_CASE(NB)                                             \
+  case NB:                                                                 \
+    return dispatch<NB>(proj, coef, row_ptr, src, rel, w, out, carry_row,  \
+                        carry, n_rows, n_edges, d_out, items, s);
   switch (n_bases) {
-    case 1: return dispatch_cols<1>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 2: return dispatch_cols<2>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 3: return dispatch_cols<3>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 4: return dispatch_cols<4>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 5: return dispatch_cols<5>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 6: return dispatch_cols<6>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 7: return dispatch_cols<7>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
-    case 8: return dispatch_cols<8>(proj, coef, row_ptr, src, rel, w, out, n_rows, d_out, s);
+    BASIS_COMBINE_CASE(1)
+    BASIS_COMBINE_CASE(2)
+    BASIS_COMBINE_CASE(3)
+    BASIS_COMBINE_CASE(4)
+    BASIS_COMBINE_CASE(5)
+    BASIS_COMBINE_CASE(6)
+    BASIS_COMBINE_CASE(7)
+    BASIS_COMBINE_CASE(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef BASIS_COMBINE_CASE
 }
 
 const char* basis_direction_error_string(int code) {

@@ -7,7 +7,7 @@
 // int32 with row_ptr[0] = 0 and row_ptr[n_rows] = E, w [E] f32 or null
 // (every weight 1), out [n_rows, d] f32, all row-major and contiguous.
 // One C entry point, staircase_aggregate_f32, launching two kernels:
-// merge_path_kernel, then carry_fixup_kernel.
+// merge_path_kernel, then merge_path.cuh's carry_fixup_kernel.
 //
 // Replaces two TPU kernels:
 // * relationprediction_tpu/ops/staircase.py:191 (_staircase_kernel,
@@ -35,35 +35,15 @@
 // messages) beside rows of one entry, and at the train shape (15,000
 // entries) 2/3 of the 14,541 rows are empty.
 //
-// Design: merge-based CSR SpMM (Merrill and Garland, "Merge-based Parallel
-// Sparse Matrix-Vector Multiplication", SC'16), with the d columns across
-// the threads of a block.
-// * The partition. The merged list is the n_rows row ends and the E
-//   entries, row end v coming after row v's entries (entry k comes first
-//   iff k < row_ptr[v + 1]). Block b takes the items [b * items,
-//   (b + 1) * items) of it and finds where that range starts and ends, as
-//   (rows ended, entries taken), by a binary search over row_ptr on its
-//   two diagonals. A hub row is cut across blocks; a run of empty rows
-//   costs a block one item a row; every block has the same work. The grid
-//   is ceil((n_rows + E) / items) blocks, known from sizes alone.
-// * Inside a block. The block's row ends, message indices and weights are
-//   staged in shared memory. 128 threads lie across the columns, each
-//   owning one float4 (d % 4 == 0 and 16-byte aligned pointers; d = 500
-//   gives 125 threads) or one float otherwise, with gridDim.y covering
-//   wider rows. The block walks its entries in CSR order, the loads of
-//   kBatch entries in flight together, and writes each row that ends in
-//   its range once: the full sum of a row that began there, the block's
-//   partial sum of a row that began in an earlier block, zeros for an
-//   empty row. Sums are f32, in CSR order.
-// * Rows cut by a block boundary are finished without atomics. Block b
-//   writes a carry, the row in progress at its end (carry_row[b], -1 if
-//   none) and its partial sum of that row (carry[b, :]). The carries of a
-//   row sit in consecutive slots, since a row's blocks are consecutive.
-//   carry_fixup_kernel, launched after every merge_path_kernel (no host
-//   sync to see whether carries exist), lets the slot that heads each run
-//   add the run's carries in block order and then the partial that the
-//   row's last block wrote to out. The order is fixed, so two launches on
-//   the same inputs give the same bits.
+// Design: the merge-path partition of merge_path.cuh (equal thread blocks
+// of row ends + entries; rows cut by a block boundary finished by its carry
+// fix-up in block order, no atomics), with the d columns across the threads
+// of a block. The block's row ends, message indices and weights are staged
+// in shared memory. 128 threads lie across the columns, each owning one
+// float4 (d % 4 == 0 and 16-byte aligned pointers; d = 500 gives 125
+// threads) or one float otherwise, with gridDim.y covering wider rows. The
+// block walks its entries in CSR order, the loads of kBatch entries in
+// flight together. Sums are f32, in CSR order.
 //
 // Cases that the tests and chip_smoke.py hold against the plain version:
 // a row spanning dozens of blocks (a 9,155-entry hub at 256 items is ~36
@@ -78,49 +58,16 @@
 #include <climits>
 #include <cstdint>
 
+#include "merge_path.cuh"
+
 namespace {
+
+using merge_path::axpy;
+using merge_path::zero_of;
 
 constexpr int kThreads = 128;   // threads of a block, across the columns
 constexpr int kBatch = 8;       // entries whose loads are in flight together
 constexpr int kMaxItems = 2048;  // staging: 3 ints an item, 24 KB at most
-
-__device__ __forceinline__ float zero_of(float) { return 0.f; }
-__device__ __forceinline__ float4 zero_of(float4) {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ void axpy(float a, float x, float& acc) {
-  acc = fmaf(a, x, acc);
-}
-__device__ __forceinline__ void axpy(float a, float4 x, float4& acc) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
-}
-__device__ __forceinline__ void add(float x, float& acc) { acc += x; }
-__device__ __forceinline__ void add(float4 x, float4& acc) {
-  acc.x += x.x;
-  acc.y += x.y;
-  acc.z += x.z;
-  acc.w += x.w;
-}
-
-// Rows whose end comes before item `diag` of the merged list: the number
-// of v with row_ptr[v + 1] + v < diag (row end v is item row_ptr[v+1] + v).
-__device__ int rows_before(const int* __restrict__ row_ptr, int n_rows,
-                           int n_edges, int diag) {
-  int lo = max(diag - n_edges, 0);
-  int hi = min(diag, n_rows);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(row_ptr + mid + 1) + mid < diag) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 // T is float4 (units = d / 4) or float (units = d). An entry whose message
 // index falls outside [0, n_msgs) adds nothing; the wrapper's checks keep
@@ -134,25 +81,11 @@ merge_path_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
                   int n_rows, int n_edges, int units, int n_msgs,
                   int items) {
   extern __shared__ int staged[];  // row ends, message indices, weights
-  __shared__ int bounds[5];        // i0, j0, i1, j1, has_carry
   const int t = threadIdx.x;
   const int u = blockIdx.y * kThreads + t;
-  const int64_t total = static_cast<int64_t>(n_rows) + n_edges;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * items;
-  const int64_t d1 = d0 + items < total ? d0 + items : total;
-  if (t == 0) {
-    const int i0 = rows_before(row_ptr, n_rows, n_edges, static_cast<int>(d0));
-    bounds[0] = i0;
-    bounds[1] = static_cast<int>(d0) - i0;
-  } else if (t == 32) {
-    const int i1 = rows_before(row_ptr, n_rows, n_edges, static_cast<int>(d1));
-    const int j1 = static_cast<int>(d1) - i1;
-    bounds[2] = i1;
-    bounds[3] = j1;
-    bounds[4] = i1 < n_rows && j1 > __ldg(row_ptr + i1);
-  }
-  __syncthreads();
-  const int i0 = bounds[0], j0 = bounds[1], i1 = bounds[2], j1 = bounds[3];
+  const merge_path::Range g =
+      merge_path::find_range(row_ptr, n_rows, n_edges, items);
+  const int i0 = g.i0, j0 = g.j0, i1 = g.i1, j1 = g.j1;
   const int n_ends = i1 - i0;  // rows i0 .. i1 - 1 end in this block
   const int n_ent = j1 - j0;   // entries j0 .. j1 - 1 are taken here
   int* s_end = staged;
@@ -202,49 +135,10 @@ merge_path_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
     acc = zero_of(T());
   }
   // acc is now the block's part of row i1, in progress at its end.
-  const bool has_carry = bounds[4] != 0;
-  if (blockIdx.y == 0 && t == 0) carry_row[blockIdx.x] = has_carry ? i1 : -1;
-  if (has_carry && col) {
+  if (blockIdx.y == 0 && t == 0) carry_row[blockIdx.x] = g.has_carry ? i1 : -1;
+  if (g.has_carry && col) {
     carry[static_cast<int64_t>(blockIdx.x) * units + u] = acc;
   }
-}
-
-// For each run of slots carrying the same row, its first slot adds the
-// run's carries in block order, then the partial the row's last block
-// wrote to out, and stores the sum in out.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-carry_fixup_kernel(const int* __restrict__ carry_row,
-                   const T* __restrict__ carry, T* __restrict__ out,
-                   int n_blocks, int units) {
-  const int b = blockIdx.x;
-  const int row = carry_row[b];
-  if (row < 0 || (b > 0 && carry_row[b - 1] == row)) return;
-  const int u = blockIdx.y * kThreads + threadIdx.x;
-  if (u >= units) return;
-  T sum = carry[static_cast<int64_t>(b) * units + u];
-  int c = b + 1;
-  bool more = c < n_blocks && carry_row[c] == row;
-  while (more) {  // kBatch carries' loads in flight, added in block order
-    T v[kBatch];
-    int taken = 0;
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      more = more && c + i < n_blocks && carry_row[c + i] == row;
-      v[i] = more ? carry[static_cast<int64_t>(c + i) * units + u]
-                  : zero_of(T());
-      taken += more;
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (i < taken) add(v[i], sum);
-    }
-    c += taken;
-    more = taken == kBatch && c < n_blocks && carry_row[c] == row;
-  }
-  T* o = out + static_cast<int64_t>(row) * units + u;
-  add(*o, sum);
-  *o = sum;
 }
 
 template <typename T>
@@ -252,9 +146,8 @@ int launch(const T* msgs, const int* perm, const int* row_ptr,
            const float* w, T* out, int* carry_row, T* carry, int n_rows,
            int n_edges, int units, int n_msgs, int items, cudaStream_t s) {
   const int grid_y = (units + kThreads - 1) / kThreads;
-  const int64_t n_blocks =
-      (static_cast<int64_t>(n_rows) + n_edges + items - 1) / items;
-  if (grid_y > 65535 || n_blocks > INT_MAX) {
+  const int64_t n_blocks = merge_path::grid_blocks(n_rows, n_edges, items);
+  if (grid_y > 65535 || n_blocks < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>(n_blocks),
@@ -265,13 +158,8 @@ int launch(const T* msgs, const int* perm, const int* row_ptr,
       n_msgs, items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  carry_fixup_kernel<T><<<grid, kThreads, 0, s>>>(
-      carry_row, carry, out, static_cast<int>(n_blocks), units);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  return merge_path::launch_fixup(carry_row, carry, out,
+                                  static_cast<int>(n_blocks), units, s);
 }
 
 }  // namespace
@@ -302,7 +190,8 @@ int staircase_aggregate_f32(const float* msgs, const int* perm,
   }
   if (n_rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0 && aligned16(msgs) && aligned16(out) && aligned16(carry)) {
+  if (d % 4 == 0 && merge_path::aligned16(msgs) &&
+      merge_path::aligned16(out) && merge_path::aligned16(carry)) {
     return launch(reinterpret_cast<const float4*>(msgs), perm, row_ptr, w,
                   reinterpret_cast<float4*>(out), carry_row,
                   reinterpret_cast<float4*>(carry), n_rows, n_edges, d / 4,

@@ -3,8 +3,9 @@
 Each source has a plain C interface and is bound with ``ctypes``: one
 ``nvcc`` call for ``sm_90a`` takes seconds, where a build that includes
 PyTorch's headers takes minutes. Libraries go to ``build/torch_kernels/`` at
-the root of the checkout, named by the hash of the source and the flags, so
-an edited source is rebuilt at its first use and an unchanged one is not.
+the root of the checkout, named by the hash of the source, the headers of
+``ops/csrc`` and the flags (``source_digest``), so an edited source or
+header is rebuilt at its first use and an unchanged one is not.
 """
 from __future__ import annotations
 
@@ -70,12 +71,21 @@ def ptxas_summary(log: str) -> tuple:
     return tuple(out)
 
 
+def source_digest(src: Path) -> str:
+    """The name of a build of ``src``: a hash of its bytes, of every header
+    (``*.cuh``) in its directory, which it may include, and of the
+    flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: str) -> BuildInfo:
     """Compile ``csrc/<source>`` unless a library of the same hash exists."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+    lib = BUILD_DIR / f"{src.stem}-{source_digest(src)}.so"
     if lib.exists():
         return BuildInfo(lib, 0.0, True, ())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -39,11 +39,11 @@ from . import nvcc
 
 _SOURCE = "staircase.cu"
 _EDGE_CHUNK = 16384
-# Items (row ends + entries) a thread block of the kernel takes: the most,
-# up to _MAX_ITEMS, that still make _MIN_BLOCKS blocks, and at least
-# _MIN_ITEMS; chosen by the sweep in chip_smoke.py's kernel_staircase phase
-# (PERF.md).
-_MIN_ITEMS, _MAX_ITEMS, _MIN_BLOCKS = 32, 512, 512
+# Items (row ends + entries) a thread block of a merge-path kernel takes:
+# the most, up to its largest, that still make _MIN_BLOCKS blocks, and at
+# least its smallest; chosen for each kernel by the sweeps of its phase in
+# chip_smoke.py (PERF.md).
+_MIN_BLOCKS = 512
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,24 +75,41 @@ def row_of_entry(layout: CsrLayout) -> torch.Tensor:
 
 def merge_path_blocks(n_rows: int, n_edges: int, items: int) -> int:
     """Thread blocks of one launch, ceil((n_rows + E) / items); raises
-    where the merged list's length overflows the kernel's int32."""
+    where the merged list's length overflows the kernels' int32."""
     if items < 1:
-        raise ValueError(f"staircase_aggregate: items must be >= 1, got "
-                         f"{items}")
+        raise ValueError(f"merge path: items must be >= 1, got {items}")
     if n_rows + n_edges >= 2 ** 31:
-        raise ValueError(f"staircase_aggregate: n_rows + E = "
-                         f"{n_rows + n_edges} overflows int32")
+        raise ValueError(f"merge path: n_rows + E = {n_rows + n_edges} "
+                         f"overflows int32")
     return -(-(n_rows + n_edges) // items)
 
 
-def merge_path_items(n_rows: int, n_edges: int) -> int:
+def merge_path_items(n_rows: int, n_edges: int, least: int = 32,
+                     most: int = 512) -> int:
     """Items a block takes for a list of n_rows row ends and n_edges
-    entries: 512 on the full FB15k-237 graph (287k items), 32 at the train
-    shape (29.5k)."""
-    items = _MAX_ITEMS
-    while items > _MIN_ITEMS and n_rows + n_edges < _MIN_BLOCKS * items:
+    entries: the most, halving from ``most``, that still give 512 blocks,
+    and at least ``least``. By default staircase_aggregate's rule: 512 on
+    the full FB15k-237 graph (287k items), 32 at the train shape
+    (29.5k)."""
+    items = most
+    while items > least and n_rows + n_edges < _MIN_BLOCKS * items:
         items //= 2
     return items
+
+
+def block_direction_items(n_rows: int, n_edges: int) -> int:
+    """Items a block of block_direction_f32 takes (forward and twin pass):
+    64 on the full FB15k-237 graph, 32 at the train shape. Larger blocks
+    lose: the kernel is bound by its W reloads from L2, and fewer blocks
+    hide less of their latency."""
+    return merge_path_items(n_rows, n_edges, least=32, most=64)
+
+
+def basis_combine_items(n_rows: int, n_edges: int) -> int:
+    """Items a block of basis_combine_f32 takes (an entry gathers B P
+    rows, 5x kernel 3's bytes at B = 5): 128 on the full FB15k-237 graph,
+    32 at the train shape."""
+    return merge_path_items(n_rows, n_edges, least=16, most=128)
 
 
 def merge_path_split(row_ptr: torch.Tensor, items: int) -> tuple:

@@ -21,8 +21,10 @@ The first is the same kernel on the direction's twin CSR (by source, with
 the direction's own weights; graph.py), reading the blocks transposed: the
 "twin pass". The second is torch ops over chunks of edges.
 
-On a CUDA tensor both kernel passes launch the kernels of
-``csrc/block_direction.cu`` or raise; on a CPU tensor they run
+On a CUDA tensor both kernel passes launch the kernel of
+``csrc/block_direction.cu`` (a merge-path partition of row ends and
+entries over equal thread blocks, then its carry fix-up; the partition is
+``staircase.merge_path_split``) or raise; on a CPU tensor they run
 ``block_direction_reference``, the plain PyTorch version, so the CPU path
 runs the same backward formulas (twin layout, twin weights, d blocks).
 
@@ -36,7 +38,8 @@ C [R, B], as two kernels: ``basis_project`` (P = features @ W_flat, once
 per vertex, in 3xTF32 on the tensor cores after a split pass;
 ``csrc/basis_project.cu``) and ``basis_combine`` (per target row, sum over
 its edges of w_e * sum_b C[r_e, b] * P[src_e, b, :];
-``csrc/basis_direction.cu``). Its gradient is
+``csrc/basis_direction.cu``, on the same merge-path partition). Its
+gradient is
 
     d features = basis_combine(g @ w_t, C, twin)   (the twin pass)
     d W_flat[i, b*d_out + o] = sum over edges e of
@@ -83,10 +86,11 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the kernel source."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.block_direction_f32, lib.block_direction_twin_f32):
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p] * 9 + [i] * 6 + [p]
         fn.restype = i
-    lib.block_direction_max_blocks.argtypes = []
-    lib.block_direction_max_blocks.restype = i
+    for fn in (lib.block_direction_max_blocks, lib.block_direction_max_items):
+        fn.argtypes = []
+        fn.restype = i
     lib.block_direction_error_string.argtypes = [i]
     lib.block_direction_error_string.restype = ctypes.c_char_p
     return lib
@@ -155,9 +159,11 @@ def block_direction(features: torch.Tensor, blocks: torch.Tensor,
 
 
 # Kernel launches since the counts were last set to 0, forward passes and
-# twin passes apart (CPU calls never count).
+# twin passes apart, and the carry fix-up that follows each of them (CPU
+# calls never count).
 block_direction.launches = 0
 block_direction.twin_launches = 0
+block_direction.fixup_launches = 0
 
 
 class _BlockDirection(torch.autograd.Function):
@@ -202,29 +208,52 @@ def _aggregate(features, blocks, layout, n_vertices, *, twin: bool):
         block_direction.twin_launches += 1
     else:
         block_direction.launches += 1
+    block_direction.fixup_launches += 1
     return out
 
 
+def _carry_buffers(n_rows: int, n_edges: int, items: int, width: int,
+                   max_items: int, device) -> tuple:
+    """(carry_rows int32 [n_blocks], carry f32 [n_blocks, width]), the
+    scratch of a merge-path launch of ``items`` items a block; raises
+    beyond the kernel's ``max_items``."""
+    if items > max_items:
+        raise ValueError(f"merge path: kernel takes items <= {max_items}, "
+                         f"got {items}")
+    n_grid = staircase.merge_path_blocks(n_rows, n_edges, items)
+    return (torch.empty(n_grid, dtype=torch.int32, device=device),
+            torch.empty(n_grid, width, dtype=torch.float32, device=device))
+
+
 def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
-           layout: CsrLayout, n_vertices: int, *,
-           twin: bool = False) -> torch.Tensor:
-    """One launch of a bound kernel library on the current stream, on
-    inputs already checked; raises if the launch is refused. ``twin``
-    launches the entry point that reads ``blocks`` transposed."""
+           layout: CsrLayout, n_vertices: int, *, twin: bool = False,
+           items: Optional[int] = None, carries: bool = False):
+    """One call of a bound kernel library (the merge-path kernel, then its
+    carry fix-up) on the current stream, on inputs already checked; raises
+    if a launch is refused. ``twin`` launches the entry point that reads
+    ``blocks`` transposed. Returns ``out``, or (out, carry_rows) with
+    ``carries`` (see ``staircase.merge_path_carry_rows``). ``items``
+    defaults to ``staircase.block_direction_items``."""
     n_blocks, dr = blocks.shape[1], blocks.shape[2]
+    if items is None:
+        items = staircase.block_direction_items(n_vertices, layout.n_edges)
+    carry_rows, carry = _carry_buffers(
+        n_vertices, layout.n_edges, items, n_blocks * dr,
+        lib.block_direction_max_items(), features.device)
     out = torch.empty(n_vertices, n_blocks * dr, dtype=torch.float32,
                       device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     fn = lib.block_direction_twin_f32 if twin else lib.block_direction_f32
     rc = fn(features.data_ptr(), blocks.data_ptr(), layout.row_ptr.data_ptr(),
             layout.src.data_ptr(), layout.rel.data_ptr(),
-            layout.w.data_ptr(), out.data_ptr(), n_vertices, n_blocks, dr,
+            layout.w.data_ptr(), out.data_ptr(), carry_rows.data_ptr(),
+            carry.data_ptr(), n_vertices, layout.n_edges, n_blocks, dr, items,
             features.device.index, stream)
     if rc != 0:
         msg = lib.block_direction_error_string(rc).decode()
         raise RuntimeError(f"block_direction kernel launch failed: "
                            f"{msg} ({rc})")
-    return out
+    return (out, carry_rows) if carries else out
 
 
 def _csr_tensors(layout: CsrLayout) -> tuple:
@@ -304,9 +333,9 @@ def bind_project_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_basis_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the basis source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.basis_combine_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.basis_combine_f32.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.basis_combine_f32.restype = i
-    for fn in (lib.basis_direction_max_bases, lib.basis_direction_max_cols):
+    for fn in (lib.basis_direction_max_bases, lib.basis_combine_max_items):
         fn.argtypes = []
         fn.restype = i
     lib.basis_direction_error_string.argtypes = [i]
@@ -439,11 +468,12 @@ def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
 
 
 # Kernel launches since the counts were last set to 0 (CPU calls never
-# count): basis_combine in forward passes and in twin passes, and
-# basis_project in both (one before each combine), each after one launch of
-# its split pass.
+# count): basis_combine in forward passes and in twin passes, the carry
+# fix-up after each of them, and basis_project in both (one before each
+# combine), each after one launch of its split pass.
 basis_direction.launches = 0
 basis_direction.twin_launches = 0
+basis_direction.fixup_launches = 0
 basis_direction.project_launches = 0
 basis_direction.split_launches = 0
 
@@ -518,6 +548,7 @@ def _combine(proj, coefficients, layout, n_rows, *, twin: bool):
         basis_direction.twin_launches += 1
     else:
         basis_direction.launches += 1
+    basis_direction.fixup_launches += 1
     return out
 
 
@@ -573,23 +604,33 @@ def launch_project(lib: ctypes.CDLL, x: torch.Tensor,
 
 def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
                    coefficients: torch.Tensor, layout: CsrLayout,
-                   n_rows: int) -> torch.Tensor:
-    """One launch of basis_combine_f32 on the current stream, on inputs
-    already checked; raises if the launch is refused."""
+                   n_rows: int, *, items: Optional[int] = None,
+                   carries: bool = False):
+    """One call of basis_combine_f32 (the merge-path kernel, then its carry
+    fix-up) on the current stream, on inputs already checked; raises if a
+    launch is refused. Returns ``out``, or (out, carry_rows) with
+    ``carries`` (see ``staircase.merge_path_carry_rows``). ``items``
+    defaults to ``staircase.basis_combine_items``."""
     n_bases = coefficients.shape[1]
     d_out = proj.shape[1] // n_bases
+    if items is None:
+        items = staircase.basis_combine_items(n_rows, layout.n_edges)
+    carry_rows, carry = _carry_buffers(
+        n_rows, layout.n_edges, items, d_out, lib.basis_combine_max_items(),
+        proj.device)
     out = torch.empty(n_rows, d_out, dtype=torch.float32,
                       device=proj.device)
     stream = torch.cuda.current_stream(proj.device).cuda_stream
     rc = lib.basis_combine_f32(
         proj.data_ptr(), coefficients.data_ptr(), layout.row_ptr.data_ptr(),
         layout.src.data_ptr(), layout.rel.data_ptr(), layout.w.data_ptr(),
-        out.data_ptr(), n_rows, n_bases, d_out, proj.device.index, stream)
+        out.data_ptr(), carry_rows.data_ptr(), carry.data_ptr(), n_rows,
+        layout.n_edges, n_bases, d_out, items, proj.device.index, stream)
     if rc != 0:
         msg = lib.basis_direction_error_string(rc).decode()
         raise RuntimeError(f"basis_combine kernel launch failed: {msg} "
                            f"({rc})")
-    return out
+    return (out, carry_rows) if carries else out
 
 
 def _check_project(x, w) -> None:
@@ -619,10 +660,8 @@ def _check_combine(proj, coefficients, layout, n_rows) -> None:
         raise ValueError(f"basis_combine: kernel takes B in [1, "
                          f"{lib.basis_direction_max_bases()}] dividing "
                          f"proj's {proj.shape[1]} columns, got B={n_bases}")
-    d_out = proj.shape[1] // n_bases
-    if not 1 <= d_out <= lib.basis_direction_max_cols():
-        raise ValueError(f"basis_combine: kernel takes d_out in [1, "
-                         f"{lib.basis_direction_max_cols()}], got {d_out}")
+    if proj.shape[1] < 1:
+        raise ValueError("basis_combine: proj has no columns")
     if layout.n_rows != n_rows:
         raise ValueError(f"basis_combine: layout has {layout.n_rows} rows, "
                          f"expected {n_rows}")
@@ -643,8 +682,19 @@ def scatter2(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
     entry k is input edge ``order[k]``; padding edges, dropped there, add
     nothing). The permutation is fused into the kernel's gather.
     Differentiable: d msgs[order[k]] = w_k * g[row(k)], zero for padding
-    edges. Returns [n_vertices, d] float32."""
-    perm = torch.as_tensor(order, dtype=torch.int32, device=msgs.device)
+    edges. Returns [n_vertices, d] float32.
+
+    Raises ValueError unless every ``order`` entry lies in [0, E_in), on
+    the CPU path and the card's alike; host data is checked before it is
+    copied to the card (a CUDA ``order`` costs one reduction and a sync)."""
+    order = torch.as_tensor(order)
+    n = msgs.shape[0]
+    if order.numel():
+        lo, hi = torch.stack(torch.aminmax(order)).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError(f"scatter2: order holds {lo}..{hi}, outside "
+                             f"[0, {n}) of msgs")
+    perm = order.to(device=msgs.device, dtype=torch.int32)
     return staircase._Aggregate.apply(msgs, layout, n_vertices, perm, True,
                                       scatter2)
 
