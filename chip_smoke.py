@@ -95,17 +95,52 @@ runs on the same kernel):
           step, each with its carry fix-up, no twin pass, none of the fused
           kernels.
 
+Then the rest of TrainLoop on gcn_block.exp:
+
+  fit     the main path of train.py: TrainLoop with the CLI's scorer over
+          the synthetic validation split as the early stopper's score,
+          prefetch on 2 threads, checkpoints and the metrics JSONL under
+          build/chip_smoke/fit, the cadence cut to CheckEvery 10,
+          BurninPhaseDuration 20, ReportTrainLossEvery 10 and at most 40
+          steps: validation at each multiple of 10 until the stop, the
+          stop rule on the logged scores, a checkpoint for each check that
+          did not stop, train_loss and validation records, 4 forward and 4
+          twin block_direction launches a step, 4 more forward a check;
+  prefetch, prefetch_basis  30 steps serial, prefetch, prefetch, serial
+          (gcn_block, then gcn_basis), in turns in one process: steps/s,
+          median step_ms, batch_ms (in the producer) and wait_ms; the
+          device idle share of a whole 5-step fit each way
+          (torch.profiler); prefetch with one producer consumes the serial
+          run's batches, hash for hash;
+  resume  20 steps against 10 and a resume to 20 in a new loop, saves
+          every 10, prefetch on 2 threads, under
+          torch.use_deterministic_algorithms: batches, losses, params and
+          Adam state equal bit for bit.
+
+Then distmult.exp and complex.exp (the embedding table, no graph, all
+272,115 positives a step):
+
+  serve_distmult, serve_complex  as serve, with no aggregation launch;
+  train_distmult, train_complex  as train for 6 steps, the one-step
+          comparison on the CPU plain path on the first 30,000 positives.
+
 Then a line listing every ported kernel with its numbers, nvidia-smi's line,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
 without a CUDA card the script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -114,6 +149,7 @@ import numpy as np
 import torch
 
 from relationprediction_torch import config
+from relationprediction_torch import train as train_cli
 from relationprediction_torch.data import synthetic
 from relationprediction_torch.device import exact_float32
 from relationprediction_torch.evaluation import ranking
@@ -122,7 +158,7 @@ from relationprediction_torch.graph import CsrLayout, build_graph_batch
 from relationprediction_torch.models import build
 from relationprediction_torch.ops import staircase, staircase2
 from relationprediction_torch.params import map_tree, tree_leaves
-from relationprediction_torch.training import engine
+from relationprediction_torch.training import checkpoint, engine
 
 ROOT = Path(__file__).resolve().parent
 SETTINGS = ROOT / "settings" / "gcn_block.exp"
@@ -286,8 +322,11 @@ def staircase_exact(msgs, layout, n_rows, perm=None):
 
 
 def model_label(cfg) -> str:
-    """Which configuration a phase ran: the encoder and its input stage."""
+    """Which configuration a phase ran: the encoder and its input stage,
+    or the embedding table and its decoder."""
     e = cfg.encoder
+    if e.name == "embedding":
+        return f"embedding, {cfg.decoder.name}"
     if e.name == "gcn_diag":
         return "gcn_diag"
     stage = "input transform" if e.use_input_transform else "one-hot input"
@@ -564,6 +603,10 @@ def fixup_counts() -> dict:
     return {op.__name__: op.fixup_launches for op in FIXUP_OPS}
 
 
+def op_name(op) -> str:
+    return "no aggregation op" if op is None else op.__name__
+
+
 def check_helper_launches(op, launches, twin_launches, project_launches,
                           split_launches, fixups) -> None:
     """The kernels that run beside a main path's aggregation kernel: one
@@ -573,7 +616,8 @@ def check_helper_launches(op, launches, twin_launches, project_launches,
         raise AssertionError(f"{split_launches} split passes for "
                              f"{project_launches} basis_project launches")
     want = {name: 0 for name in fixups}
-    want[op.__name__] = launches + twin_launches
+    if op is not None:
+        want[op.__name__] = launches + twin_launches
     if fixups != want:
         raise AssertionError(f"carry fix-ups {fixups}, expected {want}")
 
@@ -582,7 +626,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
                 phase="serve"):
     """The serving path at full width, with the kernels' launch counts:
     ``op`` (block_direction, basis_direction or staircase_aggregate) must
-    have launched once a direction and layer, and nothing else launched."""
+    have launched once a direction and layer, and nothing else launched;
+    with ``op`` None (the embedding encoder, no graph) nothing at all."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     params = model.init_params(torch.Generator().manual_seed(0))
@@ -611,7 +656,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     summary = scorer.compute_scores(triples)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = op.launches
+    launches = op.launches if op else 0
     project_launches = staircase2.basis_direction.project_launches
     split_launches = staircase2.basis_direction.split_launches
     fixups = fixup_counts()
@@ -622,10 +667,10 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     if staircase2.launch_counts() != (launches, 0):
         raise AssertionError(f"an encode for serving ran a twin pass or "
                              f"another op: {staircase2.launch_counts()}")
-    if launches != 2 * cfg.encoder.n_layers:
-        raise AssertionError(f"{op.__name__} launched {launches} times in "
-                             f"one encode, expected "
-                             f"{2 * cfg.encoder.n_layers}")
+    want = 2 * cfg.encoder.n_layers if op else 0
+    if launches != want:
+        raise AssertionError(f"{op_name(op)} launched {launches} times in "
+                             f"one encode, expected {want}")
     if project_launches != (launches if op is staircase2.basis_direction
                             else 0):
         raise AssertionError(f"basis_project launched {project_launches} "
@@ -639,7 +684,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     # The same encode through the plain path on the CPU.
     ref_view = build.ModelView(build.build_model(cfg, torch.device("cpu")))
     cpu_params = map_tree(lambda t: t.cpu(), params)
-    cpu_graph = graph.to("cpu")
+    cpu_graph = None if graph is None else graph.to("cpu")
     ref = ref_view.encoded(cpu_params, cpu_graph).entity_codes
     codes_err = (codes.cpu() - ref).abs().max().item()
     torch.testing.assert_close(codes.cpu(), ref, rtol=1e-4, atol=1e-4)
@@ -709,7 +754,8 @@ def first_batch_graph(cfg, ds, device):
     first step sees)."""
     model = build.build_model(cfg, device)
     return engine.BatchPipeline(model, cfg, ds,
-                                np.random.default_rng(0)).next().graph
+                                np.random.default_rng(0)).next().graph.to(
+                                    device)
 
 
 def phase_grad(graphs, n_rel, n_blocks, dr, device):
@@ -1467,27 +1513,32 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
 
 
 def phase_train(cfg, ds, device, op=staircase2.block_direction,
-                phase="train", steps=TRAIN_STEPS):
+                phase="train", steps=TRAIN_STEPS, compare_positives=None):
     """One step on the card against the CPU plain path, then the training
-    path through TrainLoop.fit with the kernels' launch counts: ``op``
-    (block_direction, basis_direction or staircase_aggregate) must have
-    launched once a direction and layer in each step, and its twin pass as
-    often (staircase_aggregate has none: its gradient is a torch gather),
-    and nothing else launched."""
+    path through TrainLoop.fit (serial batches, prefetch=False) with
+    the kernels' launch counts: ``op`` (block_direction, basis_direction
+    or staircase_aggregate) must have launched once a direction and layer
+    in each step, and its twin pass as often (staircase_aggregate has none:
+    its gradient is a torch gather), and nothing else launched; with
+    ``op`` None (no graph) nothing at all. ``compare_positives``: the
+    one-step comparison takes the batch's first that many positives."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     logged = []
-    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append)
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append,
+                            prefetch=False)
     params, opt_state = loop.init_state(0)
 
     # -- one step, card against the CPU plain path -----------------------
     batch = engine.BatchPipeline(model, cfg, ds,
-                                 np.random.default_rng(0)).next()
+                                 np.random.default_rng(0)).next().to(device)
+    if compare_positives is not None:
+        batch = batch._replace(triples=batch.triples[:compare_positives],
+                               mask=batch.mask[:compare_positives])
     draws = loop.draw(batch)
     loss, grads = engine.loss_and_grads(model, params, batch, *draws)
     cpu = torch.device("cpu")
-    cpu_batch = engine.TrainBatch(batch.graph.to(cpu), batch.triples.cpu(),
-                                  batch.mask.cpu())
+    cpu_batch = batch.to(cpu)
     cpu_loss, cpu_grads = engine.loss_and_grads(
         build.build_model(cfg, cpu), map_tree(lambda t: t.cpu(), params),
         cpu_batch, draws[0].cpu(), draws[1].cpu(),
@@ -1513,8 +1564,10 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                                  f"from the CPU plain path: relative L2 "
                                  f"{rel}")
     emit(f"{phase}_step_vs_cpu", phase_s=time.perf_counter() - t_phase,
+         positives=int(batch.mask.sum().item()),
          loss=loss.item(), cpu_loss=cpu_loss.item(), loss_rel_diff=loss_rel,
          grads=grad_rows)
+    del batch, draws, grads, cpu_batch, cpu_grads
 
     # -- the main path: TrainLoop.fit ------------------------------------
     torch.cuda.synchronize()
@@ -1524,7 +1577,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     result = loop.fit(params, opt_state, max_iterations=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = op.launches
+    launches = op.launches if op else 0
     twin_launches = getattr(op, "twin_launches", 0)
     project_launches = staircase2.basis_direction.project_launches
     split_launches = staircase2.basis_direction.split_launches
@@ -1534,7 +1587,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     check_helper_launches(op, launches, twin_launches, project_launches,
                           split_launches, fixups)
     records = result.steps
-    per_layer = 2 * cfg.encoder.n_layers
+    per_layer = 2 * cfg.encoder.n_layers if op else 0
     twin_per_layer = 0 if op is staircase.staircase_aggregate else per_layer
     for s in records:
         if s["launches"] != per_layer \
@@ -1549,7 +1602,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
             or twin_launches != twin_per_layer * steps:
         raise AssertionError(f"fit launched {launches} forward and "
                              f"{twin_launches} twin passes of "
-                             f"{op.__name__}, all ops "
+                             f"{op_name(op)}, all ops "
                              f"{staircase2.launch_counts()}")
     if project_launches != (launches + twin_launches
                             if op is staircase2.basis_direction else 0):
@@ -1561,8 +1614,9 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
             or not losses[steps] < losses[1]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     timing = loop.timer.summary()
-    row = {"steps": result.iterations, "positives": loop.pipeline.
-           graph_batch_size, "message_edges": loop.pipeline.split_size,
+    row = {"steps": result.iterations,
+           "positives": loop.pipeline.n_positives,
+           "message_edges": loop.pipeline.split_size,
            "batch_ms_median": statistics.median(s["batch_ms"]
                                                 for s in records),
            "step_ms_median": statistics.median(s["step_ms"]
@@ -1581,7 +1635,9 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "max_memory_allocated": peak, "log": logged}
     emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
-    emit(f"{phase}_breakdown", **host_batch_breakdown(loop.pipeline, device),
+    breakdown = host_batch_breakdown(loop.pipeline, device) \
+        if model.needs_graph() else {}
+    emit(f"{phase}_breakdown", **breakdown,
          **profile_steps(loop, params, result.opt_state),
          phase_s=time.perf_counter() - t_phase)
     return {**row, "launches": launches, "twin_launches": twin_launches,
@@ -1615,7 +1671,8 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
     kernels and operators with the most device time. Runs after the
     counted run, so its launches count nowhere."""
     from torch.profiler import ProfilerActivity, profile
-    batches = [loop.pipeline.next() for _ in range(n)]
+    batches = [loop.pipeline.next().to(loop.model.device)
+               for _ in range(n)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1646,6 +1703,417 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
             "top_kernels": top(kernels), "top_ops_inclusive": top(ops)}
 
 
+# The fit phase's cadence, cut from the settings' CheckEvery 2000,
+# BurninPhaseDuration 6000 and ReportTrainLossEvery 100 to fit the run's
+# time limit.
+FIT_CUTS = {"early_stopping_check_every": 10, "early_stopping_burnin": 20,
+            "report_train_loss_every": 10}
+FIT_STEPS = 40
+PREFETCH_STEPS = 30
+PROFILE_STEPS = 5
+# The thread switch interval (s) of the interpreter-lock diagnostic runs,
+# against the default 5 ms.
+FAST_SWITCH = 1e-4
+HASH_STEPS = 8
+RESUME_STEPS = 20
+EMBEDDING_STEPS = 6
+# The one-step comparison of the embedding models on the CPU plain path
+# takes the first 30,000 of the 272,115 positives of a step.
+EMBEDDING_COMPARE_POSITIVES = 30000
+SMOKE_DIR = ROOT / "build" / "chip_smoke"
+
+
+def fresh_dir(name: str) -> Path:
+    path = SMOKE_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def with_optimizer(cfg, **changes):
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, **changes))
+
+
+def stop_rule(scores, burnin, check_every):
+    """The iteration at which the reference's stopper fires on the scores
+    taken at check_every, 2 check_every, ..., or None."""
+    previous = None
+    for k, score in enumerate(scores, 1):
+        if previous is not None and not score > previous \
+                and k * check_every > burnin:
+            return k * check_every
+        previous = score
+    return None
+
+
+def hashing(loop) -> list:
+    """Wrap ``loop.train_step`` to record a hash of each consumed batch's
+    triples (read back from the card, after the step's stream has waited
+    for the copy) and message-graph edge ids, in consumption order."""
+    hashes, step = [], loop.train_step
+
+    def train_step(params, opt_state, batch):
+        h = hashlib.sha256(batch.triples.cpu().numpy().tobytes())
+        if batch.edge_ids is not None:
+            h.update(batch.edge_ids.tobytes())
+        hashes.append(h.hexdigest())
+        return step(params, opt_state, batch)
+    loop.train_step = train_step
+    return hashes
+
+
+def phase_fit(cfg, ds, device):
+    """The main path of train.py on gcn_block: TrainLoop with the CLI's
+    scorer over the synthetic validation split as the early stopper's
+    score (and the test metrics at each check, as the CLI prints them),
+    prefetch on 2 threads, checkpoints and the metrics JSONL under
+    build/chip_smoke/fit, the cadence cut by FIT_CUTS to at most FIT_STEPS
+    steps. Checks: a validation at each multiple of CheckEvery until the
+    stop; the stop rule on the logged scores; a checkpoint for each check
+    that did not stop; train_loss and validation records; 4 forward and 4
+    twin block_direction launches in every step; and the totals, 4 a step
+    + 4 a validation encode forward, 4 a step twin."""
+    t_phase = time.perf_counter()
+    out = fresh_dir("fit")
+    cfg = with_optimizer(cfg, **FIT_CUTS)
+    opt = cfg.optimizer
+    model = build.build_model(cfg, device)
+    scorer = train_cli.build_scorer(model, ds, cfg.training.metric)
+    logged = []
+    loop = engine.TrainLoop(
+        model, cfg, ds, seed=0, log=logged.append,
+        scoring_function=train_cli.validation_scoring(scorer, ds),
+        prefetch_threads=2, metrics_path=str(out / "metrics.jsonl"))
+    params, opt_state = loop.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        result = loop.fit(params, opt_state, max_iterations=FIT_STEPS,
+                          checkpoint_path=str(out / "m"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fwd = staircase2.block_direction.launches
+    twin = staircase2.block_direction.twin_launches
+    check_helper_launches(staircase2.block_direction, fwd, twin,
+                          staircase2.basis_direction.project_launches,
+                          staircase2.basis_direction.split_launches,
+                          fixup_counts())
+    loop.metrics.close()
+    with open(out / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    checks = [r for r in records if r["kind"] == "validation"]
+    scores = [r["score"] for r in checks]
+    steps = result.iterations
+    every = opt.early_stopping_check_every
+    if [r["iteration"] for r in checks] != list(range(every, steps + 1,
+                                                       every)):
+        raise AssertionError(f"validation at {[r['iteration'] for r in checks]}"
+                             f" in {steps} steps")
+    stop = stop_rule(scores, opt.early_stopping_burnin, every)
+    if result.stopped_early != (stop is not None) \
+            or steps != (stop or FIT_STEPS):
+        raise AssertionError(f"stopped at {steps} (early: "
+                             f"{result.stopped_early}); the rule on {scores} "
+                             f"says {stop}")
+    saved = sorted(int(p.name[2:-5]) for p in out.glob("m-*.ckpt"))
+    if saved != [r["iteration"] for r in checks
+                 if not (stop and r["iteration"] == stop)]:
+        raise AssertionError(f"checkpoints at {saved}, checks at "
+                             f"{[r['iteration'] for r in checks]}")
+    latest = checkpoint.restore_latest(str(out / "m"))
+    if latest["step"] != saved[-1] \
+            or int(latest["opt_state"]["count"]) != saved[-1]:
+        raise AssertionError(f"newest checkpoint at step {latest['step']}")
+    if not {"train_loss", "validation"} <= {r["kind"] for r in records}:
+        raise AssertionError(f"metric kinds {[r['kind'] for r in records]}")
+    per_step = 2 * cfg.encoder.n_layers
+    for s in result.steps:
+        if (s["launches"], s["twin_launches"]) != (per_step, per_step):
+            raise AssertionError(f"step {s['iteration']}: {s['launches']} "
+                                 f"forward and {s['twin_launches']} twin "
+                                 f"launches")
+    if fwd != per_step * (steps + len(checks)) or twin != per_step * steps \
+            or staircase2.launch_counts() != (fwd, twin):
+        raise AssertionError(f"fit launched {fwd} forward and {twin} twin "
+                             f"block_direction passes in {steps} steps and "
+                             f"{len(checks)} checks; all ops "
+                             f"{staircase2.launch_counts()}")
+    row = {"steps": steps, "stopped_early": result.stopped_early,
+           "best_score": result.best_score, "scores": scores,
+           "checks": len(checks), "checkpoints": saved,
+           "checkpoint_bytes": (out / f"m-{saved[-1]}.ckpt").stat().st_size,
+           "wall_s": wall_s, "steps_per_s_incl_checks": steps / wall_s,
+           "step_ms_median": statistics.median(s["step_ms"]
+                                               for s in result.steps),
+           "batch_ms_median": statistics.median(s["batch_ms"]
+                                                for s in result.steps),
+           "wait_ms_median": statistics.median(s["wait_ms"]
+                                               for s in result.steps),
+           "launches": fwd, "twin_launches": twin,
+           "metric_records": len(records),
+           "printed_tables": printed.getvalue().count("MRR"),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "log": logged}
+    emit("fit", model=model_label(cfg), phase_s=time.perf_counter() - t_phase,
+         **row)
+    return row
+
+
+def new_loop(cfg, ds, device, *, prefetch, threads=2):
+    model = build.build_model(cfg, device)
+    return engine.TrainLoop(model, cfg, ds, seed=0, log=lambda line: None,
+                            prefetch=prefetch, prefetch_threads=threads)
+
+
+def timed_fit(cfg, ds, device, params0, *, prefetch, threads=2,
+              switch_interval=None) -> dict:
+    """PREFETCH_STEPS steps of a fresh TrainLoop's fit from a copy of
+    ``params0``: steps/s over the call (host clock, synchronized at both
+    ends), the medians of the step records, and every step's launches
+    checked against ``cfg``'s layers. ``switch_interval``: the
+    interpreter's thread switch interval (s) for this run, else its
+    default (5 ms)."""
+    loop = new_loop(cfg, ds, device, prefetch=prefetch, threads=threads)
+    params = map_tree(torch.clone, params0)
+    opt_state = loop.optimizer.init(params)
+    default_interval = sys.getswitchinterval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        if switch_interval is not None:
+            sys.setswitchinterval(switch_interval)
+        result = loop.fit(params, opt_state, max_iterations=PREFETCH_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        sys.setswitchinterval(default_interval)
+    wall_s = time.perf_counter() - t0
+    per_step = 2 * cfg.encoder.n_layers
+    if any((s["launches"], s["twin_launches"]) != (per_step, per_step)
+           for s in result.steps):
+        raise AssertionError("a step's launches differ from "
+                             f"{per_step} forward and {per_step} twin")
+    recs = result.steps
+    return {"prefetch": prefetch, "threads": threads if prefetch else 0,
+            "switch_interval_s": switch_interval or default_interval,
+            "steps": len(recs), "wall_s": wall_s,
+            "steps_per_s": len(recs) / wall_s,
+            "step_ms_median": statistics.median(s["step_ms"] for s in recs),
+            "batch_ms_median": statistics.median(s["batch_ms"]
+                                                 for s in recs),
+            "wait_ms_median": statistics.median(s["wait_ms"] for s in recs),
+            "loss_last": recs[-1]["loss"]}
+
+
+def fit_profile(cfg, ds, device, params0, *, prefetch) -> dict:
+    """torch.profiler over a whole fit of PROFILE_STEPS steps (batches
+    made as fit makes them, so the host's share shows): the device's busy
+    time (the union of its kernel and copy intervals) against the window
+    from its first activity to its last. The profiler records the
+    producers' host operators too, and slows the run it traces: the
+    window is that run's, not an unprofiled one's."""
+    from torch.profiler import ProfilerActivity, profile
+    loop = new_loop(cfg, ds, device, prefetch=prefetch)
+    params = map_tree(torch.clone, params0)
+    opt_state = loop.optimizer.init(params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop.fit(params, opt_state, max_iterations=PROFILE_STEPS)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"profile": "not measured: the profiler saw no device time"}
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window = max(b for _, b in spans) - spans[0][0]
+    return {"profiled_steps": PROFILE_STEPS,
+            "device_window_ms_per_step": window / 1e3 / PROFILE_STEPS,
+            "device_busy_ms_per_step": busy / 1e3 / PROFILE_STEPS,
+            "device_idle_share": 1.0 - busy / window}
+
+
+def background_load(kind: str, pipeline):
+    """A thread's work for the contention diagnostic, looping until the
+    returned event is set: host batches (``pipeline.next``, as a producer
+    builds them, without the copies), a pure-Python loop (holds the
+    interpreter lock), or numpy sorts of 4M floats (release it), or
+    nothing."""
+    stop = threading.Event()
+    rng = np.random.default_rng(1)
+    data = rng.random(1 << 22)
+
+    def python_loop():
+        x = 0
+        for i in range(100_000):
+            x += i * i
+        return x
+    work = {"host_batches": pipeline.next, "python": python_loop,
+            "numpy_sort": lambda: np.sort(data)}.get(kind)
+
+    def run():
+        while not stop.is_set():
+            work()
+    thread = threading.Thread(target=run, daemon=True) if work else None
+    if thread:
+        thread.start()
+    return stop, thread
+
+
+def contended_steps(cfg, ds, device, params0, kind: str) -> dict:
+    """PREFETCH_STEPS serial steps while one background thread runs
+    ``kind`` (background_load): the median device step and host batch,
+    and steps/s. Which load lengthens the step says whether the main
+    thread's dispatch loses to the interpreter lock or to the CPU."""
+    loop = new_loop(cfg, ds, device, prefetch=False)
+    params = map_tree(torch.clone, params0)
+    opt_state = loop.optimizer.init(params)
+    helper = engine.BatchPipeline(loop.model, cfg, ds,
+                                  np.random.default_rng(7))
+    stop, thread = background_load(kind, helper)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = loop.fit(params, opt_state, max_iterations=PREFETCH_STEPS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        if thread:
+            thread.join(60)
+    recs = result.steps
+    return {"load": kind, "steps_per_s": len(recs) / wall_s,
+            "step_ms_median": statistics.median(s["step_ms"] for s in recs),
+            "batch_ms_median": statistics.median(s["batch_ms"]
+                                                 for s in recs)}
+
+
+def consumed_hashes(cfg, ds, device, params0, *, prefetch, threads=2):
+    loop = new_loop(cfg, ds, device, prefetch=prefetch, threads=threads)
+    hashes = hashing(loop)
+    params = map_tree(torch.clone, params0)
+    loop.fit(params, loop.optimizer.init(params), max_iterations=HASH_STEPS)
+    return hashes
+
+
+def phase_prefetch(cfg, ds, device, phase="prefetch"):
+    """Serial against prefetched batches, in turns in one process (serial,
+    prefetch, prefetch, serial; 2 producer threads), PREFETCH_STEPS steps
+    each from the same weights; then prefetch at the default thread switch
+    interval against FAST_SWITCH (fast, default, default, fast), the
+    diagnostic of the interpreter lock; the device busy time of a whole
+    fit of PROFILE_STEPS steps each way (torch.profiler) and the idle
+    share it gives over the unprofiled runs' step time; and the stream
+    check: prefetch with one producer consumes the serial run's batches,
+    hash for hash. Beside them the contention diagnostic: serial steps
+    while one thread builds host batches, runs pure Python, sorts with
+    numpy, or nothing (contended_steps)."""
+    t_phase = time.perf_counter()
+    params0 = build.build_model(cfg, device).init_params(
+        torch.Generator().manual_seed(0))
+    runs = [timed_fit(cfg, ds, device, params0, prefetch=p)
+            for p in (False, True, True, False)]
+    runs += [timed_fit(cfg, ds, device, params0, prefetch=True,
+                       switch_interval=s)
+             for s in (FAST_SWITCH, None, None, FAST_SWITCH)]
+    profiles = {name: fit_profile(cfg, ds, device, params0, prefetch=p)
+                for name, p in (("serial", False), ("prefetch", True))}
+    contention = [contended_steps(cfg, ds, device, params0, kind)
+                  for kind in ("none", "host_batches", "python",
+                               "numpy_sort", "none")]
+    serial = consumed_hashes(cfg, ds, device, params0, prefetch=False)
+    one = consumed_hashes(cfg, ds, device, params0, prefetch=True,
+                          threads=1)
+    if serial != one or len(serial) != HASH_STEPS:
+        raise AssertionError("prefetch with one producer consumed other "
+                             "batches than the serial run")
+
+    def mean(key, prefetch, interval=None):
+        vals = [r[key] for r in runs if r["prefetch"] == prefetch
+                and (interval is None or r["switch_interval_s"] == interval)]
+        return sum(vals) / len(vals)
+    default = sys.getswitchinterval()
+    serial = mean("steps_per_s", False)
+    prefetched = mean("steps_per_s", True, default)
+    fast = mean("steps_per_s", True, FAST_SWITCH)
+    for name, rate in (("serial", serial), ("prefetch", prefetched)):
+        busy = profiles[name].get("device_busy_ms_per_step")
+        if busy is not None:
+            profiles[name]["device_idle_share_unprofiled"] = \
+                1.0 - busy * rate / 1e3
+    row = {"runs": runs, "profiles": profiles,
+           "serial_steps_per_s": serial, "prefetch_steps_per_s": prefetched,
+           "speedup": prefetched / serial,
+           "contention": contention,
+           "fast_switch_steps_per_s": fast,
+           "fast_switch_speedup": fast / serial,
+           "one_producer_equals_serial": True, "hashed_steps": HASH_STEPS}
+    emit(phase, model=model_label(cfg), phase_s=time.perf_counter() - t_phase,
+         **row)
+    return row
+
+
+def phase_resume(cfg, ds, device):
+    """RESUME_STEPS steps straight against half of them and a resume to
+    RESUME_STEPS in a fresh loop, saves every 10 steps, prefetch on 2
+    threads, under torch.use_deterministic_algorithms(True): the batches
+    of the second half equal hash for hash, the losses and the params bit
+    for bit."""
+    t_phase = time.perf_counter()
+    out = fresh_dir("resume")
+    cfg = with_optimizer(cfg, save_every_n=RESUME_STEPS // 2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        loop = new_loop(cfg, ds, device, prefetch=True)
+        straight = hashing(loop)
+        params, opt_state = loop.init_state(0)
+        whole = loop.fit(params, opt_state, max_iterations=RESUME_STEPS,
+                         checkpoint_path=str(out / "a"))
+        loop = new_loop(cfg, ds, device, prefetch=True)
+        params, opt_state = loop.init_state(0)
+        loop.fit(params, opt_state, max_iterations=RESUME_STEPS // 2,
+                 checkpoint_path=str(out / "b"))
+        loop = new_loop(cfg, ds, device, prefetch=True)
+        resumed = hashing(loop)
+        tail = loop.resume(str(out / "b"), max_iterations=RESUME_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    half = RESUME_STEPS // 2
+    if straight[half:] != resumed or len(resumed) != half:
+        raise AssertionError("the resumed run consumed other batches")
+    losses = [s["loss"] for s in whole.steps[half:]]
+    if losses != [s["loss"] for s in tail.steps]:
+        raise AssertionError("the resumed run's losses differ")
+    unequal = [list(a.shape) for a, b in zip(tree_leaves(whole.params),
+                                             tree_leaves(tail.params))
+               if not torch.equal(a, b)]
+    unequal += [list(a.shape) for a, b in zip(
+        tree_leaves(whole.opt_state), tree_leaves(tail.opt_state))
+        if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"params or Adam state differ after the "
+                             f"resume: leaves {unequal}")
+    row = {"steps": RESUME_STEPS, "resumed_at": half,
+           "batches_equal": True, "losses_equal": True,
+           "params_and_state_equal_bitwise": True,
+           "deterministic_algorithms": True, "loss_last": losses[-1]}
+    emit("resume", model=model_label(cfg),
+         phase_s=time.perf_counter() - t_phase, **row)
+    return row
+
+
 def mean_of(items, key, sub=None) -> float:
     """The mean of ``key`` (of its entry ``sub``) over phase rows."""
     pick = (lambda r: r[key]) if sub is None else (lambda r: r[key][sub])
@@ -1668,13 +2136,14 @@ def merge_path_numbers(full, batch, prefix="") -> dict:
                                            for k in batch[0][sweep]}}
 
 
-def kernels_line(rows, serve, grads, train) -> list:
+def kernels_line(rows, serve, grads, train, fit) -> list:
     """The block kernel's two entries with this run's numbers.
     block_direction is timed on the full train graph (the serving path's
     shape) and on the first training batch's graph; block_direction_twin
     on the training batch (its path) and on the full train graph. Times and
     bounds are means over the two directions; launches are the training
-    run's."""
+    run's, and beside them the serving run's and the fit run's (train.py's
+    main path: steps and validation encodes)."""
     full = [r for r in rows if r.get("graph") == "full_train"]
     batch = [r for r in rows if r.get("graph") == "train_batch"]
     layouts = [r for r in rows if "layout" in r]
@@ -1684,6 +2153,7 @@ def kernels_line(rows, serve, grads, train) -> list:
         "name": "block_direction", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": train["launches"],
         "launches_serve": serve["launches"],
+        "launches_fit": fit["launches"],
         "fixup_launches": train["fixup_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(r["over_allowance"] for r in rows),
@@ -1709,6 +2179,7 @@ def kernels_line(rows, serve, grads, train) -> list:
         "name": "block_direction_twin", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES_TWIN,
         "launches": train["twin_launches"],
+        "launches_fit": fit["twin_launches"],
         "max_abs_err": max(r["twin_max_abs_err"] for r in grads),
         "max_over_allowance": max(r["twin_over_allowance"] for r in grads),
         "ms": mean_of(g_batch, "twin_kernel_ms"),
@@ -1862,6 +2333,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    # The resume phase runs under torch.use_deterministic_algorithms, which
+    # needs cuBLAS's fixed workspace; cuBLAS reads it when it starts, so it
+    # is set for the whole run before the first GEMM.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_phase = time.perf_counter()
     exact_float32()
     device = torch.device("cuda:0")
@@ -1917,7 +2392,25 @@ def main() -> int:
             v1_cfg, ds, device, staircase.staircase_aggregate,
             f"train_{label}")
 
-    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train)
+    # The rest of TrainLoop on gcn_block: the main path of train.py
+    # (validation, early stopping, checkpoints, prefetch), prefetch against
+    # serial batches (gcn_block and gcn_basis), and resume.
+    fit = phase_fit(cfg, ds, device)
+    phase_prefetch(cfg, ds, device)
+    phase_prefetch(basis_cfg, ds, device, "prefetch_basis")
+    phase_resume(cfg, ds, device)
+
+    # distmult.exp and complex.exp: the embedding table, no graph, all
+    # 272,115 positives a step; no aggregation kernel runs.
+    for name in ("distmult", "complex"):
+        emb_cfg = config.load(str(ROOT / "settings" / f"{name}.exp")) \
+            .with_counts(ds.n_entities, ds.n_relations, len(ds.train))
+        phase_serve(ds, device, emb_cfg, None, f"serve_{name}")
+        phase_train(emb_cfg, ds, device, None, f"train_{name}",
+                    steps=EMBEDDING_STEPS,
+                    compare_positives=EMBEDDING_COMPARE_POSITIVES)
+
+    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit)
                       + basis_kernels_line(kb, serve_b, train_b)
                       + staircase_kernels_line(ks, runs)}),
           flush=True)

@@ -135,10 +135,20 @@ class Scorer:
             self.avg_freq[v] = float(sums[v] / cnts[v])
 
     # -- scoring ------------------------------------------------------------
+    def set_params(self, params, graph=None) -> None:
+        """New params (and graph); drops the model view's cached codes,
+        which are keyed by the params' identity and would outlive an
+        in-place update (``scorer.py:189-194``)."""
+        self.params = params
+        if graph is not None:
+            self.graph = graph
+        if hasattr(self.model, "invalidate"):
+            self.model.invalidate()
+
     def compute_scores(self, triples: np.ndarray) -> MrrSummary:
         if self.metric != "MRR":
             raise NotImplementedError(f"metric {self.metric!r} is not ported "
-                                      f"yet (ROADMAP.md Queue 1 item 7)")
+                                      f"yet (ROADMAP.md Queue 1 item 3)")
         return self.compute_mrr_scores(triples)
 
     def compute_mrr_scores(self, triples: np.ndarray) -> MrrSummary:

@@ -53,6 +53,9 @@ class CsrLayout:
         return CsrLayout(**{f.name: getattr(self, f.name).to(device)
                             for f in fields(self)})
 
+    def tensors(self) -> list:
+        return [getattr(self, f.name) for f in fields(self)]
+
 
 def build_csr(sources: np.ndarray, relations: np.ndarray,
               targets: np.ndarray, weights: np.ndarray,
@@ -108,14 +111,30 @@ class GraphBatch:
     n_vertices: int
     n_relations: int
 
-    def to(self, device) -> "GraphBatch":
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
         """The same graph on ``device``; the twins keep sharing their
-        index arrays with the opposite layout there."""
-        fwd, bwd = self.fwd.to(device), self.bwd.to(device)
-        return GraphBatch(fwd, bwd,
-                          replace(bwd, w=self.fwd_twin.w.to(device)),
-                          replace(fwd, w=self.bwd_twin.w.to(device)),
+        index arrays with the opposite layout there. ``non_blocking``: an
+        asynchronous copy from pinned host memory, ordered on the current
+        stream."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """The same graph in page-locked host memory, for an asynchronous
+        copy to the card."""
+        return self._map(lambda t: t.pin_memory())
+
+    def _map(self, fn) -> "GraphBatch":
+        fwd = CsrLayout(*map(fn, self.fwd.tensors()))
+        bwd = CsrLayout(*map(fn, self.bwd.tensors()))
+        return GraphBatch(fwd, bwd, replace(bwd, w=fn(self.fwd_twin.w)),
+                          replace(fwd, w=fn(self.bwd_twin.w)),
                           self.n_vertices, self.n_relations)
+
+    def tensors(self) -> list:
+        """Every distinct tensor of the graph (the twins' index arrays are
+        the opposite layout's)."""
+        return (self.fwd.tensors() + self.bwd.tensors()
+                + [self.fwd_twin.w, self.bwd_twin.w])
 
 
 def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
@@ -128,7 +147,7 @@ def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
     if normalization != "global":
         raise NotImplementedError(
             f"normalization={normalization!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item 6)")
+            f"(ROADMAP.md Queue 1 item 2)")
     triples = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
     senders, relations, receivers = triples.T
     if len(triples) and relations.max() >= n_relations:

@@ -1,11 +1,13 @@
 """Model assembly: config -> encoder/decoder over a dictionary of parameters.
 
-Counterpart of ``relationprediction_tpu/models/build.py`` for
-``settings/gcn_block.exp`` and ``settings/gcn_basis.exp``: the
-block-diagonal or basis-decomposition R-GCN with an input transform, the
-basis R-GCN on one-hot input (``UseInputTransform=No``), and ``gcn_diag``,
-each with the DistMult decoder, encoded in test mode and scored against all
-entities, or encoded in train mode and scored by the factored binomial loss.
+Counterpart of ``relationprediction_tpu/models/build.py`` for the four
+shipped settings and two variants: the block-diagonal or
+basis-decomposition R-GCN with an input transform (``gcn_block.exp``,
+``gcn_basis.exp``), the basis R-GCN on one-hot input
+(``UseInputTransform=No``), ``gcn_diag``, and the embedding table with no
+graph (``distmult.exp``, ``complex.exp``), each with the DistMult or
+ComplEx decoder, encoded in test mode and scored against all entities, or
+encoded in train mode and scored by the factored binomial loss.
 Parameters are a plain dictionary of tensors with the JAX package's tree
 layout (params.py converts between the two).
 """
@@ -69,19 +71,19 @@ class EncodeResult(NamedTuple):
 def _check_supported(config: RunConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     e = config.encoder
-    if e.name not in ("gcn_basis", "gcn_diag"):
+    if e.name not in ("embedding", "gcn_basis", "gcn_diag"):
         raise NotImplementedError(f"encoder {e.name!r} is not ported yet "
-                                  f"(ROADMAP.md Queue 1 item 6)")
+                                  f"(ROADMAP.md Queue 1 item 2)")
     if e.name == "gcn_basis" and e.gcn_variant not in enc.PORTED_VARIANTS:
         raise enc.not_ported(e.gcn_variant)
     if e.random_input or e.partially_random_input \
             or e.use_output_transform or e.skip_connections != "None":
         raise NotImplementedError("random input, the output transform and "
                                   "skip connections are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
+                                  "(ROADMAP.md Queue 1 item 2)")
     if e.message_precision != "float32":
         raise NotImplementedError("message_precision=bfloat16 is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 6)")
+                                  "yet (ROADMAP.md Queue 1 item 2)")
 
 
 class RGCNModel:
@@ -97,19 +99,23 @@ class RGCNModel:
         self.n_entities = config.entity_count
         self.n_relations = config.relation_count
         e = config.encoder
+        # ``embedding`` is an entity table with no graph
+        # (``build.py:141-143``, ``:350-354``).
+        self.is_gcn = e.name != "embedding"
         # gcn_diag always builds an input transform (``build.py:125-130``);
         # without one the first layer takes one-hot input.
-        self.has_input_transform = e.name == "gcn_diag" \
-            or e.use_input_transform
-        self.first_layer_onehot = not self.has_input_transform
+        self.has_input_transform = self.is_gcn and (
+            e.name == "gcn_diag" or e.use_input_transform)
+        self.first_layer_onehot = self.is_gcn \
+            and not self.has_input_transform
         # ``EncoderConfig.gcn_variant`` alone says "basis" for gcn_diag
         # (``build.py:158``, ``:388``).
         self.variant = "diag" if e.name == "gcn_diag" else e.gcn_variant
         # The fused kernels (TPU kernels 1-2) serve block and basis layers
         # after an input transform; every other layer sums per-edge
         # messages with TPU kernel 3 (``build.py:270-278``).
-        self.preferred_staircase2 = e.use_input_transform \
-            and self.variant in ("block", "basis")
+        self.preferred_staircase2 = self.is_gcn \
+            and e.use_input_transform and self.variant in ("block", "basis")
         self.decoder = decoders_lib.build_decoder(
             config.decoder.name,
             code_dimension=config.decoder.code_dimension,
@@ -124,31 +130,45 @@ class RGCNModel:
         e = self.config.encoder
         d_int = e.internal_dimension
         params: Dict = {}
-        if self.has_input_transform:
-            params["input_transform"] = enc.init_affine(
-                generator, (self.n_entities, d_int), use_bias=True)
-        params["gcn_layers"] = [
-            enc.init_gcn_layer(
-                generator, self.variant, n_relations=self.n_relations,
-                d_in=d_int, d_out=d_int, n_bases=e.n_bases,
-                onehot_dim=self.n_entities
-                if self.first_layer_onehot and layer == 0 else None)
-            for layer in range(e.n_layers)]
+        if not self.is_gcn:
+            params["embedding"] = enc.init_affine(
+                generator, (self.n_entities, e.code_dimension),
+                use_bias=False)
+        else:
+            if self.has_input_transform:
+                params["input_transform"] = enc.init_affine(
+                    generator, (self.n_entities, d_int), use_bias=True)
+            params["gcn_layers"] = [
+                enc.init_gcn_layer(
+                    generator, self.variant, n_relations=self.n_relations,
+                    d_in=d_int, d_out=d_int, n_bases=e.n_bases,
+                    onehot_dim=self.n_entities
+                    if self.first_layer_onehot and layer == 0 else None)
+                for layer in range(e.n_layers)]
         params["relation_embedding"] = enc.init_relation_embedding(
             generator, self.n_relations, e.code_dimension)
         params["decoder"] = self.decoder.init(generator)
         return map_tree(lambda t: t.to(self.device), params)
 
-    def make_graph(self, triples: np.ndarray) -> GraphBatch:
+    def needs_graph(self) -> bool:
+        """Whether the encoder passes messages over a graph
+        (``build.py:195``)."""
+        return self.is_gcn
+
+    def make_graph(self, triples: np.ndarray,
+                   to_device: bool = True) -> Optional[GraphBatch]:
         """The message graph of ``triples`` with its CSR layouts, on the
-        model's device."""
-        return build_graph_batch(triples, self.n_entities,
-                                 self.n_relations).to(self.device)
+        model's device, or left on the host (``to_device`` false); None
+        for a model without a graph (``build.py:280-322``)."""
+        if not self.is_gcn:
+            return None
+        graph = build_graph_batch(triples, self.n_entities, self.n_relations)
+        return graph.to(self.device) if to_device else graph
 
     # ------------------------------------------------------------------
     # Encoding and scoring
     # ------------------------------------------------------------------
-    def encode(self, params: Dict, graph: GraphBatch, *,
+    def encode(self, params: Dict, graph: Optional[GraphBatch], *,
                deterministic: bool,
                generator: Optional[torch.Generator] = None,
                keep_masks: Optional[Sequence[torch.Tensor]] = None
@@ -158,9 +178,13 @@ class RGCNModel:
 
         Train mode (``deterministic`` false) drops self-loop messages with
         one keep-mask per layer: ``keep_masks[layer]`` [V, d] bool where
-        given, else drawn from ``generator``.
+        given, else drawn from ``generator``. The embedding encoder reads
+        its table and takes no graph.
         """
         e = self.config.encoder
+        rel = params["relation_embedding"]["W_relation"]
+        if not self.is_gcn:
+            return EncodeResult(params["embedding"]["W"], rel)
         features = None  # one-hot input to the first layer
         if self.has_input_transform:
             features = enc.apply_affine(params["input_transform"], None,
@@ -176,13 +200,14 @@ class RGCNModel:
                 n_vertices=self.n_entities,
                 keep_mask=None if keep_masks is None
                 else keep_masks[layer_idx])
-        return EncodeResult(features,
-                            params["relation_embedding"]["W_relation"])
+        return EncodeResult(features, rel)
 
     def draw_keep_masks(self, generator: torch.Generator) -> list:
         """One train-mode dropout keep-mask [V, d] per layer, drawn on the
-        generator's device."""
+        generator's device; none for the embedding encoder."""
         e = self.config.encoder
+        if not self.is_gcn:
+            return []
         return [enc.draw_keep_mask((self.n_entities, e.internal_dimension),
                                    e.dropout_keep_probability, generator)
                 for _ in range(e.n_layers)]

@@ -1,5 +1,5 @@
-"""Decoders (``relationprediction_tpu/models/decoders.py``): DistMult only,
-and the losses they share.
+"""Decoders (``relationprediction_tpu/models/decoders.py``): DistMult and
+ComplEx, and the losses they share.
 
 Scores exposed to evaluation are sigmoid(energies), as in the reference;
 ranking is monotonic in the logits, so ranks are taken on the energies.
@@ -76,11 +76,41 @@ class BilinearDiag:
         return self.regularization_parameter * reg
 
 
+class Complex(BilinearDiag):
+    """ComplEx decoder (``decoders/complex.py``); codes are [re | im]."""
+
+    name = "complex"
+
+    def energies(self, params, e1, r, e2):
+        return sddmm.complex_energies(e1, r, e2)
+
+    # ComplEx is bilinear too (``decoders.py:111-126``): energy(e1) = e1 . q
+    # with q = [rr*e2r + ri*e2i | rr*e2i - ri*e2r], and energy(e2) = q' . e2
+    # with q' = [e1r*rr - e1i*ri | e1i*rr + e1r*ri].
+    def subject_factor(self, params, r, e2):
+        rr, ri = sddmm.complex_parts(r)
+        e2r, e2i = sddmm.complex_parts(e2)
+        return torch.cat([rr * e2r + ri * e2i, rr * e2i - ri * e2r], dim=-1)
+
+    def object_factor(self, params, e1, r):
+        rr, ri = sddmm.complex_parts(r)
+        e1r, e1i = sddmm.complex_parts(e1)
+        return torch.cat([e1r * rr - e1i * ri, e1i * rr + e1r * ri], dim=-1)
+
+    def all_subject_energies(self, params, all_codes, r, e2):
+        return sddmm.complex_all_subjects(all_codes, r, e2)
+
+    def all_object_energies(self, params, all_codes, e1, r):
+        return sddmm.complex_all_objects(all_codes, e1, r)
+
+
 def build_decoder(name: str, code_dimension: int,
                   regularization_parameter: float) -> BilinearDiag:
     if name == "bilinear-diag":
         return BilinearDiag(code_dimension, regularization_parameter)
-    if name in ("complex", "nonlinear-transform"):
+    if name == "complex":
+        return Complex(code_dimension, regularization_parameter)
+    if name == "nonlinear-transform":
         raise NotImplementedError(f"decoder {name!r} is not ported yet "
-                                  f"(ROADMAP.md Queue 1 item 6)")
+                                  f"(ROADMAP.md Queue 1 item 2)")
     raise ValueError(f"unknown decoder {name!r}")

@@ -73,7 +73,7 @@ PORTED_VARIANTS = ("block", "basis", "diag")
 def not_ported(variant: str) -> NotImplementedError:
     return NotImplementedError(
         f"gcn variant {variant!r} is not ported yet "
-        f"(ROADMAP.md Queue 1 item 6)")
+        f"(ROADMAP.md Queue 1 item 2)")
 
 
 def init_gcn_layer(generator: torch.Generator, variant: str, *,

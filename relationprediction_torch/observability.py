@@ -1,14 +1,45 @@
-"""Step timing with throughput counters (``relationprediction_tpu/
-observability.py:48-101``): steps/s and edges/s over a run, and the mean
-of the last ``window_size`` steps. Host clock: a step timed here ends when
-the host has queued it, and PyTorch waits for the card at the next
-host-to-device copy of a batch or read of a loss."""
+"""Metric records and step timing (``relationprediction_tpu/
+observability.py:22-101``).
+
+``MetricLogger`` appends one JSON object a record to a file and may echo
+it. ``StepTimer`` counts steps/s and edges/s over a run, and the mean of
+the last ``window_size`` steps. Host clock: a step timed here ends when
+the host has queued it, and PyTorch waits for the card at the next read
+of a loss or the next synchronize."""
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
+
+
+class MetricLogger:
+    """Append-only JSONL metric log with optional stdout echo."""
+
+    def __init__(self, path: Optional[str] = None, echo: bool = True):
+        self.path = path
+        self.echo = echo
+        self._fh = None
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._fh = open(path, "a")
+
+    def log(self, kind: str, **fields: Any) -> None:
+        record = {"ts": time.time(), "kind": kind, **fields}
+        if self._fh:
+            self._fh.write(json.dumps(record) + "\n")
+            self._fh.flush()
+        if self.echo:
+            body = " ".join(f"{k}={v}" for k, v in fields.items())
+            print(f"[{kind}] {body}")
+
+    def close(self) -> None:
+        if self._fh:
+            self._fh.close()
+            self._fh = None
 
 
 @dataclass
@@ -16,6 +47,7 @@ class StepStats:
     steps: int = 0
     total_seconds: float = 0.0
     total_edges: int = 0
+    total_triples: int = 0
     window: list = field(default_factory=list)
 
     @property
@@ -33,7 +65,7 @@ class StepTimer:
 
     Usage::
 
-        with timer.step(edges=n_edges):
+        with timer.step(edges=n_edges, triples=n_triples):
             run_train_step()
     """
 
@@ -42,7 +74,7 @@ class StepTimer:
         self.window_size = window_size
 
     @contextlib.contextmanager
-    def step(self, edges: int = 0) -> Iterator[None]:
+    def step(self, edges: int = 0, triples: int = 0) -> Iterator[None]:
         t0 = time.perf_counter()
         yield
         dt = time.perf_counter() - t0
@@ -50,6 +82,7 @@ class StepTimer:
         s.steps += 1
         s.total_seconds += dt
         s.total_edges += edges
+        s.total_triples += triples
         s.window.append(dt)
         if len(s.window) > self.window_size:
             s.window.pop(0)

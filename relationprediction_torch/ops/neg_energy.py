@@ -11,7 +11,7 @@ This is the JAX package's ``_direct`` form for float32 streams: gather the
 gives the backward, a scatter-add of the rows' cotangents into the code
 table; in the JAX package ``_take_rows_sorted_bwd`` sorts the ids first to
 spare XLA a slow scatter compile, with the same sums. The bf16 ``_fused``
-path comes with bf16 streams (ROADMAP.md Queue 1 item 6).
+path comes with bf16 streams (ROADMAP.md Queue 1 item 2).
 """
 from __future__ import annotations
 

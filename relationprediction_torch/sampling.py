@@ -5,7 +5,7 @@ A copy of ``relationprediction_tpu/sampling.py:122-255``: numpy on the host,
 so the same ``np.random.Generator`` state gives the same ids as the JAX
 package, and the C++ sampler (``native/``) the same ids for the same seed.
 ``NegativeSampler`` and ``RelationFilter`` come with the other negative
-protocols (ROADMAP.md Queue 1 item 5); the train step draws its negatives
+protocols (ROADMAP.md Queue 1 item 1); the train step draws its negatives
 on the device (``training/device_sampling.py``).
 """
 from __future__ import annotations

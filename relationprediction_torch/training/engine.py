@@ -1,29 +1,40 @@
-"""Training engine: host batches and the fit loop.
+"""Training engine: host batches, their prefetch, and the fit loop.
 
 Counterpart of ``relationprediction_tpu/training/engine.py`` for the path
-``TrainLoop`` takes by default with a DistMult decoder: device negatives,
-the binomial protocol, the factored loss (``engine.py:452-466``). Each step
+``TrainLoop`` takes by default with a factorizable decoder (DistMult,
+ComplEx): device negatives, the binomial protocol, the factored loss
+(``engine.py:452-466``). Each step
 
-  1. on the host: samples ``GraphBatchSize`` edges by neighbourhood
-     expansion, keeps ``GraphSplitSize`` of them as the message graph, lays
-     it out (four CSRs, graph.py) and ships it with the padded positives;
+  1. on the host (``BatchPipeline``, on ``prefetch_threads`` producer
+     threads by default, ``_Prefetcher``): samples ``GraphBatchSize`` edges
+     by neighbourhood expansion and keeps ``GraphSplitSize`` of them as the
+     message graph, laid out as four CSRs (graph.py), or, for a model
+     without a graph, takes a ``BatchSize`` minibatch (all of the train set
+     when unset); pads the positives with a mask, in pinned host memory on
+     the card's machine; a producer copies its batches to the card on its
+     own CUDA stream;
   2. on the device: draws the corruptions and the dropout keep-masks from
      the loop's ``torch.Generator``, encodes in train mode, takes the
      factored binomial loss and its gradients (the aggregation kernels'
-     twin passes inside), clips and applies Adam in place.
+     twin passes inside), clips and applies the optimizer in place.
 
 Losses are read on the host only at the reporting cadence of the reference
-(iteration 1, then every ``ReportTrainLossEvery`` at i % n == 1). The JAX
-package's prefetch threads, its K-step ``lax.scan`` dispatch (a TPU
-transport device, not carried over), validation with early stopping and
-checkpoint saving come with ROADMAP.md Queue 1 item 3; the other negative
-protocols with item 5.
+(iteration 1, then every ``ReportTrainLossEvery`` at i % n == 1). The
+validation score is taken every ``CheckEvery`` iterations, with early
+stopping after the burn-in, and a checkpoint is written at each check that
+did not stop (``shared/algorithms.py:61-161``); ``resume`` continues one.
+Not carried over from the JAX package: its K-step ``lax.scan`` dispatch (a
+TPU transport device), the mesh and vertex-sharded modes (ROADMAP.md Queue
+1 item 5), the stored-message state (item 2) and the other negative
+protocols (item 1).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,13 +43,15 @@ from ..config import RunConfig
 from ..data.dataset import KGDataset
 from ..graph import GraphBatch
 from ..models.build import RGCNModel
-from ..observability import StepTimer
+from ..observability import MetricLogger, StepTimer
 from ..ops import staircase2
-from ..params import tree_leaves, tree_unflatten
+from ..params import map_tree, params_from_jax, params_to_numpy, \
+    tree_leaves, tree_unflatten
 from ..sampling import (AdjacencyIndex, graph_split,
                         sample_edge_neighborhood_fast, sample_uniform_edges)
+from . import checkpoint as ckpt_lib
 from .device_sampling import device_negative_parts
-from .optimizers import apply_updates, build_optimizer
+from .optimizers import apply_updates, build_optimizer, opt_state_from_jax
 
 
 def _round_up(n: int, m: int) -> int:
@@ -46,18 +59,36 @@ def _round_up(n: int, m: int) -> int:
 
 
 class TrainBatch(NamedTuple):
-    graph: GraphBatch
+    graph: Optional[GraphBatch]  # None for a model without a graph
     triples: torch.Tensor  # [N_pad, 3] int32 positives, zero rows as padding
     mask: torch.Tensor     # [N_pad] float32, 1 for a real positive
+    # Host int32 ids into the train set of the message graph's edges
+    # (None without a graph); they stay on the host.
+    edge_ids: Optional[np.ndarray] = None
+
+    def to(self, device, non_blocking: bool = False) -> "TrainBatch":
+        graph = None if self.graph is None \
+            else self.graph.to(device, non_blocking)
+        return TrainBatch(graph,
+                          self.triples.to(device, non_blocking=non_blocking),
+                          self.mask.to(device, non_blocking=non_blocking),
+                          self.edge_ids)
+
+    def tensors(self) -> list:
+        graph = [] if self.graph is None else self.graph.tensors()
+        return graph + [self.triples, self.mask]
 
 
 class BatchPipeline:
-    """Host-side batch construction (``engine.py:64-204``, the reference's
+    """Host-side batch construction (``engine.py:74-204``, the reference's
     t_func, ``train.py:205-247``) for device negatives: the sampled
-    subgraph's split as the message graph, and the sampled edges as the
-    positives, padded to a multiple of 8 with a mask.
+    subgraph's split as the message graph and the sampled edges as the
+    positives, or a minibatch of positives for a model without a graph;
+    the positives padded to a multiple of 8 with a mask
+    (``_positives_batch``, ``engine.py:191-204``).
 
     The same ``rng`` state gives the JAX package's graphs and positives.
+    The batch stays on the host, pinned when the model is on the card.
     """
 
     def __init__(self, model: RGCNModel, config: RunConfig,
@@ -70,12 +101,26 @@ class BatchPipeline:
         self.train = np.asarray(dataset.train, dtype=np.int32)
         self.rng = rng
         self.sampler = sampler
+        self.pin = model.device.type == "cuda"
         t = config.training
         n_train = len(self.train)
-        self.graph_batch_size = min(t.graph_batch_size or n_train, n_train)
-        self.split_size = int(t.graph_split_size * self.graph_batch_size)
-        self.adj = AdjacencyIndex(self.train, config.entity_count)
-        self.positives_pad = _round_up(self.graph_batch_size, 8)
+        if model.needs_graph():
+            self.graph_batch_size = min(t.graph_batch_size or n_train,
+                                        n_train)
+            self.split_size = int(t.graph_split_size * self.graph_batch_size)
+            self.adj = AdjacencyIndex(self.train, config.entity_count)
+            cap = self.graph_batch_size
+        else:
+            self.batch_size = min(config.optimizer.batch_size or n_train,
+                                  n_train)
+            self.split_size = 0
+            cap = self.batch_size
+        self.n_positives = cap
+        self.positives_pad = _round_up(cap, 8)
+        # 'contiguous' minibatches: in-order wrapping windows instead of
+        # random ones (``shared/algorithms.py:36-39``).
+        self.contiguous = config.optimizer.contiguous_sampling
+        self._cursor = 0
 
     def sample_ids(self) -> tuple:
         """(batch edge ids, message-graph edge ids) into the train set."""
@@ -92,18 +137,183 @@ class BatchPipeline:
                                 self.rng)
         return batch_ids, split_ids
 
+    def minibatch(self) -> np.ndarray:
+        """The positives of a model without a graph (``engine.py:152-166``):
+        the whole train set, or a ``BatchSize`` window or random draw."""
+        n = len(self.train)
+        if self.batch_size >= n:
+            return self.train
+        if self.contiguous:
+            idx = np.arange(self._cursor, self._cursor + self.batch_size) % n
+            self._cursor = int(idx[-1] + 1) % n
+        else:
+            idx = self.rng.choice(n, size=self.batch_size, replace=False)
+        return self.train[idx]
+
     def next(self) -> TrainBatch:
+        if not self.model.needs_graph():
+            return self._positives_batch(None, self.minibatch(), None)
         batch_ids, split_ids = self.sample_ids()
-        graph = self.model.make_graph(self.train[split_ids])
-        positives = self.train[batch_ids]
+        graph = self.model.make_graph(self.train[split_ids], to_device=False)
+        return self._positives_batch(graph, self.train[batch_ids],
+                                     split_ids.astype(np.int32))
+
+    def _positives_batch(self, graph, positives, edge_ids) -> TrainBatch:
         n = len(positives)
         xp = np.zeros((self.positives_pad, 3), dtype=np.int32)
         mp = np.zeros((self.positives_pad,), dtype=np.float32)
         xp[:n] = positives
         mp[:n] = 1.0
-        device = self.model.device
-        return TrainBatch(graph, torch.from_numpy(xp).to(device),
-                          torch.from_numpy(mp).to(device))
+        triples, mask = torch.from_numpy(xp), torch.from_numpy(mp)
+        if self.pin:
+            graph = None if graph is None else graph.pin_memory()
+            triples, mask = triples.pin_memory(), mask.pin_memory()
+        return TrainBatch(graph, triples, mask, edge_ids)
+
+    # -- resumable host state (``engine.py:181-189``) ---------------------
+    def state(self) -> dict:
+        """All mutable host state that batch production consumes (the
+        numpy RNG and the contiguous cursor): restoring it reproduces the
+        future batch stream exactly."""
+        return {"rng": self.rng.bit_generator.state, "cursor": self._cursor}
+
+    def set_state(self, st: dict) -> None:
+        self.rng.bit_generator.state = st["rng"]
+        self._cursor = st["cursor"]
+
+
+class _SerialSource:
+    """``prefetch=False``: each batch built on the consumer's thread after
+    the card has finished the queued step, and copied before the step."""
+
+    def __init__(self, pipeline: BatchPipeline, device: torch.device):
+        self.pipeline = pipeline
+        self.device = device
+
+    def next(self) -> tuple:
+        """(batch on the device, batch_ms, wait_ms): the step waits for
+        all of the batch, so wait_ms is batch_ms."""
+        if self.device.type == "cuda":
+            # The batch's copies would wait for the queued step; waiting
+            # here keeps that out of batch_ms.
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        batch = self.pipeline.next().to(self.device)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        return batch, batch_ms, batch_ms
+
+    def states(self) -> tuple:
+        return [self.pipeline.state()], 0
+
+    def close(self) -> None:
+        pass
+
+
+class _Prefetcher:
+    """Producer threads that build batches while the device steps
+    (``engine.py:207-281``).
+
+    Deterministic by construction: each pipeline feeds its own bounded
+    queue and ``next()`` takes from them in turn, so the batch stream is a
+    function of (pipeline seeds, ``start_offset``) whatever the threads'
+    timing. Each queue item carries its pipeline's host state after the
+    batch was made; ``states()`` gives each pipeline's state after its last
+    consumed batch, which is what a resumed run restores.
+
+    On the card each producer copies its batches from pinned memory with
+    ``non_blocking=True`` on its own CUDA stream and records an event
+    there; ``next()`` makes the current stream wait on that event and
+    records the current stream on every device tensor of the batch, so
+    that the caching allocator does not hand the memory to the side
+    stream again before the step is done with it. The producers launch no
+    kernel: they run host code and copies only. A producer's exception is
+    raised by ``next()``.
+    """
+
+    def __init__(self, pipelines: List[BatchPipeline], device: torch.device,
+                 depth: int = 4, start_offset: int = 0):
+        self.pipelines = list(pipelines)
+        self.device = device
+        n = len(self.pipelines)
+        per_q = max(1, -(-depth // n))
+        self.queues = [queue.Queue(maxsize=per_q) for _ in range(n)]
+        self._stop = threading.Event()
+        self.error: Optional[BaseException] = None
+        self._rr = start_offset % n
+        # The state to restore per pipeline: after its last consumed batch
+        # (initially the untouched state).
+        self._consumed_state = [p.state() for p in self.pipelines]
+        on_card = device.type == "cuda"
+        self.threads = [
+            threading.Thread(
+                target=self._run, name=f"batch-producer-{k}", daemon=True,
+                args=(p, q, torch.cuda.Stream(device) if on_card else None))
+            for k, (p, q) in enumerate(zip(self.pipelines, self.queues))]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, pipeline: BatchPipeline, q: queue.Queue, stream) -> None:
+        try:
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                batch, event = pipeline.next(), None
+                if stream is not None:
+                    with torch.cuda.stream(stream):
+                        batch = batch.to(self.device, non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                item = (pipeline.state(), batch, event,
+                        (time.perf_counter() - t0) * 1e3)
+                while not self._stop.is_set():
+                    try:
+                        q.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+        except Exception as e:  # raised by next()
+            self.error = e
+
+    def next(self) -> tuple:
+        """(batch on the device, batch_ms, wait_ms): batch_ms timed in the
+        producer (build and copy enqueue), wait_ms the time this call
+        waited for the queue."""
+        q = self.queues[self._rr]
+        t0 = time.perf_counter()
+        while True:
+            if self.error is not None:
+                raise self.error
+            try:
+                st, batch, event, batch_ms = q.get(timeout=0.1)
+                break
+            except queue.Empty:
+                continue
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        if event is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(event)
+            for t in batch.tensors():
+                t.record_stream(current)
+        self._consumed_state[self._rr] = st
+        self._rr = (self._rr + 1) % len(self.queues)
+        return batch, batch_ms, wait_ms
+
+    def states(self) -> tuple:
+        """(per-pipeline resume states, next round-robin index)."""
+        return list(self._consumed_state), self._rr
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop and join the producers, drop the batches made ahead, and
+        put every pipeline back at its consumption point, so that the next
+        batch stream continues where this one was consumed."""
+        self._stop.set()
+        for t in self.threads:
+            t.join(timeout)
+        for q in self.queues:
+            while not q.empty():
+                q.get_nowait()
+        if not any(t.is_alive() for t in self.threads):
+            for p, st in zip(self.pipelines, self._consumed_state):
+                p.set_state(st)
 
 
 def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
@@ -133,34 +343,53 @@ class FitResult:
     params: dict
     opt_state: dict
     iterations: int
+    stopped_early: bool
     last_loss: float
+    best_score: Optional[float]
     # One dict per step: iteration, loss, batch_ms (host clock: sampling,
-    # split, layouts, host to device, after the previous step has ended),
-    # step_ms (CUDA events around the
-    # device step; None on the CPU), and the aggregation kernels' forward
-    # and twin launches in the step (staircase2.launch_counts).
+    # split, layouts and the copy to the device; with prefetch timed in the
+    # producer, the copy only enqueued), wait_ms (host clock: how long the
+    # step waited for its batch; batch_ms without prefetch), step_ms (CUDA
+    # events around the device step; None on the CPU), and the aggregation
+    # kernels' forward and twin launches in the step
+    # (staircase2.launch_counts; a validation encode counts in none).
     steps: list = field(default_factory=list)
 
 
 class TrainLoop:
-    """``fit`` with the reference's loss-reporting cadence
-    (``shared/algorithms.py:82-116``)."""
+    """``fit`` with the reference's loss reporter, early stopper and model
+    saver, on one device."""
 
     def __init__(self, model: RGCNModel, config: RunConfig,
                  dataset: KGDataset, *,
+                 scoring_function: Optional[Callable] = None,
                  sampler: str = "neighborhood",
                  seed: int = 0,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print,
+                 prefetch: bool = True,
+                 prefetch_threads: int = 2,
+                 metrics_path: Optional[str] = None):
         if not getattr(model.decoder, "factorizable", False):
             raise NotImplementedError(
                 f"decoder {model.decoder.name!r} needs the tiled loss, not "
-                f"ported yet (ROADMAP.md Queue 1 item 5)")
+                f"ported yet (ROADMAP.md Queue 1 item 1)")
         self.model = model
         self.config = config
+        self.scoring_function = scoring_function
         self.log = log
+        self.prefetch = prefetch
+        self.seed = seed
+        self.metrics = MetricLogger(metrics_path, echo=False)
         self.host_rng = np.random.default_rng(seed)
         self.pipeline = BatchPipeline(model, config, dataset, self.host_rng,
                                       sampler)
+        # The other producers' pipelines, seeded as the JAX package seeds
+        # them (``engine.py:380-385``).
+        self._extra_pipelines = [
+            BatchPipeline(model, config, dataset,
+                          np.random.default_rng(seed + 1000 + w), sampler)
+            for w in range(max(0, prefetch_threads - 1))] if prefetch else []
+        self._resume_rr = 0
         self.optimizer = build_optimizer(config.optimizer)
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(seed)
@@ -189,20 +418,35 @@ class TrainLoop:
         apply_updates(params, updates)
         return opt_state, loss
 
+    def _source(self):
+        device = self.model.device
+        if not self.prefetch:
+            return _SerialSource(self.pipeline, device)
+        return _Prefetcher([self.pipeline] + self._extra_pipelines, device,
+                           start_offset=self._resume_rr)
+
     def fit(self, params=None, opt_state=None, *,
-            max_iterations: Optional[int] = None) -> FitResult:
+            max_iterations: Optional[int] = None,
+            max_seconds: Optional[float] = None,
+            start_iteration: int = 0,
+            checkpoint_path: Optional[str] = None) -> FitResult:
+        """Train from ``start_iteration`` until the early stopper fires,
+        ``max_iterations`` (the settings' ``MaxIterations`` if not given) or
+        ``max_seconds``; save under ``checkpoint_path`` at every
+        ``SaveEveryN`` (default ``CheckEvery``) unless the stopper fired."""
+        cfg = self.config.optimizer
         if params is None:
             params, opt_state = self.init_state()
         max_iter = max_iterations if max_iterations is not None \
-            else self.config.optimizer.max_iterations
-        if max_iter is None:
-            raise NotImplementedError(
-                "training until early stopping is not ported yet "
-                "(ROADMAP.md Queue 1 item 3); give max_iterations")
-        report_every = self.config.optimizer.report_train_loss_every
+            else cfg.max_iterations
+        check_every = cfg.early_stopping_check_every
+        save_every = cfg.save_every_n or check_every
+        report_every = cfg.report_train_loss_every
         on_card = self.model.device.type == "cuda"
         records, pending = [], []
         cumulative_loss, loss = 0.0, float("nan")
+        previous_score = best_score = None
+        stopped = False
 
         def process_pending():
             nonlocal cumulative_loss, loss
@@ -219,41 +463,149 @@ class TrainLoop:
                 elif report_every and it_ % report_every == 1:
                     avg = cumulative_loss / float(report_every)
                     cumulative_loss = 0.0
-                    s = self.timer.summary()
+                    if it_ - report_every < start_iteration + 1:
+                        # Resumed mid-window: the sum holds only the steps
+                        # since the resume; no mislabelled partial average.
+                        continue
                     self.log(f"Average train loss for iteration "
-                             f"{it_ - report_every}-{it_ - 1}: {avg} "
-                             f"({s['steps_per_sec']} steps/s, "
-                             f"{s['edges_per_sec']} edges/s)")
+                             f"{it_ - report_every}-{it_ - 1}: {avg}")
+                    self.metrics.log("train_loss", iteration=it_ - 1,
+                                     loss=avg, **self.timer.summary())
             pending.clear()
 
-        i = 0
-        while i < max_iter:
-            i += 1
-            with self.timer.step(edges=self.pipeline.split_size):
-                if on_card:
-                    # The batch's copies to the card wait for the queued
-                    # step; waiting here keeps that out of batch_ms.
-                    torch.cuda.synchronize(self.model.device)
-                t0 = time.perf_counter()
-                batch = self.pipeline.next()
-                batch_ms = (time.perf_counter() - t0) * 1e3
-                fwd0, twin0 = staircase2.launch_counts()
-                events = None
-                if on_card:
-                    events = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                    events[0].record()
-                opt_state, loss_dev = self.train_step(params, opt_state,
-                                                      batch)
-                if on_card:
-                    events[1].record()
-            fwd1, twin1 = staircase2.launch_counts()
-            rec = {"iteration": i, "batch_ms": batch_ms, "step_ms": None,
-                   "launches": fwd1 - fwd0, "twin_launches": twin1 - twin0}
-            records.append(rec)
-            pending.append((rec, loss_dev, events))
-            if i == 1 or (report_every and i % report_every == 1):
-                process_pending()
+        source = self._source()
+        started = time.time()
+        i = start_iteration
+        try:
+            while True:
+                if max_iter is not None and i >= max_iter:
+                    break
+                if max_seconds is not None \
+                        and time.time() - started > max_seconds:
+                    break
+                i += 1
+                with self.timer.step(edges=self.pipeline.split_size,
+                                     triples=self.pipeline.n_positives):
+                    batch, batch_ms, wait_ms = source.next()
+                    fwd0, twin0 = staircase2.launch_counts()
+                    events = None
+                    if on_card:
+                        events = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                        events[0].record()
+                    opt_state, loss_dev = self.train_step(params, opt_state,
+                                                          batch)
+                    if on_card:
+                        events[1].record()
+                fwd1, twin1 = staircase2.launch_counts()
+                rec = {"iteration": i, "batch_ms": batch_ms,
+                       "wait_ms": wait_ms, "step_ms": None,
+                       "launches": fwd1 - fwd0,
+                       "twin_launches": twin1 - twin0}
+                records.append(rec)
+                pending.append((rec, loss_dev, events))
+                del batch
+
+                # TrainLossReporter (shared/algorithms.py:82-116)
+                if i == 1 or (report_every and i % report_every == 1):
+                    process_pending()
+
+                # EarlyStopper (shared/algorithms.py:119-161)
+                if self.scoring_function is not None and check_every \
+                        and i % check_every == 0:
+                    process_pending()
+                    score = self.scoring_function(params)
+                    self.log(f"Tested validation score at iteration {i}. "
+                             f"Result: {score}")
+                    self.metrics.log("validation", iteration=i, score=score)
+                    if best_score is None or score > best_score:
+                        best_score = score
+                    if previous_score is not None \
+                            and not score > previous_score:
+                        if i > cfg.early_stopping_burnin:
+                            self.log("Stopping criterion reached.")
+                            stopped = True
+                            break
+                        self.log("Ignoring criterion while in burn-in "
+                                 "phase.")
+                    previous_score = score
+
+                # ModelSaver (shared/algorithms.py:61-79); skipped when the
+                # stopper fired, matching the decorator order.
+                if checkpoint_path and save_every and i % save_every == 0:
+                    process_pending()
+                    self.save(checkpoint_path, params, opt_state, i,
+                              *source.states())
+                    self.log("saving...")
+        finally:
+            self._resume_rr = source.states()[1]
+            source.close()
         process_pending()
         return FitResult(params=params, opt_state=opt_state, iterations=i,
-                         last_loss=loss, steps=records)
+                         stopped_early=stopped, last_loss=loss,
+                         best_score=best_score, steps=records)
+
+    def save(self, checkpoint_path: str, params, opt_state, step: int,
+             pipeline_states: list, rr: int) -> str:
+        """A checkpoint the JAX package's ``restore`` reads: params in its
+        tree, the optimizer state in the port's (optax's fields), the host
+        RNG and each pipeline's state at its consumption point with the
+        round-robin index, and the torch generator's state as uint8 in
+        ``extra``. ``rng_key`` holds ``jax.random.PRNGKey(seed)``'s layout."""
+        return ckpt_lib.save(
+            checkpoint_path, params=params_to_numpy(params),
+            opt_state=params_to_numpy(opt_state), step=step,
+            rng_key=np.array([0, self.seed & 0xFFFFFFFF], dtype=np.uint32),
+            host_rng_state=self.host_rng.bit_generator.state,
+            extra={"pipeline_states": pipeline_states, "rr": rr,
+                   "torch_generator":
+                       self.generator.get_state().numpy().copy()})
+
+    def restore(self, checkpoint_path: str) -> tuple:
+        """(params, opt_state, step) of the newest checkpoint under
+        ``checkpoint_path``, the port's or the JAX package's, with the
+        host RNG, every pipeline's state and the round-robin index
+        restored, so the batch stream continues exactly.
+
+        A port checkpoint restores the torch generator's state. A JAX
+        checkpoint has a JAX key instead, which cannot seed torch: the
+        device generator is then seeded from (seed, step), so the device
+        draws of the resumed run are the port's own, not JAX's. Its optax
+        state is read by ``opt_state_from_jax``."""
+        state = ckpt_lib.restore_latest(checkpoint_path)
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint at {checkpoint_path}")
+        device = self.model.device
+        step = int(state["step"])
+        params = params_from_jax(state["params"], device)
+        opt_state = state["opt_state"]
+        if isinstance(opt_state, tuple):  # optax's chain state
+            opt_state = opt_state_from_jax(
+                opt_state, self.config.optimizer.algorithm, device)
+        else:
+            opt_state = map_tree(
+                lambda a: torch.from_numpy(np.array(a)).to(device), opt_state)
+        extra = state.get("extra") or {}
+        if extra.get("torch_generator") is not None:
+            self.generator.set_state(
+                torch.from_numpy(np.array(extra["torch_generator"])))
+        else:
+            self.generator.manual_seed(int(np.random.SeedSequence(
+                [self.seed, step]).generate_state(1, np.uint64)[0]))
+        if state.get("host_rng_state"):
+            self.host_rng.bit_generator.state = state["host_rng_state"]
+        pipe_states = extra.get("pipeline_states")
+        if pipe_states:
+            for p, st in zip([self.pipeline] + self._extra_pipelines,
+                             pipe_states):
+                p.set_state(st)
+            self._resume_rr = extra.get("rr", 0)
+        return params, opt_state, step
+
+    def resume(self, checkpoint_path: str, **fit_kwargs) -> FitResult:
+        """Restore the newest checkpoint and continue fitting
+        (``engine.py:792-814``); the resumed batch stream and, on the same
+        device, the run are those of an uninterrupted run."""
+        params, opt_state, step = self.restore(checkpoint_path)
+        return self.fit(params, opt_state, start_iteration=step,
+                        checkpoint_path=checkpoint_path, **fit_kwargs)

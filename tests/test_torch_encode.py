@@ -157,12 +157,12 @@ def test_unported_configurations_raise():
     base = small(torch_config.load(SETTINGS), ds)
     for enc in (dict(use_input_transform=False, random_input=True),
                 dict(message_precision="bfloat16"),
-                dict(name="embedding")):
+                dict(name="variational_embedding")):
         cfg = dataclasses.replace(
             base, encoder=dataclasses.replace(base.encoder, **enc))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(cfg, CPU)
-    cfg = dataclasses.replace(
-        base, decoder=dataclasses.replace(base.decoder, name="complex"))
+    cfg = dataclasses.replace(base, decoder=dataclasses.replace(
+        base.decoder, name="nonlinear-transform"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg, CPU)

@@ -40,3 +40,65 @@ def test_train_cli_needs_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_train.main(ARGS + ["--max-iterations", "1"])
+
+
+def small_copy(tmp_path, name):
+    """settings/<name>.exp with CheckEvery=5, BurninPhaseDuration=10 and
+    ReportTrainLossEvery=5, saving under tmp_path; the published widths
+    (d=500) stay: data/Toy has 16 entities."""
+    src = (ROOT / "settings" / f"{name}.exp").read_text()
+    for a, b in (("CheckEvery=2000", "CheckEvery=5"),
+                 ("BurninPhaseDuration=6000", "BurninPhaseDuration=10"),
+                 ("ReportTrainLossEvery=100", "ReportTrainLossEvery=5")):
+        assert a in src
+        src = src.replace(a, b)
+    src = re.sub(r"ExperimentName=\S+", f"ExperimentName={tmp_path / 'm'}",
+                 src)
+    path = tmp_path / f"{name}.exp"
+    path.write_text(src)
+    return str(path)
+
+
+@pytest.mark.parametrize("name", ["gcn_block", "gcn_basis", "distmult",
+                                  "complex"])
+def test_train_cli_stops_early_saves_resumes_and_evaluates(tmp_path, capsys,
+                                                           name):
+    """Without --max-iterations the CLI trains until the early stopper
+    fires; the newest checkpoint is read by the JAX package's restore and
+    by the port's evaluate CLI, and --resume continues from it (capped
+    100 steps past the first stop)."""
+    from relationprediction_tpu.training import checkpoint as jax_ckpt
+    from relationprediction_torch import evaluate as torch_evaluate
+    args = ["--settings", small_copy(tmp_path, name),
+            "--dataset", str(ROOT / "data" / "Toy"), "--cpu"]
+    torch_train.main(args)
+    out = capsys.readouterr().out
+    done = re.search(r"Training done: (\d+) iterations .*\(early stop: "
+                     r"True\)", out)
+    assert done, out
+    stop = int(done.group(1))
+    assert stop % 5 == 0 and stop > 10
+    assert f"Tested validation score at iteration {stop}." in out
+    assert "Stopping criterion reached." in out
+    saved = jax_ckpt.restore_latest(str(tmp_path / "m"))
+    assert saved["step"] == stop - 5
+    assert out.count("saving...") == stop // 5 - 1
+
+    torch_evaluate.main(args + ["--split", "valid"])
+    out = capsys.readouterr().out
+    assert f"(step {stop - 5})" in out and "MRR" in out
+
+    torch_train.main(args + ["--resume", "--max-iterations",
+                             str(stop + 100)])
+    out = capsys.readouterr().out
+    resumed = re.search(r"Training done: (\d+) iterations", out)
+    assert resumed, out
+    assert int(resumed.group(1)) > stop - 5
+    assert "Initial loss" not in out  # the run continues at step stop - 4
+    assert f"Tested validation score at iteration {stop}." in out
+
+
+def test_train_cli_refuses_unported_negative_modes(capsys):
+    with pytest.raises(SystemExit):
+        torch_train.main(ARGS + ["--cpu", "--negative-mode", "split"])
+    assert "ROADMAP.md Queue 1 item 1" in capsys.readouterr().err
