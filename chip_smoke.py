@@ -124,8 +124,31 @@ Then distmult.exp and complex.exp (the embedding table, no graph, all
   train_distmult, train_complex  as train for 6 steps, the one-step
           comparison on the CPU plain path on the first 30,000 positives.
 
-Then a line listing every ported kernel with its numbers, nvidia-smi's line,
-and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
+Then the negative protocols and the MLP decoder on gcn_block.exp, each a
+train phase as train (one step on the card against the CPU plain path,
+then TrainLoop.fit with 4 forward and 4 twin block_direction launches and
+8 fix-ups a step):
+
+  train_tiled       the tiled loss on device_negative_sample's batch
+          (in place of the factored loss), 20 steps; first the tiled loss held to
+          the factored loss on the same generator state on the card (loss
+          within 1e-5 relative, each leaf within 1e-4 relative L2), and
+          the e1, r and e2 gathers of the tiled batch timed with their
+          backward and beside index_add_;
+  train_split, train_shared  --negative-mode split and shared (a pool of
+          512), 20 steps each;
+  train_host_tiled  device_negatives=False, 6 steps: the host-tiled batches
+          the fit consumed equal a CPU model's pipeline's, batch for batch;
+  serve_mlp  gcn_block.exp with [Decoder] Name=nonlinear-transform (D=500)
+          as serve, with the MLP's all-entity scoring of one chunk timed
+          at blocks of 1 and 8 rows and the default budget's, beside its
+          bound;
+  train_mlp  the same model through the tiled loss, 20 steps, its
+          gathers timed as train_tiled's.
+
+Then a line listing every ported kernel with its numbers (block_direction's
+launches on each of these paths beside them), nvidia-smi's line, and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero;
 without a CUDA card the script exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -155,10 +178,11 @@ from relationprediction_torch.device import exact_float32
 from relationprediction_torch.evaluation import ranking
 from relationprediction_torch.evaluation.scorer import Scorer
 from relationprediction_torch.graph import CsrLayout, build_graph_batch
-from relationprediction_torch.models import build
+from relationprediction_torch.models import build, decoders
 from relationprediction_torch.ops import staircase, staircase2
 from relationprediction_torch.params import map_tree, tree_leaves
-from relationprediction_torch.training import checkpoint, engine
+from relationprediction_torch.training import (checkpoint, device_sampling,
+                                               engine)
 
 ROOT = Path(__file__).resolve().parent
 SETTINGS = ROOT / "settings" / "gcn_block.exp"
@@ -330,7 +354,9 @@ def model_label(cfg) -> str:
     if e.name == "gcn_diag":
         return "gcn_diag"
     stage = "input transform" if e.use_input_transform else "one-hot input"
-    return f"gcn_basis/{e.gcn_variant}, {stage}"
+    decoder = "" if cfg.decoder.name == "bilinear-diag" \
+        else f", {cfg.decoder.name}"
+    return f"gcn_basis/{e.gcn_variant}, {stage}{decoder}"
 
 
 def sum_allowance(exact, abs_sum, n_terms):
@@ -726,6 +752,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
                  torch.arange(scores.shape[1], device=device)
                  < ds.n_entities)
     rank_ms = cuda_ms(lambda: ranking.ranks_from_scores(*rank_args), 10)
+    mlp = mlp_scoring(view, params, graph, chunk) \
+        if isinstance(model.decoder, decoders.NonlinearTransform) else None
 
     res = summary.results
     row = {"triples": len(triples), "chunks": n_chunks,
@@ -744,9 +772,42 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
            "launches": launches, "project_launches": project_launches,
            "split_launches": split_launches,
            "fixup_launches": fixup_launches}
+    if mlp is not None:
+        row["mlp_scoring"] = mlp
     emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
     return row
+
+
+def mlp_scoring(view, params, graph, chunk) -> dict:
+    """The MLP decoder's all-entity scoring of one object-side chunk
+    (CUDA events), with its [rows, V, D] hidden activations in blocks of
+    1 and 8 rows and of the default budget's rows, beside its bound: read
+    the codes, weights and the chunk's ids, write the [N, V] energies,
+    against the operations (the candidate GEMM [V, k] x [k, D], the two
+    [N, k] x [k, D] GEMMs of the fixed part, and per hidden entry an add,
+    a max and a multiply-add) at the f32 rate; and the bytes the plain
+    form's temporaries move (written by the add, read and written by the
+    ReLU, read by the product)."""
+    dec = view.model.decoder
+    n, v, d, k = len(chunk), view.model.n_entities, dec.dimension, \
+        dec.embedding_width
+    per_row = 4 * v * d
+    default = dec.score_budget_bytes
+    by_rows = {}
+    try:
+        for rows in (1, 8, max(1, default // per_row)):
+            dec.score_budget_bytes = rows * per_row
+            by_rows[str(rows)] = cuda_ms(lambda: view.score_all_objects(
+                params, graph, chunk, apply_sigmoid=False), 3, warmup=1)
+    finally:
+        dec.score_budget_bytes = default
+    n_bytes = 4 * (v * k + 3 * k * d + 2 * d + 1 + 2 * n + n * v)
+    ops = 2 * v * k * d + 4 * n * k * d + 4 * n * v * d
+    return {"chunk": n, "hidden_entries": n * v * d,
+            "default_rows": max(1, default // per_row),
+            "ms_by_rows": by_rows, **least_time(n_bytes, ops),
+            "temporaries_bytes": 4 * 4 * n * v * d}
 
 
 def first_batch_graph(cfg, ds, device):
@@ -1512,44 +1573,17 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
     return rows
 
 
-def phase_train(cfg, ds, device, op=staircase2.block_direction,
-                phase="train", steps=TRAIN_STEPS, compare_positives=None):
-    """One step on the card against the CPU plain path, then the training
-    path through TrainLoop.fit (serial batches, prefetch=False) with
-    the kernels' launch counts: ``op`` (block_direction, basis_direction
-    or staircase_aggregate) must have launched once a direction and layer
-    in each step, and its twin pass as often (staircase_aggregate has none:
-    its gradient is a torch gather), and nothing else launched; with
-    ``op`` None (no graph) nothing at all. ``compare_positives``: the
-    one-step comparison takes the batch's first that many positives."""
-    t_phase = time.perf_counter()
-    model = build.build_model(cfg, device)
-    logged = []
-    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append,
-                            prefetch=False)
-    params, opt_state = loop.init_state(0)
-
-    # -- one step, card against the CPU plain path -----------------------
-    batch = engine.BatchPipeline(model, cfg, ds,
-                                 np.random.default_rng(0)).next().to(device)
-    if compare_positives is not None:
-        batch = batch._replace(triples=batch.triples[:compare_positives],
-                               mask=batch.mask[:compare_positives])
-    draws = loop.draw(batch)
-    loss, grads = engine.loss_and_grads(model, params, batch, *draws)
-    cpu = torch.device("cpu")
-    cpu_batch = batch.to(cpu)
-    cpu_loss, cpu_grads = engine.loss_and_grads(
-        build.build_model(cfg, cpu), map_tree(lambda t: t.cpu(), params),
-        cpu_batch, draws[0].cpu(), draws[1].cpu(),
-        [m.cpu() for m in draws[2]])
-    loss_rel = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+def same_step(loss, grads, ref_loss, ref_grads, what) -> dict:
+    """Hold one step's loss within 1e-5 relative and each gradient leaf
+    within 1e-4 in relative L2 norm of a reference step's (``what`` names
+    the reference)."""
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
     if not loss_rel <= 1e-5:
-        raise AssertionError(f"step loss differs from the CPU plain path "
-                             f"by {loss_rel} (relative)")
+        raise AssertionError(f"step loss differs from {what} by {loss_rel} "
+                             f"(relative)")
     grad_rows = []
-    for g, c in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
-        g = g.cpu()
+    for g, c in zip(tree_leaves(grads), tree_leaves(ref_grads)):
+        g, c = g.cpu(), c.cpu()
         norm = c.norm().item()
         rel = (g - c).norm().item() / norm if norm else (g - c).norm().item()
         grad_rows.append({"shape": list(c.shape),
@@ -1561,13 +1595,142 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
         # the whole leaf. So the leaf is held in the L2 norm.
         if not rel <= 1e-4:
             raise AssertionError(f"gradient leaf {list(c.shape)} differs "
-                                 f"from the CPU plain path: relative L2 "
-                                 f"{rel}")
+                                 f"from {what}: relative L2 {rel}")
+    return {"loss": loss.item(), "ref_loss": ref_loss.item(),
+            "loss_rel_diff": loss_rel,
+            "worst_leaf_rel_l2_diff": max(r["rel_l2_diff"]
+                                          for r in grad_rows),
+            "grads": grad_rows}
+
+
+def tiled_vs_factored(loop, params, batch) -> dict:
+    """The tiled loss on device_negative_sample's batch against the
+    factored binomial loss on device_negative_parts' corruptions of the
+    same generator state (the keep-masks follow from the same state), on
+    the card: loss within 1e-5 relative, leaves within 1e-4."""
+    model, cfg, gen = loop.model, loop.config, loop.generator
+    state = gen.get_state()
+    tiled = loop.draw(batch)
+    gen.set_state(state)
+    factored = engine.Draws(
+        device_sampling.device_negative_parts(
+            batch.triples, cfg.training.negative_sample_rate,
+            cfg.entity_count, gen),
+        model.draw_keep_masks(gen))
+    loss, grads = engine.step_loss_and_grads(model, "tiled", params, batch,
+                                             tiled)
+    ref_loss, ref_grads = engine.step_loss_and_grads(
+        model, "factored", params, batch, factored)
+    return {"tiled_rows": int(tiled.negatives[0].shape[0]),
+            **same_step(loss, grads, ref_loss, ref_grads,
+                        "the factored loss on the same draws")}
+
+
+def gather_backward(model, params, batch, draws) -> dict:
+    """The tiled loss's three code gathers (e1, r and e2 of the tiled
+    triples) on the card: for each, the time of the gather alone and of
+    the gather with autograd's backward (its sort-based index_put_),
+    beside one index_add_ of the same rows (CUDA events), with the rows
+    gathered and the distinct ids among them."""
+    with torch.no_grad():
+        enc = model.encode(params, batch.graph, deterministic=True)
+    triples = draws.negatives[0].long()
+    gen = torch.Generator(device=triples.device).manual_seed(0)
+    out = {}
+    for name, table, col in (("e1", enc.entity_codes, 0),
+                             ("r", enc.relation_codes, 1),
+                             ("e2", enc.entity_codes, 2)):
+        idx = triples[:, col]
+        g = torch.randn(len(idx), table.shape[1], generator=gen,
+                        device=table.device)
+        leaf = table.detach().requires_grad_(True)
+        out[name] = {
+            "rows": len(idx), "distinct_ids": int(idx.unique().numel()),
+            "table_rows": table.shape[0],
+            "gather_ms": cuda_ms(lambda: table[idx], 5),
+            "gather_and_backward_ms": cuda_ms(
+                lambda: torch.autograd.grad(leaf[idx], leaf, g), 5),
+            "index_add_ms": cuda_ms(
+                lambda: torch.zeros_like(table).index_add_(0, idx, g), 5)}
+    return out
+
+
+def same_batches(got, want) -> None:
+    """Two lists of host batches equal tensor for tensor."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} batches against {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        ta, tb = a.tensors(), b.tensors()
+        if len(ta) != len(tb) or not all(torch.equal(x, y)
+                                         for x, y in zip(ta, tb)) \
+                or not np.array_equal(a.edge_ids, b.edge_ids):
+            raise AssertionError(f"host batch {k} differs from the CPU "
+                                 f"pipeline's")
+
+
+def phase_train(cfg, ds, device, op=staircase2.block_direction,
+                phase="train", steps=TRAIN_STEPS, compare_positives=None,
+                tiled=False, **loop_kwargs):
+    """One step on the card against the CPU plain path, then the training
+    path through TrainLoop.fit (serial batches, prefetch=False) with
+    the kernels' launch counts: ``op`` (block_direction, basis_direction
+    or staircase_aggregate) must have launched once a direction and layer
+    in each step, and its twin pass as often (staircase_aggregate has none:
+    its gradient is a torch gather), and nothing else launched; with
+    ``op`` None (no graph) nothing at all. ``compare_positives``: the
+    one-step comparison takes the batch's first that many positives.
+    ``loop_kwargs`` go to TrainLoop (the negative protocol, host-tiled
+    batches): the step and its comparison take the loop's loss.
+    ``tiled``: the tiled loss on device draws in place of the factored
+    binomial loss of a factorizable decoder (the JAX package's tests reach
+    it by clearing ``_use_factored_binomial``), also held to the factored
+    loss on the same draws. Host-tiled batches consumed by the fit are
+    held to a CPU model's pipeline's, batch for batch."""
+    t_phase = time.perf_counter()
+    model = build.build_model(cfg, device)
+    logged = []
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append,
+                            prefetch=False, **loop_kwargs)
+    params, opt_state = loop.init_state(0)
+    if tiled:
+        loop.loss_kind = "tiled"
+    kind, host_tiled = loop.loss_kind, not loop.pipeline.device_negatives
+
+    # -- one step, card against the CPU plain path -----------------------
+    batch = engine.BatchPipeline(
+        model, cfg, ds, np.random.default_rng(0),
+        device_negatives=not host_tiled).next().to(device)
+    if compare_positives is not None:
+        batch = batch._replace(triples=batch.triples[:compare_positives],
+                               mask=batch.mask[:compare_positives])
+    if kind == "tiled" and not host_tiled and model.decoder.factorizable:
+        emit(f"{phase}_tiled_vs_factored",
+             **tiled_vs_factored(loop, params, batch),
+             phase_s=time.perf_counter() - t_phase)
+    draws = loop.draw(batch)
+    if kind == "tiled" and not host_tiled:
+        emit(f"{phase}_gather_backward",
+             **gather_backward(model, params, batch, draws),
+             phase_s=time.perf_counter() - t_phase)
+    loss, grads = engine.step_loss_and_grads(model, kind, params, batch,
+                                             draws)
+    cpu = torch.device("cpu")
+    cpu_loss, cpu_grads = engine.step_loss_and_grads(
+        build.build_model(cfg, cpu), kind,
+        map_tree(lambda t: t.cpu(), params), batch.to(cpu), draws.to(cpu))
     emit(f"{phase}_step_vs_cpu", phase_s=time.perf_counter() - t_phase,
-         positives=int(batch.mask.sum().item()),
-         loss=loss.item(), cpu_loss=cpu_loss.item(), loss_rel_diff=loss_rel,
-         grads=grad_rows)
-    del batch, draws, grads, cpu_batch, cpu_grads
+         loss_kind=kind, positives=loop.pipeline.n_positives
+         if host_tiled else int(batch.mask.sum().item()),
+         **same_step(loss, grads, cpu_loss, cpu_grads,
+                     "the CPU plain path"))
+    del batch, draws, grads, cpu_grads
+
+    consumed, make_batch = [], loop.pipeline.next
+    if host_tiled:
+        def keep_batch():
+            consumed.append(make_batch())
+            return consumed[-1]
+        loop.pipeline.next = keep_batch
 
     # -- the main path: TrainLoop.fit ------------------------------------
     torch.cuda.synchronize()
@@ -1577,6 +1740,18 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     result = loop.fit(params, opt_state, max_iterations=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    loop.pipeline.next = make_batch
+    if host_tiled:
+        cpu_pipe = engine.BatchPipeline(build.build_model(cfg, cpu), cfg, ds,
+                                        np.random.default_rng(0),
+                                        device_negatives=False)
+        same_batches(consumed, [cpu_pipe.next() for _ in consumed])
+        emit(f"{phase}_host_batches", batches=len(consumed),
+             rows=int(consumed[0].triples.shape[0]),
+             real_rows=int(consumed[0].mask.sum().item()),
+             equal_to_cpu_pipeline=True,
+             phase_s=time.perf_counter() - t_phase)
+        del consumed
     launches = op.launches if op else 0
     twin_launches = getattr(op, "twin_launches", 0)
     project_launches = staircase2.basis_direction.project_launches
@@ -1614,7 +1789,9 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
             or not losses[steps] < losses[1]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     timing = loop.timer.summary()
-    row = {"steps": result.iterations,
+    row = {"steps": result.iterations, "loss_kind": kind,
+           "negative_mode": loop_kwargs.get("negative_mode", "binomial"),
+           "device_negatives": not host_tiled,
            "positives": loop.pipeline.n_positives,
            "message_edges": loop.pipeline.split_size,
            "batch_ms_median": statistics.median(s["batch_ms"]
@@ -1717,6 +1894,8 @@ FAST_SWITCH = 1e-4
 HASH_STEPS = 8
 RESUME_STEPS = 20
 EMBEDDING_STEPS = 6
+HOST_TILED_STEPS = 6
+POOL_SIZE = 512
 # The one-step comparison of the embedding models on the CPU plain path
 # takes the first 30,000 of the 272,115 positives of a step.
 EMBEDDING_COMPARE_POSITIVES = 30000
@@ -2136,14 +2315,16 @@ def merge_path_numbers(full, batch, prefix="") -> dict:
                                            for k in batch[0][sweep]}}
 
 
-def kernels_line(rows, serve, grads, train, fit) -> list:
+def kernels_line(rows, serve, grads, train, fit, paths) -> list:
     """The block kernel's two entries with this run's numbers.
     block_direction is timed on the full train graph (the serving path's
     shape) and on the first training batch's graph; block_direction_twin
     on the training batch (its path) and on the full train graph. Times and
     bounds are means over the two directions; launches are the training
-    run's, and beside them the serving run's and the fit run's (train.py's
-    main path: steps and validation encodes)."""
+    run's, and beside them the serving run's, the fit run's (train.py's
+    main path: steps and validation encodes) and those of the paths of
+    the negative protocols and the MLP decoder (``paths``: phase rows by
+    phase)."""
     full = [r for r in rows if r.get("graph") == "full_train"]
     batch = [r for r in rows if r.get("graph") == "train_batch"]
     layouts = [r for r in rows if "layout" in r]
@@ -2154,6 +2335,7 @@ def kernels_line(rows, serve, grads, train, fit) -> list:
         "replaces": REPLACES, "launches": train["launches"],
         "launches_serve": serve["launches"],
         "launches_fit": fit["launches"],
+        "launches_by_path": {k: r["launches"] for k, r in paths.items()},
         "fixup_launches": train["fixup_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(r["over_allowance"] for r in rows),
@@ -2180,6 +2362,8 @@ def kernels_line(rows, serve, grads, train, fit) -> list:
         "source": KERNEL_SOURCE, "replaces": REPLACES_TWIN,
         "launches": train["twin_launches"],
         "launches_fit": fit["twin_launches"],
+        "launches_by_path": {k: r.get("twin_launches", 0)
+                             for k, r in paths.items()},
         "max_abs_err": max(r["twin_max_abs_err"] for r in grads),
         "max_over_allowance": max(r["twin_over_allowance"] for r in grads),
         "ms": mean_of(g_batch, "twin_kernel_ms"),
@@ -2313,6 +2497,20 @@ def staircase_kernels_line(ks, runs) -> list:
         "train_batch_scatter2_ms": mean_of(batch, "scatter2_ms")}]
 
 
+def mlp_config(ds):
+    """settings/gcn_block.exp with [Decoder] Name=nonlinear-transform (the
+    MLP decoder at its default widths, D=500 over 500-wide codes), loaded
+    from a copy under build/chip_smoke/mlp."""
+    text = SETTINGS.read_text()
+    if "Name=bilinear-diag" not in text:
+        raise AssertionError("gcn_block.exp names no bilinear-diag decoder")
+    path = fresh_dir("mlp") / "gcn_block_mlp.exp"
+    path.write_text(text.replace("Name=bilinear-diag",
+                                 "Name=nonlinear-transform"))
+    return config.load(str(path)).with_counts(
+        ds.n_entities, ds.n_relations, len(ds.train))
+
+
 def build_all() -> None:
     """Build every kernel source at once, one nvcc each."""
     t_phase = time.perf_counter()
@@ -2410,7 +2608,29 @@ def main() -> int:
                     steps=EMBEDDING_STEPS,
                     compare_positives=EMBEDDING_COMPARE_POSITIVES)
 
-    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit)
+    # The negative protocols on gcn_block.exp (the tiled loss on device
+    # draws, held to the factored loss on the same draws; split; shared,
+    # a 512-entity pool; host-tiled batches), then the MLP decoder
+    # (gcn_block.exp with [Decoder] Name=nonlinear-transform), served and
+    # trained through the tiled loss.
+    paths = {
+        "train_tiled": phase_train(cfg, ds, device, phase="train_tiled",
+                                   tiled=True),
+        "train_split": phase_train(cfg, ds, device, phase="train_split",
+                                   negative_mode="split"),
+        "train_shared": phase_train(cfg, ds, device, phase="train_shared",
+                                    negative_mode="shared",
+                                    negative_pool_size=POOL_SIZE),
+        "train_host_tiled": phase_train(cfg, ds, device,
+                                        phase="train_host_tiled",
+                                        steps=HOST_TILED_STEPS,
+                                        device_negatives=False)}
+    mlp_cfg = mlp_config(ds)
+    paths["serve_mlp"] = phase_serve(ds, device, mlp_cfg, phase="serve_mlp")
+    paths["train_mlp"] = phase_train(mlp_cfg, ds, device, phase="train_mlp")
+
+    print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
+                                              paths)
                       + basis_kernels_line(kb, serve_b, train_b)
                       + staircase_kernels_line(ks, runs)}),
           flush=True)

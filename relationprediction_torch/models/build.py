@@ -5,9 +5,11 @@ shipped settings and two variants: the block-diagonal or
 basis-decomposition R-GCN with an input transform (``gcn_block.exp``,
 ``gcn_basis.exp``), the basis R-GCN on one-hot input
 (``UseInputTransform=No``), ``gcn_diag``, and the embedding table with no
-graph (``distmult.exp``, ``complex.exp``), each with the DistMult or
-ComplEx decoder, encoded in test mode and scored against all entities, or
-encoded in train mode and scored by the factored binomial loss.
+graph (``distmult.exp``, ``complex.exp``), each with the DistMult, ComplEx
+or MLP decoder, encoded in test mode and scored against all entities, or
+encoded in train mode and scored by one of the training objectives: the
+tiled loss (``loss``), the factored binomial loss, the split protocol's
+``loss_structured`` or the shared pool's ``loss_shared_negatives``.
 Parameters are a plain dictionary of tensors with the JAX package's tree
 layout (params.py converts between the two).
 """
@@ -19,8 +21,10 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
+from ..device import exact_float32
 from ..graph import GraphBatch, build_graph_batch
-from ..ops.neg_energy import factored_negative_energies
+from ..ops.neg_energy import (factored_negative_energies,
+                              single_factor_negative_energies)
 from ..params import map_tree
 from . import decoders as decoders_lib
 from . import encoders as enc
@@ -119,7 +123,9 @@ class RGCNModel:
         self.decoder = decoders_lib.build_decoder(
             config.decoder.name,
             code_dimension=config.decoder.code_dimension,
-            regularization_parameter=config.decoder.regularization_parameter)
+            regularization_parameter=config.decoder.regularization_parameter,
+            decoder_dimension=config.decoder.decoder_dimension,
+            embedding_width=config.decoder.embedding_width)
 
     # ------------------------------------------------------------------
     # Parameters and graph
@@ -224,6 +230,130 @@ class RGCNModel:
                 encoded.relation_codes[t[:, 1]],
                 encoded.entity_codes[t[:, 2]])
 
+    def loss(self, params: Dict, graph: Optional[GraphBatch],
+             triples: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None, *,
+             deterministic: bool = False,
+             keep_masks: Optional[Sequence] = None) -> torch.Tensor:
+        """The tiled objective (``build.py:442-466``): mean sigmoid CE over
+        the triples plus the decoder's regularization, for any decoder.
+
+        triples [N, 3] (positives and their corruptions, host-tiled or from
+        ``device_negative_sample``); labels / mask [N] float32."""
+        encoded = self.encode(params, graph, deterministic=deterministic,
+                              keep_masks=keep_masks)
+        e1, r, e2 = self.gather_codes(encoded, triples)
+        dp = params["decoder"]
+        energies = self.decoder.energies(dp, e1, r, e2)
+        return (decoders_lib.weighted_ce_loss(energies, labels, mask)
+                + self.decoder.regularization(dp, e1, r, e2, mask))
+
+    def _factorizable_codes(self, params, graph, positives, what,
+                            deterministic, keep_masks):
+        """(codes [V, d], e1, r, e2, positive energies, q_subj, q_obj) of a
+        loss that scores corruptions against one factor a positive."""
+        if not getattr(self.decoder, "factorizable", False):
+            raise ValueError(f"decoder {self.decoder.name} does not support "
+                             f"the {what} loss")
+        encoded = self.encode(params, graph, deterministic=deterministic,
+                              keep_masks=keep_masks)
+        e1, r, e2 = self.gather_codes(encoded, positives)
+        dp = params["decoder"]
+        return (encoded.entity_codes, e1, r, e2,
+                self.decoder.energies(dp, e1, r, e2),
+                self.decoder.subject_factor(dp, r, e2),
+                self.decoder.object_factor(dp, e1, r))
+
+    def _grouped_objective(self, pos_energy, groups, e1, r, e2, pos_mask,
+                           e1_extra, e2_extra, rows_e1, rows_e2):
+        """CE + regularization of a positive and its corruption groups.
+
+        groups: [n, k_g] energies of each group (all labelled 0); the CE
+        mask repeats each positive's mask over its own k_g entries. The
+        regularization means run over the equivalent tiled rows: e1 and e2
+        appear ``rows_e1`` / ``rows_e2`` times a positive, r in every row,
+        plus the corrupted codes' squares ``e1_extra`` / ``e2_extra``.
+
+        The JAX package tiles the mask over [n, k] energies flattened
+        positive-major (``build.py:584-585``, ``:659``), which pairs them
+        with the wrong positives where the batch has padding; it is right
+        only where every mask entry is 1. Here each group's mask follows
+        its own positive."""
+        m = pos_mask
+        energies = torch.cat([pos_energy]
+                             + [g.reshape(-1) for g in groups])
+        labels = torch.cat([m, m.new_zeros(sum(g.numel() for g in groups))])
+        mask = torch.cat([m] + [m.repeat_interleave(g.shape[1])
+                                for g in groups])
+        loss = decoders_lib.weighted_ce_loss(energies, labels, mask)
+        rows = 1 + sum(g.shape[1] for g in groups)
+
+        def msum(x):
+            return ((x ** 2).sum(-1) * m).sum()
+        count = m.sum().clamp(min=1.0) * rows * e1.shape[-1]
+        reg = (msum(e1) * rows_e1 + e1_extra + msum(e2) * rows_e2 + e2_extra
+               + msum(r) * rows) / count
+        return loss + self.decoder.regularization_parameter * reg
+
+    def loss_structured(self, params: Dict, graph: Optional[GraphBatch],
+                        positives: torch.Tensor, pos_mask: torch.Tensor,
+                        neg_subjects: torch.Tensor,
+                        neg_objects: torch.Tensor, *,
+                        deterministic: bool = False,
+                        keep_masks: Optional[Sequence] = None
+                        ) -> torch.Tensor:
+        """The split protocol's loss (``build.py:530-613``): the tiled
+        objective over [positives; subject corruptions; object
+        corruptions], each corruption scored against one factor of its
+        positive (``single_factor_negative_energies``).
+
+        positives [n, 3]; pos_mask [n]; neg_subjects [n, k_s] and
+        neg_objects [n, k_o] corrupted entity ids
+        (``device_negative_entities_split``). Raises ValueError for a
+        decoder that is not factorizable."""
+        codes, e1, r, e2, pos_energy, q_subj, q_obj = \
+            self._factorizable_codes(params, graph, positives, "split",
+                                     deterministic, keep_masks)
+        subj_energy, e1n_sq = single_factor_negative_energies(
+            codes, q_subj, neg_subjects)
+        obj_energy, e2n_sq = single_factor_negative_energies(
+            codes, q_obj, neg_objects)
+        m = pos_mask[:, None]
+        # e1 survives in the positive and the object corruptions, e2 in
+        # the positive and the subject corruptions; corrupted codes once.
+        return self._grouped_objective(
+            pos_energy, (subj_energy, obj_energy), e1, r, e2, pos_mask,
+            (e1n_sq * m).sum(), (e2n_sq * m).sum(),
+            1 + obj_energy.shape[1], 1 + subj_energy.shape[1])
+
+    def loss_shared_negatives(self, params: Dict,
+                              graph: Optional[GraphBatch],
+                              positives: torch.Tensor,
+                              pos_mask: torch.Tensor,
+                              neg_pool: torch.Tensor, *,
+                              deterministic: bool = False,
+                              keep_masks: Optional[Sequence] = None
+                              ) -> torch.Tensor:
+        """The shared pool's loss (``build.py:615-689``): every positive
+        scores against one pool of P entities as corrupted subjects and as
+        corrupted objects, two [n, d] x [d, P] GEMMs; each positive gives
+        one positive row and 2P negative rows to the CE mean (a different
+        negative distribution from the reference's, not a parity mode).
+
+        neg_pool [P] entity ids (``device_negative_pool``). Raises
+        ValueError for a decoder that is not factorizable."""
+        codes, e1, r, e2, pos_energy, q_subj, q_obj = \
+            self._factorizable_codes(params, graph, positives, "shared",
+                                     deterministic, keep_masks)
+        exact_float32()
+        pool = codes[neg_pool.long()]                           # [P, d]
+        p = pool.shape[0]
+        # Pool codes count once per real positive and side.
+        pool_sq = (pool ** 2).sum() * pos_mask.sum().clamp(min=1.0)
+        return self._grouped_objective(
+            pos_energy, (q_subj @ pool.T, q_obj @ pool.T), e1, r, e2,
+            pos_mask, pool_sq, pool_sq, 1 + p, 1 + p)
+
     def loss_binomial_factored(self, params: Dict, graph: GraphBatch,
                                positives: torch.Tensor,
                                pos_mask: torch.Tensor,
@@ -241,17 +371,15 @@ class RGCNModel:
         positives [n, 3]; pos_mask [n] float32; neg_values [n, rate]
         corrupted entity ids; corrupt_object [n, rate] bool (True: the
         object slot is replaced). In train mode ``keep_masks`` holds one
-        dropout keep-mask per layer (``draw_keep_masks``).
+        dropout keep-mask per layer (``draw_keep_masks``). Raises
+        ValueError for a decoder that is not factorizable.
         """
-        encoded = self.encode(params, graph, deterministic=deterministic,
-                              keep_masks=keep_masks)
-        e1, r, e2 = self.gather_codes(encoded, positives)
-        dp = params["decoder"]
-        pos_energy = self.decoder.energies(dp, e1, r, e2)
+        codes, e1, r, e2, pos_energy, q_subj, q_obj = \
+            self._factorizable_codes(params, graph, positives,
+                                     "factored binomial", deterministic,
+                                     keep_masks)
         neg_energy, ev_sq = factored_negative_energies(
-            encoded.entity_codes, self.decoder.subject_factor(dp, r, e2),
-            self.decoder.object_factor(dp, e1, r), neg_values,
-            corrupt_object)
+            codes, q_subj, q_obj, neg_values, corrupt_object)
         return binomial_factored_objective(
             self.decoder, pos_energy, neg_energy, ev_sq, e1, r, e2,
             pos_mask, corrupt_object)

@@ -1,16 +1,19 @@
-"""Decoders (``relationprediction_tpu/models/decoders.py``): DistMult and
-ComplEx, and the losses they share.
+"""Decoders (``relationprediction_tpu/models/decoders.py``): DistMult,
+ComplEx and the MLP decoder, and the losses they share.
 
 Scores exposed to evaluation are sigmoid(energies), as in the reference;
 ranking is monotonic in the logits, so ranks are taken on the energies.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 
+from ..device import exact_float32
 from ..ops import sddmm
+from . import initializers as init
 
 
 def masked_mean(x: torch.Tensor,
@@ -104,13 +107,90 @@ class Complex(BilinearDiag):
         return sddmm.complex_all_objects(all_codes, e1, r)
 
 
+class NonlinearTransform:
+    """1-hidden-layer MLP decoder (``decoders.py:135-208``,
+    ``decoders/nonlinear_transform.py``):
+
+        energy = relu(e1 W_e1 + r W_r + e2 W_e2 + b_pre) W_transform + b_post
+
+    Not bilinear in the codes, so it trains only through the tiled loss.
+    All-entity scoring broadcasts the candidate term through the hidden
+    layer, the correct form that the JAX package implements (the
+    reference's falls back to the DistMult formula). JAX maps that over the
+    rows one at a time; here it runs over blocks of rows whose [rows, V, D]
+    hidden activations fit in ``score_budget_bytes``.
+    """
+
+    name = "nonlinear-transform"
+    factorizable = False
+
+    def __init__(self, dimension: int, embedding_width: int,
+                 regularization_parameter: float,
+                 score_budget_bytes: int = 1 << 30):
+        self.dimension = dimension
+        self.embedding_width = embedding_width
+        self.regularization_parameter = regularization_parameter
+        self.score_budget_bytes = score_budget_bytes
+
+    def init(self, generator: torch.Generator) -> Dict:
+        """The JAX package's shapes and standard deviations, drawn from
+        ``generator``."""
+        std_in = math.sqrt(1.0 / (self.embedding_width + self.dimension))
+        std_out = math.sqrt(1.0 / (self.dimension + 1))
+        shape = (self.embedding_width, self.dimension)
+        device = generator.device
+        return {
+            "W_e1": init.normal(generator, shape, std_in),
+            "W_r": init.normal(generator, shape, std_in),
+            "W_e2": init.normal(generator, shape, std_in),
+            "b_pre": init.zeros((self.dimension,), device),
+            "W_transform": init.normal(generator, (self.dimension, 1),
+                                       std_out),
+            "b_post": init.zeros((1,), device),
+        }
+
+    def energies(self, params, e1, r, e2):
+        exact_float32()
+        hidden = (e1 @ params["W_e1"] + r @ params["W_r"]
+                  + e2 @ params["W_e2"] + params["b_pre"])
+        return (torch.relu(hidden) @ params["W_transform"]
+                + params["b_post"]).squeeze(-1)
+
+    def all_subject_energies(self, params, all_codes, r, e2):
+        exact_float32()
+        fixed = r @ params["W_r"] + e2 @ params["W_e2"] + params["b_pre"]
+        return self._broadcast_score(params, fixed,
+                                     all_codes @ params["W_e1"])
+
+    def all_object_energies(self, params, all_codes, e1, r):
+        exact_float32()
+        fixed = e1 @ params["W_e1"] + r @ params["W_r"] + params["b_pre"]
+        return self._broadcast_score(params, fixed,
+                                     all_codes @ params["W_e2"])
+
+    def _broadcast_score(self, params, fixed, cand):
+        """[N, V] = relu(fixed[n] + cand[v]) . W_transform + b_post, over
+        blocks of rows of fixed [N, D] against cand [V, D]."""
+        n_cand, dim = cand.shape
+        rows = max(1, self.score_budget_bytes // (4 * n_cand * dim))
+        w = params["W_transform"][:, 0]
+        # One [rows, V, D] temporary a block: the ReLU runs in place.
+        out = [(fixed[i:i + rows, None, :] + cand).relu_() @ w
+               for i in range(0, fixed.shape[0], rows)]
+        return torch.cat(out) + params["b_post"]
+
+    regularization = BilinearDiag.regularization
+
+
 def build_decoder(name: str, code_dimension: int,
-                  regularization_parameter: float) -> BilinearDiag:
+                  regularization_parameter: float,
+                  decoder_dimension: int = 500, embedding_width: int = 500):
+    """Decoder factory (``decoders.py:211-224``)."""
     if name == "bilinear-diag":
         return BilinearDiag(code_dimension, regularization_parameter)
     if name == "complex":
         return Complex(code_dimension, regularization_parameter)
     if name == "nonlinear-transform":
-        raise NotImplementedError(f"decoder {name!r} is not ported yet "
-                                  f"(ROADMAP.md Queue 1 item 2)")
+        return NonlinearTransform(decoder_dimension, embedding_width,
+                                  regularization_parameter)
     raise ValueError(f"unknown decoder {name!r}")

@@ -1,5 +1,6 @@
-"""Factored negative energies for the binomial loss
-(``relationprediction_tpu/ops/neg_energy.py:48-65``, ``:101-111``).
+"""Factored negative energies for the binomial and split losses
+(``relationprediction_tpu/ops/neg_energy.py:48-65``, ``:101-111``,
+``:215-239``).
 
 Each corrupted entity scores against one factor of its positive:
 
@@ -10,8 +11,10 @@ This is the JAX package's ``_direct`` form for float32 streams: gather the
 [n, k, d] rows, reduce against both factors, select by the coin. Autograd
 gives the backward, a scatter-add of the rows' cotangents into the code
 table; in the JAX package ``_take_rows_sorted_bwd`` sorts the ids first to
-spare XLA a slow scatter compile, with the same sums. The bf16 ``_fused``
-path comes with bf16 streams (ROADMAP.md Queue 1 item 2).
+spare XLA a slow scatter compile, with the same sums. The split loss's
+``single_factor_negative_energies`` is the same with one factor a
+positive. The bf16 ``_fused`` and ``_single_fused`` paths come with bf16
+streams (ROADMAP.md Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -41,3 +44,16 @@ def factored_negative_energies(codes: torch.Tensor, q_subj: torch.Tensor,
     energy = es + corrupt_object.to(torch.float32) * (eo - es)
     ev_sq = (ev * ev).sum(-1)
     return energy, ev_sq
+
+
+def single_factor_negative_energies(codes: torch.Tensor, q: torch.Tensor,
+                                    neg_values: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(energy [n, k] f32, ev_sq [n, k] f32) with
+    energy[n, k] = < codes[neg_values[n, k]], q[n] >: every corruption of
+    a group scores against one factor of its positive (the JAX package's
+    ``_single_direct``). ev_sq is the sum of squares of each gathered row.
+    """
+    exact_float32()
+    ev = codes[neg_values.long()]                            # [n, k, d]
+    return torch.einsum("nkd,nd->nk", ev, q), (ev * ev).sum(-1)

@@ -1,18 +1,54 @@
-"""Host-side samplers: neighbourhood-expansion subgraph sampling, uniform
-edge sampling and the message-graph edge split.
+"""Host-side samplers: the binomial negative sampler of the host-tiled
+batch, neighbourhood-expansion subgraph sampling, uniform edge sampling and
+the message-graph edge split.
 
-A copy of ``relationprediction_tpu/sampling.py:122-255``: numpy on the host,
-so the same ``np.random.Generator`` state gives the same ids as the JAX
-package, and the C++ sampler (``native/``) the same ids for the same seed.
-``NegativeSampler`` and ``RelationFilter`` come with the other negative
-protocols (ROADMAP.md Queue 1 item 1); the train step draws its negatives
-on the device (``training/device_sampling.py``).
+A copy of ``relationprediction_tpu/sampling.py:17-52`` (``NegativeSampler``,
+``transform`` only) and ``:122-255``: numpy on the host, so the same
+``np.random.Generator`` state gives the same ids as the JAX package, and
+the C++ sampler (``native/``) the same ids for the same seed. By default
+the train step draws its negatives on the device
+(``training/device_sampling.py``); ``BatchPipeline(device_negatives=False)``
+tiles them here. The filtered ``transform_exclusive`` and
+``RelationFilter``, which no shipped setting uses, are not ported.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+
+
+class NegativeSampler:
+    """Uniform binomial corruption (``auxilliaries.py:13-33``):
+    ``transform`` tiles the batch (rate+1) times, labels the first copy
+    positive, and for each negative a fair coin picks the subject or the
+    object, which a uniform entity replaces, without filtering known
+    positives (the reference's default). Draws from ``rng``, which the
+    batch pipeline shares (``engine.py:98-99``)."""
+
+    def __init__(self, negative_sample_rate: int, n_entities: int,
+                 rng: np.random.Generator):
+        self.negative_sample_rate = int(negative_sample_rate)
+        self.n_entities = int(n_entities)
+        self.rng = rng
+
+    def transform(self, triples: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(tiled triples [(rate+1) n, 3] int32, labels [(rate+1) n]
+        float32): row j*n + i is positive i's copy j."""
+        triples = np.asarray(triples, dtype=np.int32).reshape(-1, 3)
+        n = triples.shape[0]
+        rate = self.negative_sample_rate
+        n_neg = n * rate
+        out = np.tile(triples, (rate + 1, 1)).astype(np.int32)
+        labels = np.zeros(n * (rate + 1), dtype=np.float32)
+        labels[:n] = 1.0
+        corrupt_object = self.rng.random(n_neg) < 0.5
+        values = self.rng.integers(0, self.n_entities, size=n_neg,
+                                   dtype=np.int64).astype(np.int32)
+        neg = out[n:]
+        neg[corrupt_object, 2] = values[corrupt_object]
+        neg[~corrupt_object, 0] = values[~corrupt_object]
+        return out, labels
 
 
 class AdjacencyIndex:

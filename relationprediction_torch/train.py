@@ -3,21 +3,22 @@
 
     python -m relationprediction_torch.train --settings settings/gcn_block.exp \
         --dataset synth:FB15k-237 [--max-iterations N] [--max-seconds S] \
-        [--resume] [--seed 0] [--cpu]
+        [--negative-mode binomial|split|shared] [--resume] [--seed 0] [--cpu]
 
 Counterpart of ``relationprediction_tpu/cli.py:102-215`` on one device:
 loads the settings and the dataset (a directory, or ``synth:<profile>``
 for a seeded synthetic graph with a real dataset's counts), trains with
-device-drawn binomial negatives, printing the loss on the reference's
-cadence, scores the validation split's filtered MRR every ``CheckEvery``
+device-drawn negatives of ``--negative-mode`` (binomial, the reference's
+coin-flip corruption, by default; split or shared with a factorizable
+decoder; the MLP decoder takes the tiled binomial loss in every mode, as
+in the JAX package), printing the loss on the reference's cadence, scores the validation split's filtered MRR every ``CheckEvery``
 iterations (printing the test metrics there too) until the early stopper
 fires or a cap is reached, saves a checkpoint under the settings'
 ``ExperimentName`` at each check that did not stop, and prints the test
 metrics of the trained weights. ``--resume`` continues from the newest
 checkpoint. Runs on the CUDA card unless ``--cpu`` is given; without a card
-it fails rather than fall back. Negative modes other than binomial are not
-ported yet (ROADMAP.md Queue 1 item 1), nor ``--mesh``, ``--vertex-sharded``
-and the multi-host flags (item 5).
+it fails rather than fall back. ``--mesh``, ``--vertex-sharded`` and the
+multi-host flags are not ported yet (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -71,15 +72,15 @@ def main(argv=None) -> None:
                         help="Subgraph sampler (uniform = faster host path).")
     parser.add_argument("--negative-mode", default="binomial",
                         choices=["binomial", "split", "shared"],
-                        help="binomial = reference coin-flip corruption "
-                             "(the only mode ported).")
+                        help="binomial = reference coin-flip corruption; "
+                             "split = factorized fast path; shared = "
+                             "shared-pool GEMM path (bilinear decoders; "
+                             "the MLP decoder trains on the tiled binomial "
+                             "loss in every mode).")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cpu", action="store_true",
                         help="Run on the CPU instead of the CUDA card.")
     args = parser.parse_args(argv)
-    if args.negative_mode != "binomial":
-        parser.error(f"--negative-mode {args.negative_mode} is not ported "
-                     f"yet (ROADMAP.md Queue 1 item 1)")
 
     from relationprediction_torch import config as config_lib
     from relationprediction_torch.data import dataset as dataset_lib
@@ -110,7 +111,8 @@ def main(argv=None) -> None:
     scorer = build_scorer(model, ds, cfg.training.metric)
     loop = TrainLoop(model, cfg, ds,
                      scoring_function=validation_scoring(scorer, ds),
-                     sampler=args.sampler, seed=args.seed)
+                     sampler=args.sampler, seed=args.seed,
+                     negative_mode=args.negative_mode)
     checkpoint_path = cfg.training.experiment_name
     t0 = time.time()
     if args.resume:

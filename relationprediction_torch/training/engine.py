@@ -1,22 +1,29 @@
 """Training engine: host batches, their prefetch, and the fit loop.
 
-Counterpart of ``relationprediction_tpu/training/engine.py`` for the path
-``TrainLoop`` takes by default with a factorizable decoder (DistMult,
-ComplEx): device negatives, the binomial protocol, the factored loss
-(``engine.py:452-466``). Each step
+Counterpart of ``relationprediction_tpu/training/engine.py`` on one device,
+with every training objective of the JAX package, chosen by its rule
+(``engine.py:391-410``, ``loss_kind``): with a factorizable decoder
+(DistMult, ComplEx) and device negatives, the factored binomial loss, the
+split protocol's ``loss_structured`` or the shared pool's
+``loss_shared_negatives`` (``--negative-mode binomial|split|shared``);
+otherwise (the MLP decoder, or ``device_negatives=False``) the tiled loss
+on the binomial protocol's (rate+1)-tiled batch, drawn on the device or
+tiled on the host. Each step
 
   1. on the host (``BatchPipeline``, on ``prefetch_threads`` producer
      threads by default, ``_Prefetcher``): samples ``GraphBatchSize`` edges
      by neighbourhood expansion and keeps ``GraphSplitSize`` of them as the
      message graph, laid out as four CSRs (graph.py), or, for a model
      without a graph, takes a ``BatchSize`` minibatch (all of the train set
-     when unset); pads the positives with a mask, in pinned host memory on
-     the card's machine; a producer copies its batches to the card on its
-     own CUDA stream;
-  2. on the device: draws the corruptions and the dropout keep-masks from
-     the loop's ``torch.Generator``, encodes in train mode, takes the
-     factored binomial loss and its gradients (the aggregation kernels'
-     twin passes inside), clips and applies the optimizer in place.
+     when unset); pads the positives with a mask, or with
+     ``device_negatives=False`` tiles them with their corruptions and
+     labels; in pinned host memory on the card's machine; a producer
+     copies its batches to the card on its own CUDA stream;
+  2. on the device: draws the corruptions (unless the host tiled them) and
+     the dropout keep-masks from the loop's ``torch.Generator``, encodes in
+     train mode, takes the loss and its gradients (the aggregation
+     kernels' twin passes inside), clips and applies the optimizer in
+     place.
 
 Losses are read on the host only at the reporting cadence of the reference
 (iteration 1, then every ``ReportTrainLossEvery`` at i % n == 1). The
@@ -25,8 +32,7 @@ stopping after the burn-in, and a checkpoint is written at each check that
 did not stop (``shared/algorithms.py:61-161``); ``resume`` continues one.
 Not carried over from the JAX package: its K-step ``lax.scan`` dispatch (a
 TPU transport device), the mesh and vertex-sharded modes (ROADMAP.md Queue
-1 item 5), the stored-message state (item 2) and the other negative
-protocols (item 1).
+1 item 5) and the stored-message state (item 2).
 """
 from __future__ import annotations
 
@@ -47,10 +53,12 @@ from ..observability import MetricLogger, StepTimer
 from ..ops import staircase2
 from ..params import map_tree, params_from_jax, params_to_numpy, \
     tree_leaves, tree_unflatten
-from ..sampling import (AdjacencyIndex, graph_split,
+from ..sampling import (AdjacencyIndex, NegativeSampler, graph_split,
                         sample_edge_neighborhood_fast, sample_uniform_edges)
 from . import checkpoint as ckpt_lib
-from .device_sampling import device_negative_parts
+from .device_sampling import (device_negative_entities_split,
+                              device_negative_parts, device_negative_pool,
+                              device_negative_sample)
 from .optimizers import apply_updates, build_optimizer, opt_state_from_jax
 
 
@@ -60,40 +68,58 @@ def _round_up(n: int, m: int) -> int:
 
 class TrainBatch(NamedTuple):
     graph: Optional[GraphBatch]  # None for a model without a graph
-    triples: torch.Tensor  # [N_pad, 3] int32 positives, zero rows as padding
-    mask: torch.Tensor     # [N_pad] float32, 1 for a real positive
+    # [N_pad, 3] int32 positives, zero rows as padding; host-tiled: the
+    # positives and their corruptions, [(rate+1) N] padded to 128
+    triples: torch.Tensor
+    mask: torch.Tensor     # [N_pad] float32, 1 for a real row
     # Host int32 ids into the train set of the message graph's edges
     # (None without a graph); they stay on the host.
     edge_ids: Optional[np.ndarray] = None
+    # [N_pad] float32 labels of a host-tiled batch, else None
+    labels: Optional[torch.Tensor] = None
 
     def to(self, device, non_blocking: bool = False) -> "TrainBatch":
+        def move(t):
+            return None if t is None \
+                else t.to(device, non_blocking=non_blocking)
         graph = None if self.graph is None \
             else self.graph.to(device, non_blocking)
-        return TrainBatch(graph,
-                          self.triples.to(device, non_blocking=non_blocking),
-                          self.mask.to(device, non_blocking=non_blocking),
-                          self.edge_ids)
+        return TrainBatch(graph, move(self.triples), move(self.mask),
+                          self.edge_ids, move(self.labels))
+
+    def pin_memory(self) -> "TrainBatch":
+        return TrainBatch(
+            None if self.graph is None else self.graph.pin_memory(),
+            self.triples.pin_memory(), self.mask.pin_memory(),
+            self.edge_ids,
+            None if self.labels is None else self.labels.pin_memory())
 
     def tensors(self) -> list:
         graph = [] if self.graph is None else self.graph.tensors()
-        return graph + [self.triples, self.mask]
+        labels = [] if self.labels is None else [self.labels]
+        return graph + [self.triples, self.mask] + labels
 
 
 class BatchPipeline:
     """Host-side batch construction (``engine.py:74-204``, the reference's
-    t_func, ``train.py:205-247``) for device negatives: the sampled
-    subgraph's split as the message graph and the sampled edges as the
-    positives, or a minibatch of positives for a model without a graph;
-    the positives padded to a multiple of 8 with a mask
-    (``_positives_batch``, ``engine.py:191-204``).
+    t_func, ``train.py:205-247``): the sampled subgraph's split as the
+    message graph and the sampled edges as the positives, or a minibatch
+    of positives for a model without a graph. With device negatives the
+    positives are padded to a multiple of 8 with a mask
+    (``_positives_batch``, ``engine.py:191-204``); with
+    ``device_negatives=False`` ``NegativeSampler`` tiles them (rate+1)
+    times with their corruptions, padded to a multiple of 128 with labels
+    and a mask (``engine.py:149-179``).
 
-    The same ``rng`` state gives the JAX package's graphs and positives.
-    The batch stays on the host, pinned when the model is on the card.
+    The same ``rng`` state gives the JAX package's graphs, positives and
+    host-tiled corruptions. The batch stays on the host, pinned when the
+    model is on the card.
     """
 
     def __init__(self, model: RGCNModel, config: RunConfig,
                  dataset: KGDataset, rng: np.random.Generator,
-                 sampler: str = "neighborhood"):
+                 sampler: str = "neighborhood",
+                 device_negatives: bool = True):
         if sampler not in ("neighborhood", "uniform"):
             raise ValueError(f"unknown sampler {sampler!r}")
         self.model = model
@@ -117,6 +143,12 @@ class BatchPipeline:
             cap = self.batch_size
         self.n_positives = cap
         self.positives_pad = _round_up(cap, 8)
+        self.device_negatives = device_negatives
+        rate = t.negative_sample_rate
+        # The host-tiled batch's rows, padded as the JAX package pads them.
+        self.triple_pad = _round_up(cap * (rate + 1), 128)
+        self.negative_sampler = None if device_negatives \
+            else NegativeSampler(rate, config.entity_count, rng)
         # 'contiguous' minibatches: in-order wrapping windows instead of
         # random ones (``shared/algorithms.py:36-39``).
         self.contiguous = config.optimizer.contiguous_sampling
@@ -152,23 +184,37 @@ class BatchPipeline:
 
     def next(self) -> TrainBatch:
         if not self.model.needs_graph():
-            return self._positives_batch(None, self.minibatch(), None)
-        batch_ids, split_ids = self.sample_ids()
-        graph = self.model.make_graph(self.train[split_ids], to_device=False)
-        return self._positives_batch(graph, self.train[batch_ids],
-                                     split_ids.astype(np.int32))
+            graph, positives, edge_ids = None, self.minibatch(), None
+        else:
+            batch_ids, split_ids = self.sample_ids()
+            graph = self.model.make_graph(self.train[split_ids],
+                                          to_device=False)
+            positives = self.train[batch_ids]
+            edge_ids = split_ids.astype(np.int32)
+        if self.device_negatives:
+            batch = self._padded(graph, positives, None, self.positives_pad,
+                                 edge_ids)
+        else:
+            x, y = self.negative_sampler.transform(positives)
+            batch = self._padded(graph, x, y, self.triple_pad, edge_ids)
+        return batch.pin_memory() if self.pin else batch
 
-    def _positives_batch(self, graph, positives, edge_ids) -> TrainBatch:
-        n = len(positives)
-        xp = np.zeros((self.positives_pad, 3), dtype=np.int32)
-        mp = np.zeros((self.positives_pad,), dtype=np.float32)
-        xp[:n] = positives
+    @staticmethod
+    def _padded(graph, triples, labels, pad, edge_ids) -> TrainBatch:
+        """``triples`` (and ``labels``) zero-padded to ``pad`` rows, with a
+        mask of the real ones."""
+        n = len(triples)
+        xp = np.zeros((pad, 3), dtype=np.int32)
+        mp = np.zeros((pad,), dtype=np.float32)
+        xp[:n] = triples
         mp[:n] = 1.0
-        triples, mask = torch.from_numpy(xp), torch.from_numpy(mp)
-        if self.pin:
-            graph = None if graph is None else graph.pin_memory()
-            triples, mask = triples.pin_memory(), mask.pin_memory()
-        return TrainBatch(graph, triples, mask, edge_ids)
+        yp = None
+        if labels is not None:
+            yp = np.zeros((pad,), dtype=np.float32)
+            yp[:n] = labels
+            yp = torch.from_numpy(yp)
+        return TrainBatch(graph, torch.from_numpy(xp), torch.from_numpy(mp),
+                          edge_ids, yp)
 
     # -- resumable host state (``engine.py:181-189``) ---------------------
     def state(self) -> dict:
@@ -316,19 +362,57 @@ class _Prefetcher:
                 p.set_state(st)
 
 
-def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
-                   neg_values: torch.Tensor, corrupt_object: torch.Tensor,
-                   keep_masks) -> tuple:
-    """(loss, gradient tree) of the factored binomial loss for explicit
-    draws. A leaf the loss does not reach (the GCN layers' unused bias)
-    gets a zero gradient, as under ``jax.grad``."""
+def loss_kind(model: RGCNModel, negative_mode: str,
+              device_negatives: bool) -> str:
+    """The training objective by the JAX package's rule
+    (``engine.py:391-410``): with device negatives and a factorizable
+    decoder, 'factored' (binomial), 'split' or 'shared' as
+    ``negative_mode`` says; anything else (the MLP decoder, or a host-tiled
+    batch) 'tiled', the binomial protocol's tiled loss."""
+    if negative_mode not in ("binomial", "split", "shared"):
+        raise ValueError(f"unknown negative mode {negative_mode!r}")
+    if device_negatives and getattr(model.decoder, "factorizable", False):
+        return {"binomial": "factored", "split": "split",
+                "shared": "shared"}[negative_mode]
+    return "tiled"
+
+
+class Draws(NamedTuple):
+    """A step's random draws on the device: the loss's negatives, by loss
+    kind (factored: values and corrupt_object [n, rate]; split:
+    neg_subjects and neg_objects; shared: the pool [P]; tiled: the tiled
+    triples, labels and mask, or none for a host-tiled batch), and one
+    dropout keep-mask per layer."""
+    negatives: tuple
+    keep_masks: list
+
+    def to(self, device) -> "Draws":
+        return Draws(tuple(t.to(device) for t in self.negatives),
+                     [m.to(device) for m in self.keep_masks])
+
+
+def step_loss_and_grads(model: RGCNModel, kind: str, params,
+                        batch: TrainBatch, draws: Draws) -> tuple:
+    """(loss, gradient tree) of the train-mode loss of ``kind``
+    (``loss_kind``) on ``batch`` with ``draws``. A leaf the loss does not
+    reach (the GCN layers' unused bias) gets a zero gradient, as under
+    ``jax.grad``."""
+    neg = draws.negatives
+    common = dict(deterministic=False, keep_masks=draws.keep_masks)
+    if kind == "tiled":
+        args = (params, batch.graph) + (
+            neg or (batch.triples, batch.labels, batch.mask))
+        loss_fn = model.loss
+    else:
+        args = (params, batch.graph, batch.triples, batch.mask) + neg
+        loss_fn = {"factored": model.loss_binomial_factored,
+                   "split": model.loss_structured,
+                   "shared": model.loss_shared_negatives}[kind]
     leaves = tree_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        loss = model.loss_binomial_factored(
-            params, batch.graph, batch.triples, batch.mask, neg_values,
-            corrupt_object, deterministic=False, keep_masks=keep_masks)
+        loss = loss_fn(*args, **common)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for leaf in leaves:
@@ -336,6 +420,16 @@ def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
+                   neg_values: torch.Tensor, corrupt_object: torch.Tensor,
+                   keep_masks) -> tuple:
+    """(loss, gradient tree) of the factored binomial loss for explicit
+    draws."""
+    return step_loss_and_grads(model, "factored", params, batch,
+                               Draws((neg_values, corrupt_object),
+                                     keep_masks))
 
 
 @dataclass
@@ -358,7 +452,9 @@ class FitResult:
 
 class TrainLoop:
     """``fit`` with the reference's loss reporter, early stopper and model
-    saver, on one device."""
+    saver, on one device. ``negative_mode`` and ``device_negatives``
+    choose the objective (``loss_kind``); ``negative_pool_size`` is the
+    shared pool's size."""
 
     def __init__(self, model: RGCNModel, config: RunConfig,
                  dataset: KGDataset, *,
@@ -368,11 +464,10 @@ class TrainLoop:
                  log: Callable[[str], None] = print,
                  prefetch: bool = True,
                  prefetch_threads: int = 2,
-                 metrics_path: Optional[str] = None):
-        if not getattr(model.decoder, "factorizable", False):
-            raise NotImplementedError(
-                f"decoder {model.decoder.name!r} needs the tiled loss, not "
-                f"ported yet (ROADMAP.md Queue 1 item 1)")
+                 metrics_path: Optional[str] = None,
+                 device_negatives: bool = True,
+                 negative_mode: str = "binomial",
+                 negative_pool_size: int = 512):
         self.model = model
         self.config = config
         self.scoring_function = scoring_function
@@ -381,13 +476,18 @@ class TrainLoop:
         self.seed = seed
         self.metrics = MetricLogger(metrics_path, echo=False)
         self.host_rng = np.random.default_rng(seed)
+        # The objective (``loss_kind``); the shared pool has
+        # ``negative_pool_size`` entities whatever the rate.
+        self.loss_kind = loss_kind(model, negative_mode, device_negatives)
+        self.negative_pool_size = negative_pool_size
         self.pipeline = BatchPipeline(model, config, dataset, self.host_rng,
-                                      sampler)
+                                      sampler, device_negatives)
         # The other producers' pipelines, seeded as the JAX package seeds
         # them (``engine.py:380-385``).
         self._extra_pipelines = [
             BatchPipeline(model, config, dataset,
-                          np.random.default_rng(seed + 1000 + w), sampler)
+                          np.random.default_rng(seed + 1000 + w), sampler,
+                          device_negatives)
             for w in range(max(0, prefetch_threads - 1))] if prefetch else []
         self._resume_rr = 0
         self.optimizer = build_optimizer(config.optimizer)
@@ -400,20 +500,33 @@ class TrainLoop:
             torch.Generator().manual_seed(seed))
         return params, self.optimizer.init(params)
 
-    def draw(self, batch: TrainBatch) -> tuple:
-        """The step's random draws on the device: corruptions
-        (``device_negative_parts``) and one dropout keep-mask per layer."""
-        values, co = device_negative_parts(
-            batch.triples, self.config.training.negative_sample_rate,
-            self.config.entity_count, self.generator)
-        return values, co, self.model.draw_keep_masks(self.generator)
+    def draw(self, batch: TrainBatch) -> Draws:
+        """The step's random draws on the device, from the loop's
+        generator: the corruptions of ``loss_kind`` (none for a host-tiled
+        batch), then one dropout keep-mask per layer."""
+        rate = self.config.training.negative_sample_rate
+        n_entities, gen = self.config.entity_count, self.generator
+        kind = self.loss_kind
+        if kind == "factored":
+            neg = device_negative_parts(batch.triples, rate, n_entities, gen)
+        elif kind == "split":
+            neg = device_negative_entities_split(batch.triples, rate,
+                                                 n_entities, gen)
+        elif kind == "shared":
+            neg = (device_negative_pool(self.negative_pool_size, n_entities,
+                                        gen),)
+        elif batch.labels is None:
+            neg = device_negative_sample(batch.triples, batch.mask, rate,
+                                         n_entities, gen)
+        else:
+            neg = ()
+        return Draws(tuple(neg), self.model.draw_keep_masks(gen))
 
     def train_step(self, params, opt_state, batch: TrainBatch) -> tuple:
-        """One step (``engine.py:452-466``); updates ``params`` in place.
+        """One step (``engine.py:411-483``); updates ``params`` in place.
         Returns (opt_state, loss as a 0-d tensor on the device)."""
-        values, co, masks = self.draw(batch)
-        loss, grads = loss_and_grads(self.model, params, batch, values, co,
-                                     masks)
+        loss, grads = step_loss_and_grads(self.model, self.loss_kind, params,
+                                          batch, self.draw(batch))
         updates, opt_state = self.optimizer.update(grads, opt_state)
         apply_updates(params, updates)
         return opt_state, loss

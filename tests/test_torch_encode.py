@@ -162,7 +162,21 @@ def test_unported_configurations_raise():
             base, encoder=dataclasses.replace(base.encoder, **enc))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(cfg, CPU)
+
+
+def test_mlp_decoder_model_builds():
+    """The MLP decoder (nonlinear-transform) builds, with its widths from
+    the settings, and scores every entity."""
+    from relationprediction_torch.models.decoders import NonlinearTransform
+    ds = jax_synthetic.generate(30, 3, 60, seed=0)
+    base = small(torch_config.load(SETTINGS), ds)
     cfg = dataclasses.replace(base, decoder=dataclasses.replace(
-        base.decoder, name="nonlinear-transform"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, CPU)
+        base.decoder, name="nonlinear-transform", decoder_dimension=12,
+        embedding_width=20))
+    model = build_model(cfg, CPU)
+    assert isinstance(model.decoder, NonlinearTransform)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    assert params["decoder"]["W_e1"].shape == (20, 12)
+    scores = model.score_all_objects(params, model.make_graph(ds.train),
+                                     ds.train[:4])
+    assert scores.shape == (4, 30) and torch.isfinite(scores).all()

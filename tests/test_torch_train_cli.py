@@ -98,7 +98,19 @@ def test_train_cli_stops_early_saves_resumes_and_evaluates(tmp_path, capsys,
     assert f"Tested validation score at iteration {stop}." in out
 
 
-def test_train_cli_refuses_unported_negative_modes(capsys):
-    with pytest.raises(SystemExit):
-        torch_train.main(ARGS + ["--cpu", "--negative-mode", "split"])
-    assert "ROADMAP.md Queue 1 item 1" in capsys.readouterr().err
+@pytest.mark.parametrize("mode", ["split", "shared"])
+def test_train_cli_trains_the_split_and_shared_modes(capsys, monkeypatch,
+                                                     mode):
+    """--negative-mode split and shared train on the CPU and print the
+    final test metrics; without --cpu and without a card they raise."""
+    torch_train.main(ARGS + ["--cpu", "--negative-mode", mode,
+                             "--max-iterations", "2"])
+    out = capsys.readouterr().out
+    initial = re.search(r"Initial loss: (\S+)", out)
+    assert initial and math.isfinite(float(initial.group(1))), out
+    assert re.search(r"Training done: 2 iterations", out), out
+    assert "Final test metrics:" in out and "MRR" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_train.main(ARGS + ["--negative-mode", mode,
+                                 "--max-iterations", "1"])

@@ -221,7 +221,7 @@ def test_fit_reports_on_the_reference_cadence():
     assert loop.timer.summary()["steps"] == 8
 
 
-def test_unported_training_modes_raise():
+def test_fit_trains_until_the_early_stopper_fires():
     """fit() without max_iterations (none in the settings either) trains
     until the early stopper fires: a score that stops rising after the
     burn-in ends the run at that check."""
