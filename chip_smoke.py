@@ -106,7 +106,7 @@ Then the rest of TrainLoop on gcn_block.exp:
           stop rule on the logged scores, a checkpoint for each check that
           did not stop, train_loss and validation records, 4 forward and 4
           twin block_direction launches a step, 4 more forward a check;
-  prefetch, prefetch_basis  30 steps serial, prefetch, prefetch, serial
+  prefetch, prefetch_basis  15 steps serial, prefetch, prefetch, serial
           (gcn_block, then gcn_basis), in turns in one process: steps/s,
           median step_ms, batch_ms (in the producer) and wait_ms; the
           device idle share of a whole 5-step fit each way
@@ -146,7 +146,33 @@ then TrainLoop.fit with 4 forward and 4 twin block_direction launches and
   train_mlp  the same model through the tiled loss, 20 steps, its
           gathers timed as train_tiled's.
 
-Then a line listing every ported kernel with its numbers (block_direction's
+Then the rest of the reference's encoder surface, each configuration a
+copy of a shipped settings file with one or two keys changed (written under
+build/chip_smoke/<label>), served and trained as serve and train (a fit of
+6 steps; the loss finite at every step, not held to fall):
+
+  serve_/train_plus_diag   gcn_basis.exp, AddDiagonal=Yes: basis + x[src]
+          * D[r] messages summed by staircase_aggregate, 4 launches an
+          encode and a step;
+  serve_/train_times_diag  gcn_basis.exp, DiagonalCoefficients=Yes:
+          sigmoid-scaled [R, B, d] coefficients, the same launches;
+  serve_/train_stored      gcn_basis.exp, StoreEdgeData=Yes: host-tiled
+          batches and the tiled loss, deltas against per-edge caches
+          summed by staircase_aggregate with unit weights (4 a step); the
+          first step against the CPU plain path, and every cache after 3
+          steps from zero within 1e-5 in relative L2 norm of the CPU's;
+  serve_/train_vgcn        gcn_basis.exp, Name=variational_gcn_basis: the
+          launches of serve_basis and train_basis, and the step's KL term
+          held to the CPU's within 1e-5 relative;
+  serve_/train_vemb        distmult.exp, Name=variational_embedding: no
+          launch, all 272,115 positives a step, the KL term as vgcn's;
+  serve_/train_highway, _residual_out, _random, _partial  gcn_block.exp
+          with SkipConnections=Highway; SkipConnections=Residual and
+          UseOutputTransform=Yes; UseInputTransform=No with RandomInput=Yes;
+          and with PartiallyRandomInput=Yes: 4 (+ 4 twin) block_direction
+          launches an encode (a step).
+
+Then a line listing every ported kernel with its numbers (each kernel's
 launches on each of these paths beside them), nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
 without a CUDA card the script exits 2 and prints no result.
@@ -182,7 +208,7 @@ from relationprediction_torch.models import build, decoders
 from relationprediction_torch.ops import staircase, staircase2
 from relationprediction_torch.params import map_tree, tree_leaves
 from relationprediction_torch.training import (checkpoint, device_sampling,
-                                               engine)
+                                               engine, optimizers)
 
 ROOT = Path(__file__).resolve().parent
 SETTINGS = ROOT / "settings" / "gcn_block.exp"
@@ -349,14 +375,20 @@ def model_label(cfg) -> str:
     """Which configuration a phase ran: the encoder and its input stage,
     or the embedding table and its decoder."""
     e = cfg.encoder
-    if e.name == "embedding":
-        return f"embedding, {cfg.decoder.name}"
+    if e.name in ("embedding", "variational_embedding"):
+        return f"{e.name}, {cfg.decoder.name}"
     if e.name == "gcn_diag":
         return "gcn_diag"
-    stage = "input transform" if e.use_input_transform else "one-hot input"
-    decoder = "" if cfg.decoder.name == "bilinear-diag" \
-        else f", {cfg.decoder.name}"
-    return f"gcn_basis/{e.gcn_variant}, {stage}{decoder}"
+    stage = "input transform" if e.use_input_transform \
+        else "random input" if e.random_input \
+        else "partially random input" if e.partially_random_input \
+        else "one-hot input"
+    extras = "".join(f", {x}" for x, on in (
+        (f"{e.skip_connections} skip connections",
+         e.skip_connections != "None"),
+        ("output transform", e.use_output_transform),
+        (cfg.decoder.name, cfg.decoder.name != "bilinear-diag")) if on)
+    return f"{e.name}/{e.gcn_variant}, {stage}{extras}"
 
 
 def sum_allowance(exact, abs_sum, n_terms):
@@ -713,7 +745,13 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     cpu_graph = None if graph is None else graph.to("cpu")
     ref = ref_view.encoded(cpu_params, cpu_graph).entity_codes
     codes_err = (codes.cpu() - ref).abs().max().item()
-    torch.testing.assert_close(codes.cpu(), ref, rtol=1e-4, atol=1e-4)
+    # The stored variant sums its test-mode messages with unit weights
+    # (rows of up to 9,155 edges, twice): its codes grow to thousands and
+    # an entry near 0 is a cancellation of terms that large, so its atol
+    # is 1e-4 of the largest code; every other model's is 1e-4.
+    scale = ref.abs().max().item() if model.has_state else 1.0
+    torch.testing.assert_close(codes.cpu(), ref, rtol=1e-4,
+                               atol=1e-4 * scale)
     scorer.register_model(ref_view, cpu_params, cpu_graph,
                           n_entities=ds.n_entities)
     ref_summary = scorer.compute_scores(triples)
@@ -767,6 +805,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
            "hits10_raw": res["Raw"]["H@10"],
            "hits10_filtered": res["Filtered"]["H@10"],
            "codes_max_abs_err_vs_cpu_plain": codes_err,
+           "codes_max_abs": ref.abs().max().item(),
            "mrr_filtered_cpu_plain": ref_summary.results["Filtered"]["MRR"],
            "max_memory_allocated": peak,
            "launches": launches, "project_launches": project_launches,
@@ -1668,9 +1707,120 @@ def same_batches(got, want) -> None:
                                  f"pipeline's")
 
 
+def kl_vs_cpu(model, params, batch, draws) -> dict:
+    """A variational encoder's KL term for one step's train-mode encode
+    (its keep-masks and noise) on the card against the CPU plain path's,
+    within 1e-5 relative."""
+    cpu = torch.device("cpu")
+    ref_model = build.build_model(model.config, cpu)
+    values = []
+    for m, p, b, d in ((model, params, batch, draws),
+                       (ref_model, map_tree(lambda t: t.cpu(), params),
+                        batch.to(cpu), draws.to(cpu))):
+        with torch.no_grad():
+            enc = m.encode(p, b.graph, deterministic=False,
+                           keep_masks=d.keep_masks, noise=d.noise)
+            values.append(m.plus_kl(torch.zeros((), device=m.device),
+                                    enc).item())
+    kl, ref = values
+    rel = abs(kl - ref) / abs(ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"KL term {kl} differs from the CPU plain "
+                             f"path's {ref} by {rel} (relative)")
+    return {"kl": kl, "kl_cpu_plain": ref, "kl_rel_diff": rel}
+
+
+STORED_CACHE_STEPS = 3
+
+
+def stateful_vs_cpu(loop, params, batches) -> dict:
+    """The stored variant's loss_stateful over ``batches`` from zero
+    caches, the caches carried, on the card and on the CPU plain path
+    with the same params, batches and draws: the first step held as
+    same_step, every cache after the last step within 1e-5 in relative L2
+    norm."""
+    model, cpu = loop.model, torch.device("cpu")
+    ref_model = build.build_model(loop.config, cpu)
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    cache, ref_cache = model.init_cache_state(), ref_model.init_cache_state()
+    first = None
+    for batch in batches:
+        draws = loop.draw(batch)
+        loss, grads, cache = engine.stateful_loss_and_grads(
+            model, params, cache, batch, draws)
+        ref_loss, ref_grads, ref_cache = engine.stateful_loss_and_grads(
+            ref_model, cpu_params, ref_cache, batch.to(cpu), draws.to(cpu))
+        if first is None:
+            first = same_step(loss, grads, ref_loss, ref_grads,
+                              "the CPU plain path")
+    rows = []
+    for layer, (st, ref) in enumerate(zip(cache, ref_cache)):
+        for key in sorted(st):
+            diff = (st[key].cpu() - ref[key]).norm().item()
+            norm = ref[key].norm().item()
+            rel = diff / norm if norm else diff
+            rows.append({"layer": layer, "cache": key,
+                         "shape": list(ref[key].shape),
+                         "max_abs": ref[key].abs().max().item(),
+                         "rel_l2_diff": rel})
+            if not rel <= 1e-5:
+                raise AssertionError(f"cache {key} of layer {layer} after "
+                                     f"{len(batches)} steps differs from "
+                                     f"the CPU plain path's: relative L2 "
+                                     f"{rel}")
+    return {**first, "cache_steps": len(batches),
+            "worst_cache_rel_l2_diff": max(r["rel_l2_diff"] for r in rows),
+            "caches": rows}
+
+
+def lockstep_vs_cpu(cfg, ds, device, steps) -> dict:
+    """``steps`` train steps (draws, loss, clip and Adam) from seed-0
+    weights, in lockstep on the card and on the CPU plain path with the
+    same batches and the card's draws: each step's loss on both, and the
+    first step whose loss is not finite on each, which must be the same.
+    The evidence for a path whose loss leaves the floats on the card."""
+    cpu = torch.device("cpu")
+    model = build.build_model(cfg, device)
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=lambda _: None,
+                            prefetch=False)
+    ref_model = build.build_model(cfg, cpu)
+    params, opt_state = loop.init_state(0)
+    ref_params = map_tree(lambda t: t.cpu().clone(), params)
+    ref_state = loop.optimizer.init(ref_params)
+    def step(m, p, st, batch, draws):
+        loss, grads = engine.step_loss_and_grads(m, loop.loss_kind, p, batch,
+                                                 draws)
+        updates, st = loop.optimizer.update(grads, st)
+        optimizers.apply_updates(p, updates)
+        return loss.item(), st
+
+    losses, ref_losses = [], []
+    for _ in range(steps):
+        batch = loop.pipeline.next().to(device)
+        draws = loop.draw(batch)
+        loss, opt_state = step(model, params, opt_state, batch, draws)
+        ref_loss, ref_state = step(ref_model, ref_params, ref_state,
+                                   batch.to(cpu), draws.to(cpu))
+        losses.append(loss)
+        ref_losses.append(ref_loss)
+
+    def first_nonfinite(xs):
+        return next((i + 1 for i, x in enumerate(xs)
+                     if not np.isfinite(x)), None)
+    row = {"lockstep_losses": losses, "lockstep_cpu_plain_losses": ref_losses,
+           "first_nonfinite_step": first_nonfinite(losses),
+           "first_nonfinite_step_cpu_plain": first_nonfinite(ref_losses)}
+    if row["first_nonfinite_step"] != row["first_nonfinite_step_cpu_plain"] \
+            or row["first_nonfinite_step"] is None:
+        raise AssertionError(f"the card's losses leave the floats at another "
+                             f"step than the CPU plain path's: {row}")
+    return row
+
+
 def phase_train(cfg, ds, device, op=staircase2.block_direction,
                 phase="train", steps=TRAIN_STEPS, compare_positives=None,
-                tiled=False, **loop_kwargs):
+                tiled=False, falling=True, nonfinite_ok=False,
+                **loop_kwargs):
     """One step on the card against the CPU plain path, then the training
     path through TrainLoop.fit (serial batches, prefetch=False) with
     the kernels' launch counts: ``op`` (block_direction, basis_direction
@@ -1685,7 +1835,13 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     binomial loss of a factorizable decoder (the JAX package's tests reach
     it by clearing ``_use_factored_binomial``), also held to the factored
     loss on the same draws. Host-tiled batches consumed by the fit are
-    held to a CPU model's pipeline's, batch for batch."""
+    held to a CPU model's pipeline's, batch for batch. The loss must be
+    finite at every step, and with ``falling`` lower at the last step
+    than at the first. With ``nonfinite_ok`` a loss that is not finite
+    passes only where lockstep_vs_cpu shows the CPU plain path's loss
+    leaving the floats at the same step. The stored variant's comparison runs
+    STORED_CACHE_STEPS steps and holds its caches too (stateful_vs_cpu);
+    a variational encoder's adds its KL term (kl_vs_cpu)."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     logged = []
@@ -1697,9 +1853,16 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     kind, host_tiled = loop.loss_kind, not loop.pipeline.device_negatives
 
     # -- one step, card against the CPU plain path -----------------------
-    batch = engine.BatchPipeline(
-        model, cfg, ds, np.random.default_rng(0),
-        device_negatives=not host_tiled).next().to(device)
+    pipeline = engine.BatchPipeline(model, cfg, ds, np.random.default_rng(0),
+                                    device_negatives=not host_tiled)
+    batch = pipeline.next().to(device)
+    if model.has_state:
+        batches = [batch] + [pipeline.next().to(device)
+                             for _ in range(STORED_CACHE_STEPS - 1)]
+        emit(f"{phase}_step_vs_cpu", phase_s=time.perf_counter() - t_phase,
+             loss_kind=kind, positives=loop.pipeline.n_positives,
+             **stateful_vs_cpu(loop, params, batches))
+        del batches
     if compare_positives is not None:
         batch = batch._replace(triples=batch.triples[:compare_positives],
                                mask=batch.mask[:compare_positives])
@@ -1707,23 +1870,28 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
         emit(f"{phase}_tiled_vs_factored",
              **tiled_vs_factored(loop, params, batch),
              phase_s=time.perf_counter() - t_phase)
-    draws = loop.draw(batch)
-    if kind == "tiled" and not host_tiled:
-        emit(f"{phase}_gather_backward",
-             **gather_backward(model, params, batch, draws),
-             phase_s=time.perf_counter() - t_phase)
-    loss, grads = engine.step_loss_and_grads(model, kind, params, batch,
-                                             draws)
     cpu = torch.device("cpu")
-    cpu_loss, cpu_grads = engine.step_loss_and_grads(
-        build.build_model(cfg, cpu), kind,
-        map_tree(lambda t: t.cpu(), params), batch.to(cpu), draws.to(cpu))
-    emit(f"{phase}_step_vs_cpu", phase_s=time.perf_counter() - t_phase,
-         loss_kind=kind, positives=loop.pipeline.n_positives
-         if host_tiled else int(batch.mask.sum().item()),
-         **same_step(loss, grads, cpu_loss, cpu_grads,
-                     "the CPU plain path"))
-    del batch, draws, grads, cpu_grads
+    if not model.has_state:
+        draws = loop.draw(batch)
+        if kind == "tiled" and not host_tiled:
+            emit(f"{phase}_gather_backward",
+                 **gather_backward(model, params, batch, draws),
+                 phase_s=time.perf_counter() - t_phase)
+        loss, grads = engine.step_loss_and_grads(model, kind, params, batch,
+                                                 draws)
+        cpu_loss, cpu_grads = engine.step_loss_and_grads(
+            build.build_model(cfg, cpu), kind,
+            map_tree(lambda t: t.cpu(), params), batch.to(cpu),
+            draws.to(cpu))
+        kl = kl_vs_cpu(model, params, batch, draws) if model.variational \
+            else {}
+        emit(f"{phase}_step_vs_cpu", phase_s=time.perf_counter() - t_phase,
+             loss_kind=kind, positives=loop.pipeline.n_positives
+             if host_tiled else int(batch.mask.sum().item()),
+             **same_step(loss, grads, cpu_loss, cpu_grads,
+                         "the CPU plain path"), **kl)
+        del draws, grads, cpu_grads
+    del batch
 
     consumed, make_batch = [], loop.pipeline.next
     if host_tiled:
@@ -1763,7 +1931,11 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                           split_launches, fixups)
     records = result.steps
     per_layer = 2 * cfg.encoder.n_layers if op else 0
-    twin_per_layer = 0 if op is staircase.staircase_aggregate else per_layer
+    # No twin pass where nothing needs the layer input's gradient: the
+    # first layer's on random input (its blocks' gradient is the torch
+    # contraction alone).
+    twin_per_layer = 0 if op is staircase.staircase_aggregate \
+        else per_layer - (2 if model.random_input else 0)
     for s in records:
         if s["launches"] != per_layer \
                 or s["twin_launches"] != twin_per_layer:
@@ -1785,9 +1957,16 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                              f"times for {launches + twin_launches} "
                              f"combine launches")
     losses = {i: records[i - 1]["loss"] for i in (1, steps // 2, steps)}
-    if not all(np.isfinite(v) for v in losses.values()) \
-            or not losses[steps] < losses[1]:
-        raise AssertionError(f"losses not finite and falling: {losses}")
+    finite = all(np.isfinite(s["loss"]) for s in records)
+    lockstep = {}
+    if not finite and nonfinite_ok:
+        lockstep = lockstep_vs_cpu(cfg, ds, device, steps)
+        emit(f"{phase}_lockstep_vs_cpu", phase_s=time.perf_counter()
+             - t_phase, losses=[s["loss"] for s in records], **lockstep)
+    elif not finite or (falling and not losses[steps] < losses[1]):
+        raise AssertionError(f"losses not finite"
+                             f"{' and falling' if falling else ''}: "
+                             f"{[s['loss'] for s in records]}")
     timing = loop.timer.summary()
     row = {"steps": result.iterations, "loss_kind": kind,
            "negative_mode": loop_kwargs.get("negative_mode", "binomial"),
@@ -1802,6 +1981,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "batch_ms": [s["batch_ms"] for s in records],
            "step_ms": [s["step_ms"] for s in records],
            **{f"loss_{i}": v for i, v in losses.items()},
+           "loss_fell": losses[steps] < losses[1], "losses_finite": finite,
+           **{k: v for k, v in lockstep.items() if k.startswith("first")},
            "wall_s": wall_s, "steps_per_s": timing["steps_per_sec"],
            "edges_per_s": timing["edges_per_sec"],
            "launches_per_step": launches // steps,
@@ -1886,7 +2067,7 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
 FIT_CUTS = {"early_stopping_check_every": 10, "early_stopping_burnin": 20,
             "report_train_loss_every": 10}
 FIT_STEPS = 40
-PREFETCH_STEPS = 30
+PREFETCH_STEPS = 15
 PROFILE_STEPS = 5
 # The thread switch interval (s) of the interpreter-lock diagnostic runs,
 # against the default 5 ms.
@@ -2379,7 +2560,7 @@ def kernels_line(rows, serve, grads, train, fit, paths) -> list:
                        if r["kernel"] == "block_direction_twin"}}]
 
 
-def basis_kernels_line(kb, serve, train) -> list:
+def basis_kernels_line(kb, serve, train, paths) -> list:
     """basis_project and basis_combine with this run's numbers.
     basis_project is timed at the forward shape (x [V, d] @ W_flat) and the
     twin shape (g [V, d] @ w_t), torch.matmul beside it. basis_combine is
@@ -2387,7 +2568,8 @@ def basis_kernels_line(kb, serve, train) -> list:
     first training batch's graph, forward and twin; times and bounds are
     means over the two directions, torch.sparse.mm of combine_matrix
     beside them. Launches are the training run's, split into forward and
-    twin passes, and the serving run's."""
+    twin passes, and the serving run's, and those of the other paths
+    through these kernels (``paths``: phase rows by phase)."""
     proj = {r["shape"]: r for r in kb if r["kernel"] == "basis_project"}
     comb = [r for r in kb if r["kernel"] == "basis_combine"]
     full = [r for r in comb if r.get("graph") == "full_train"]
@@ -2401,6 +2583,8 @@ def basis_kernels_line(kb, serve, train) -> list:
         "launches_forward": train["launches"],
         "launches_twin": train["twin_launches"],
         "launches_serve": serve["project_launches"],
+        "launches_by_path": {k: r["project_launches"]
+                             for k, r in paths.items()},
         "max_abs_err": max(r["max_abs_err"] for r in proj.values()),
         "max_over_allowance": max(r["over_allowance"]
                                   for r in proj.values()),
@@ -2419,6 +2603,8 @@ def basis_kernels_line(kb, serve, train) -> list:
         "name": "tf32_split", "route": "cuda", "source": PROJECT_SOURCE,
         "replaces": REPLACES_BASIS, "launches": train["split_launches"],
         "launches_serve": serve["split_launches"],
+        "launches_by_path": {k: r["split_launches"]
+                             for k, r in paths.items()},
         "max_abs_err": 0.0, "equals_plain_bitwise": True,
         "ms": fwd["split_ms"], "plain_ms": fwd["split_plain_ms"],
         "bound_ms": fwd["split_bound_ms"], "bound_by": "bytes",
@@ -2429,6 +2615,8 @@ def basis_kernels_line(kb, serve, train) -> list:
         "launches_forward": train["launches"],
         "launches_twin": train["twin_launches"],
         "launches_serve": serve["launches"],
+        "launches_by_path": {k: r["launches"] + r.get("twin_launches", 0)
+                             for k, r in paths.items()},
         "fixup_launches": train["fixup_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(max(r["over_allowance"],
@@ -2497,18 +2685,62 @@ def staircase_kernels_line(ks, runs) -> list:
         "train_batch_scatter2_ms": mean_of(batch, "scatter2_ms")}]
 
 
-def mlp_config(ds):
-    """settings/gcn_block.exp with [Decoder] Name=nonlinear-transform (the
-    MLP decoder at its default widths, D=500 over 500-wide codes), loaded
-    from a copy under build/chip_smoke/mlp."""
-    text = SETTINGS.read_text()
-    if "Name=bilinear-diag" not in text:
-        raise AssertionError("gcn_block.exp names no bilinear-diag decoder")
-    path = fresh_dir("mlp") / "gcn_block_mlp.exp"
-    path.write_text(text.replace("Name=bilinear-diag",
-                                 "Name=nonlinear-transform"))
+def variant_config(ds, label, settings, lines):
+    """A copy of ``settings`` with each (old, new) line of ``lines``
+    replaced, written under build/chip_smoke/<label> and loaded."""
+    text = settings.read_text()
+    for old, new in lines:
+        if old not in text:
+            raise AssertionError(f"{settings.name} has no line {old!r}")
+        text = text.replace(old, new)
+    path = fresh_dir(label) / f"{settings.stem}_{label}.exp"
+    path.write_text(text)
     return config.load(str(path)).with_counts(
         ds.n_entities, ds.n_relations, len(ds.train))
+
+
+def mlp_config(ds):
+    """settings/gcn_block.exp with [Decoder] Name=nonlinear-transform (the
+    MLP decoder at its default widths, D=500 over 500-wide codes)."""
+    return variant_config(ds, "mlp", SETTINGS, [
+        ("Name=bilinear-diag", "Name=nonlinear-transform")])
+
+
+# The rest of the encoder surface: (phase suffix, settings file, its
+# changed lines, the aggregation op its path launches).
+ENCODER_VARIANTS = (
+    ("plus_diag", BASIS_SETTINGS, [("AddDiagonal=No", "AddDiagonal=Yes")],
+     staircase.staircase_aggregate),
+    ("times_diag", BASIS_SETTINGS,
+     [("DiagonalCoefficients=No", "DiagonalCoefficients=Yes")],
+     staircase.staircase_aggregate),
+    ("stored", BASIS_SETTINGS, [("StoreEdgeData=No", "StoreEdgeData=Yes")],
+     staircase.staircase_aggregate),
+    ("vgcn", BASIS_SETTINGS,
+     [("Name=gcn_basis", "Name=variational_gcn_basis")],
+     staircase2.basis_direction),
+    ("vemb", ROOT / "settings" / "distmult.exp",
+     [("Name=embedding", "Name=variational_embedding")], None),
+    ("highway", SETTINGS,
+     [("SkipConnections=None", "SkipConnections=Highway")],
+     staircase2.block_direction),
+    ("residual_out", SETTINGS,
+     [("SkipConnections=None", "SkipConnections=Residual"),
+      ("UseOutputTransform=No", "UseOutputTransform=Yes")],
+     staircase2.block_direction),
+    ("random", SETTINGS, [("UseInputTransform=Yes", "UseInputTransform=No"),
+                          ("RandomInput=No", "RandomInput=Yes")],
+     staircase2.block_direction),
+    ("partial", SETTINGS,
+     [("UseInputTransform=Yes", "UseInputTransform=No"),
+      ("PartiallyRandomInput=No", "PartiallyRandomInput=Yes")],
+     staircase2.block_direction),
+)
+VARIANT_STEPS = 6
+# variational_gcn_basis at full width: its loss leaves the floats after
+# the first Adam step, on the CPU plain path as on the card (PERF.md §6,
+# PR 9), which lockstep_vs_cpu shows in every run.
+NONFINITE_OK = ("vgcn",)
 
 
 def build_all() -> None:
@@ -2629,9 +2861,26 @@ def main() -> int:
     paths["serve_mlp"] = phase_serve(ds, device, mlp_cfg, phase="serve_mlp")
     paths["train_mlp"] = phase_train(mlp_cfg, ds, device, phase="train_mlp")
 
+    # The rest of the encoder surface (ENCODER_VARIANTS), each path's
+    # launches listed with the kernel it runs (none for vemb).
+    basis_paths = {}
+    by_op = {staircase2.block_direction: paths,
+             staircase2.basis_direction: basis_paths,
+             staircase.staircase_aggregate: runs, None: {}}
+    for label, settings, lines, op in ENCODER_VARIANTS:
+        v_cfg = variant_config(ds, label, settings, lines)
+        steps_kw = {"compare_positives": EMBEDDING_COMPARE_POSITIVES} \
+            if op is None else {}
+        by_op[op][f"serve_{label}"] = phase_serve(ds, device, v_cfg, op,
+                                                  f"serve_{label}")
+        by_op[op][f"train_{label}"] = phase_train(
+            v_cfg, ds, device, op, f"train_{label}", steps=VARIANT_STEPS,
+            falling=False, nonfinite_ok=label in NONFINITE_OK, **steps_kw)
+
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
                                               paths)
-                      + basis_kernels_line(kb, serve_b, train_b)
+                      + basis_kernels_line(kb, serve_b, train_b,
+                                           basis_paths)
                       + staircase_kernels_line(ks, runs)}),
           flush=True)
     print(smi, flush=True)

@@ -3,7 +3,10 @@
 Counterpart of ``relationprediction_tpu/graph.py``. The reference's
 ``forward_incidence_matrix('global') @ messages`` is a sparse softmax of ones
 per receiver row (== 1/in-degree) followed by SpMM; here, as there, the
-1/degree weights are computed once on the host (``_host_norm``).
+1/degree weights are computed once on the host (``_host_norm``), and so
+are the other normalizations of ``degree_normalization``
+(``graph.py:476-520`` there): 'local' (1 / the count of the edge's
+(target, relation) pair) and 'none' (unit weights).
 
 Where the JAX package lays the edges out in TPU slots (row blocks of 256,
 chunks of 512, phantom rows and a finishing segment-sum), the port keeps one
@@ -102,12 +105,17 @@ class GraphBatch:
       sender (``bwd_norm``).
     fwd_twin: fwd's backward layout: bwd's rows and edges with fwd's
       weights. bwd_twin: fwd's rows and edges with bwd's weights.
+    fwd_order / bwd_order: int64 [E], the input edge (row of the triples
+      the graph was built from) of each fwd / bwd CSR entry; the
+      stored-message layer indexes its per-edge caches through them.
     """
 
     fwd: CsrLayout
     bwd: CsrLayout
     fwd_twin: CsrLayout
     bwd_twin: CsrLayout
+    fwd_order: torch.Tensor
+    bwd_order: torch.Tensor
     n_vertices: int
     n_relations: int
 
@@ -128,13 +136,18 @@ class GraphBatch:
         bwd = CsrLayout(*map(fn, self.bwd.tensors()))
         return GraphBatch(fwd, bwd, replace(bwd, w=fn(self.fwd_twin.w)),
                           replace(fwd, w=fn(self.bwd_twin.w)),
+                          fn(self.fwd_order), fn(self.bwd_order),
                           self.n_vertices, self.n_relations)
 
     def tensors(self) -> list:
         """Every distinct tensor of the graph (the twins' index arrays are
         the opposite layout's)."""
         return (self.fwd.tensors() + self.bwd.tensors()
-                + [self.fwd_twin.w, self.bwd_twin.w])
+                + [self.fwd_twin.w, self.bwd_twin.w, self.fwd_order,
+                   self.bwd_order])
+
+
+NORMALIZATIONS = ("global", "local", "none")
 
 
 def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
@@ -142,34 +155,48 @@ def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
     """Host-side construction of a GraphBatch (on the CPU) from an [N, 3]
     (s, r, o) array; ``GraphBatch.to`` moves it to the card.
 
-    Only 'global' normalization is ported; 'local' and 'none' raise.
+    ``normalization`` sets every layout's weights, per direction (the
+    target is the receiver forward, the sender backward): 'global' 1 /
+    degree of the target, 'local' 1 / count of the (target, relation)
+    pair, 'none' 1.
     """
-    if normalization != "global":
-        raise NotImplementedError(
-            f"normalization={normalization!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item 2)")
+    if normalization not in NORMALIZATIONS:
+        raise ValueError(f"unknown normalization {normalization!r}")
     triples = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
     senders, relations, receivers = triples.T
     if len(triples) and relations.max() >= n_relations:
         raise ValueError(f"relation id >= n_relations={n_relations}")
-    fwd_norm = _host_norm(receivers, n_vertices)
-    bwd_norm = _host_norm(senders, n_vertices)
+    fwd_w = _host_norm(receivers, relations, n_vertices, n_relations,
+                       normalization)
+    bwd_w = _host_norm(senders, relations, n_vertices, n_relations,
+                       normalization)
     # Every edge is real here (weights > 0, vertices checked), so both
     # CSRs hold the same edges and each order permutes all of them.
-    fwd, fwd_order = build_csr(senders, relations, receivers, fwd_norm,
+    fwd, fwd_order = build_csr(senders, relations, receivers, fwd_w,
                                n_vertices)
-    bwd, bwd_order = build_csr(receivers, relations, senders, bwd_norm,
+    bwd, bwd_order = build_csr(receivers, relations, senders, bwd_w,
                                n_vertices)
     return GraphBatch(
         fwd=fwd, bwd=bwd,
-        fwd_twin=replace(bwd, w=torch.from_numpy(fwd_norm[bwd_order])),
-        bwd_twin=replace(fwd, w=torch.from_numpy(bwd_norm[fwd_order])),
+        fwd_twin=replace(bwd, w=torch.from_numpy(fwd_w[bwd_order])),
+        bwd_twin=replace(fwd, w=torch.from_numpy(bwd_w[fwd_order])),
+        fwd_order=torch.from_numpy(fwd_order),
+        bwd_order=torch.from_numpy(bwd_order),
         n_vertices=int(n_vertices),
         n_relations=int(n_relations))
 
 
-def _host_norm(targets: np.ndarray, n_vertices: int) -> np.ndarray:
-    """'global' per-edge weights: 1 / degree of the edge's target
-    (``relationprediction_tpu/graph.py:_host_norm``)."""
-    deg = np.bincount(targets, minlength=n_vertices)
-    return (1.0 / np.maximum(deg[targets], 1.0)).astype(np.float32)
+def _host_norm(targets: np.ndarray, relations: np.ndarray, n_vertices: int,
+               n_relations: int, normalization: str) -> np.ndarray:
+    """Per-edge weights of one direction (``relationprediction_tpu/
+    graph.py:degree_normalization``): 'global' 1 / degree of the edge's
+    target, 'local' 1 / count of its (target, relation) pair, 'none' 1."""
+    if normalization == "none":
+        return np.ones(len(targets), dtype=np.float32)
+    if normalization == "global":
+        key, n_keys = targets, n_vertices
+    else:
+        key = targets * n_relations + relations
+        n_keys = n_vertices * n_relations
+    count = np.bincount(key, minlength=n_keys)
+    return (1.0 / np.maximum(count[key], 1.0)).astype(np.float32)

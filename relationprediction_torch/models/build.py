@@ -1,17 +1,21 @@
 """Model assembly: config -> encoder/decoder over a dictionary of parameters.
 
-Counterpart of ``relationprediction_tpu/models/build.py`` for the four
-shipped settings and two variants: the block-diagonal or
-basis-decomposition R-GCN with an input transform (``gcn_block.exp``,
-``gcn_basis.exp``), the basis R-GCN on one-hot input
-(``UseInputTransform=No``), ``gcn_diag``, and the embedding table with no
-graph (``distmult.exp``, ``complex.exp``), each with the DistMult, ComplEx
+Counterpart of ``relationprediction_tpu/models/build.py`` for every
+encoder configuration the JAX package accepts: the embedding table
+(``distmult.exp``, ``complex.exp``) and the variational one, and the
+R-GCN (``gcn_block.exp``, ``gcn_basis.exp``, gcn_diag, the variational
+R-GCN) with every layer variant, input stage (input transform, one-hot,
+random or partially random input), skip connection (highway, residual)
+and the output transform; the stored-message variant with its cache state
+(``encode_stateful``, ``loss_stateful``). Each with the DistMult, ComplEx
 or MLP decoder, encoded in test mode and scored against all entities, or
 encoded in train mode and scored by one of the training objectives: the
 tiled loss (``loss``), the factored binomial loss, the split protocol's
-``loss_structured`` or the shared pool's ``loss_shared_negatives``.
-Parameters are a plain dictionary of tensors with the JAX package's tree
-layout (params.py converts between the two).
+``loss_structured`` or the shared pool's ``loss_shared_negatives``, each
+with the variational encoders' KL term. bf16 ``message_precision`` and
+``stream_precision`` raise NotImplementedError (ROADMAP.md Queue 1 item
+1). Parameters are a plain dictionary of tensors with the JAX package's
+tree layout (params.py converts between the two).
 """
 from __future__ import annotations
 
@@ -70,24 +74,49 @@ def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
 class EncodeResult(NamedTuple):
     entity_codes: torch.Tensor    # [V, d]
     relation_codes: torch.Tensor  # [R, d]
+    # The variational encoders' pre-noise statistics (the KL term's
+    # inputs), else None.
+    mu: Optional[torch.Tensor] = None
+    log_sigma: Optional[torch.Tensor] = None
+
+
+class EncoderNoise(NamedTuple):
+    """An encode's random draws besides the dropout keep-masks, each None
+    where the configuration does not use it: the random input, U(-1, 1)
+    [V, internal_dimension] (random and partially random input); the
+    dropover choice, U(-1, 1) of the same shape (partially random input,
+    train mode); the variational noise, N(0, 1) [V, code_dimension]."""
+    random_input: Optional[torch.Tensor] = None
+    dropover: Optional[torch.Tensor] = None
+    eps: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "EncoderNoise":
+        return EncoderNoise(*(None if t is None else t.to(device)
+                              for t in self))
+
+
+ENCODERS = ("embedding", "variational_embedding", "gcn_basis", "gcn_diag",
+            "variational_gcn_basis")
+# The seed of the test-mode noise: the JAX package encodes in test mode
+# with PRNGKey(0) at every call (``build.py:346-347``).
+TEST_NOISE_SEED = 0
 
 
 def _check_supported(config: RunConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+    """Raise ValueError for an unknown encoder or skip connection, and
+    NotImplementedError for what the port does not run yet: bf16
+    message or decoder-stream precision."""
     e = config.encoder
-    if e.name not in ("embedding", "gcn_basis", "gcn_diag"):
-        raise NotImplementedError(f"encoder {e.name!r} is not ported yet "
-                                  f"(ROADMAP.md Queue 1 item 2)")
-    if e.name == "gcn_basis" and e.gcn_variant not in enc.PORTED_VARIANTS:
-        raise enc.not_ported(e.gcn_variant)
-    if e.random_input or e.partially_random_input \
-            or e.use_output_transform or e.skip_connections != "None":
-        raise NotImplementedError("random input, the output transform and "
-                                  "skip connections are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 2)")
+    if e.name not in ENCODERS:
+        raise ValueError(f"unknown encoder {e.name!r}")
+    if e.skip_connections not in ("None", "Highway", "Residual"):
+        raise ValueError(f"unknown skip connection {e.skip_connections!r}")
     if e.message_precision != "float32":
         raise NotImplementedError("message_precision=bfloat16 is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 2)")
+                                  "yet (ROADMAP.md Queue 1 item 1)")
+    if config.decoder.stream_precision != "float32":
+        raise NotImplementedError("stream_precision=bfloat16 is not ported "
+                                  "yet (ROADMAP.md Queue 1 item 1)")
 
 
 class RGCNModel:
@@ -103,23 +132,41 @@ class RGCNModel:
         self.n_entities = config.entity_count
         self.n_relations = config.relation_count
         e = config.encoder
-        # ``embedding`` is an entity table with no graph
-        # (``build.py:141-143``, ``:350-354``).
-        self.is_gcn = e.name != "embedding"
+        # The embedding encoders are entity tables with no graph
+        # (``build.py:141-148``, ``:350-362``).
+        self.is_gcn = e.name in ("gcn_basis", "gcn_diag",
+                                 "variational_gcn_basis")
+        self.variational = e.name in ("variational_embedding",
+                                      "variational_gcn_basis")
         # gcn_diag always builds an input transform (``build.py:125-130``);
-        # without one the first layer takes one-hot input.
+        # random and partially random input feed dense codes too; with
+        # none of them the first layer takes one-hot input.
         self.has_input_transform = self.is_gcn and (
             e.name == "gcn_diag" or e.use_input_transform)
-        self.first_layer_onehot = self.is_gcn \
-            and not self.has_input_transform
+        self.random_input = self.is_gcn and not self.has_input_transform \
+            and e.random_input
+        self.partially_random_input = self.is_gcn \
+            and not self.has_input_transform and not e.random_input \
+            and e.partially_random_input
+        self.first_layer_onehot = self.is_gcn and not (
+            self.has_input_transform or self.random_input
+            or self.partially_random_input)
         # ``EncoderConfig.gcn_variant`` alone says "basis" for gcn_diag
         # (``build.py:158``, ``:388``).
         self.variant = "diag" if e.name == "gcn_diag" else e.gcn_variant
+        # The stored-message variant carries per-edge caches through the
+        # train steps (``build.py:198-204``).
+        self.has_state = self.is_gcn and self.variant == "basis_stored"
         # The fused kernels (TPU kernels 1-2) serve block and basis layers
-        # after an input transform; every other layer sums per-edge
-        # messages with TPU kernel 3 (``build.py:270-278``).
+        # on dense input: after an input transform, and after random or
+        # partially random input too, where the JAX package takes its v1
+        # layouts only because its ``preferred_staircase2`` keys on the
+        # input transform (``build.py:270-278``); the function is the
+        # same. Every other layer sums per-edge messages with TPU kernel
+        # 3.
         self.preferred_staircase2 = self.is_gcn \
-            and e.use_input_transform and self.variant in ("block", "basis")
+            and not self.first_layer_onehot \
+            and self.variant in ("block", "basis")
         self.decoder = decoders_lib.build_decoder(
             config.decoder.name,
             code_dimension=config.decoder.code_dimension,
@@ -132,27 +179,46 @@ class RGCNModel:
     # ------------------------------------------------------------------
     def init_params(self, generator: torch.Generator) -> Dict:
         """Random parameters drawn from ``generator`` (``build.py:135-190``),
-        moved to the model's device."""
+        moved to the model's device. ``highways`` holds one gate a layer,
+        None for a layer on one-hot input, and is left out where no layer
+        has one."""
         e = self.config.encoder
-        d_int = e.internal_dimension
+        d_int, d_code = e.internal_dimension, e.code_dimension
         params: Dict = {}
-        if not self.is_gcn:
+        if e.name == "embedding":
             params["embedding"] = enc.init_affine(
-                generator, (self.n_entities, e.code_dimension),
-                use_bias=False)
+                generator, (self.n_entities, d_code), use_bias=False)
+        elif e.name == "variational_embedding":
+            for key in ("mu_embedding", "sigma_embedding"):
+                params[key] = enc.init_affine(
+                    generator, (self.n_entities, d_code), use_bias=False)
         else:
-            if self.has_input_transform:
+            if self.has_input_transform or self.partially_random_input:
                 params["input_transform"] = enc.init_affine(
                     generator, (self.n_entities, d_int), use_bias=True)
-            params["gcn_layers"] = [
-                enc.init_gcn_layer(
+            layers, highways = [], []
+            for layer in range(e.n_layers):
+                onehot = self.first_layer_onehot and layer == 0
+                layers.append(enc.init_gcn_layer(
                     generator, self.variant, n_relations=self.n_relations,
                     d_in=d_int, d_out=d_int, n_bases=e.n_bases,
-                    onehot_dim=self.n_entities
-                    if self.first_layer_onehot and layer == 0 else None)
-                for layer in range(e.n_layers)]
+                    onehot_dim=self.n_entities if onehot else None))
+                highways.append(
+                    enc.init_highway(generator, (d_int, d_int))
+                    if e.skip_connections == "Highway" and not onehot
+                    else None)
+            params["gcn_layers"] = layers
+            if any(h is not None for h in highways):
+                params["highways"] = highways
+            if e.name == "variational_gcn_basis":
+                for key in ("mu_projection", "sigma_projection"):
+                    params[key] = enc.init_affine(generator, (d_int, d_code),
+                                                  use_bias=True)
+            if e.use_output_transform:
+                params["output_transform"] = enc.init_affine(
+                    generator, (d_int, d_code), use_bias=True)
         params["relation_embedding"] = enc.init_relation_embedding(
-            generator, self.n_relations, e.code_dimension)
+            generator, self.n_relations, d_code)
         params["decoder"] = self.decoder.init(generator)
         return map_tree(lambda t: t.to(self.device), params)
 
@@ -177,27 +243,59 @@ class RGCNModel:
     def encode(self, params: Dict, graph: Optional[GraphBatch], *,
                deterministic: bool,
                generator: Optional[torch.Generator] = None,
-               keep_masks: Optional[Sequence[torch.Tensor]] = None
-               ) -> EncodeResult:
+               keep_masks: Optional[Sequence[torch.Tensor]] = None,
+               noise: Optional[EncoderNoise] = None) -> EncodeResult:
         """All-entity codes [V, d] and relation codes [R, d]
-        (``build.py:335-421``).
+        (``build.py:335-421``): the input stage (input transform, random
+        input, partially random input, or one-hot), the layers, each
+        after the first dense one wrapped by its highway gate or residual,
+        then the variational stage and the output transform.
 
         Train mode (``deterministic`` false) drops self-loop messages with
         one keep-mask per layer: ``keep_masks[layer]`` [V, d] bool where
-        given, else drawn from ``generator``. The embedding encoder reads
-        its table and takes no graph.
+        given, else drawn from ``generator``. ``noise`` holds the other
+        draws (``draw_noise``); where it is None they are drawn from
+        ``generator`` in train mode and, in test mode, from a CPU
+        generator seeded ``TEST_NOISE_SEED`` at every encode, so each
+        test-mode encode sees the same noise on every device, as the JAX
+        package's does.
         """
         e = self.config.encoder
+        if noise is None:
+            noise = self.draw_noise(
+                torch.Generator().manual_seed(TEST_NOISE_SEED)
+                if deterministic else generator, deterministic
+            ).to(self.device)
         rel = params["relation_embedding"]["W_relation"]
-        if not self.is_gcn:
+        if e.name == "embedding":
             return EncodeResult(params["embedding"]["W"], rel)
-        features = None  # one-hot input to the first layer
+        if e.name == "variational_embedding":
+            mu = params["mu_embedding"]["W"]
+            log_sigma = params["sigma_embedding"]["W"]
+            return EncodeResult(enc.apply_variational(noise.eps, mu,
+                                                      log_sigma),
+                                rel, mu, log_sigma)
+
+        # -- input stage ---------------------------------------------------
         if self.has_input_transform:
             features = enc.apply_affine(params["input_transform"], None,
                                         onehot_input=True, use_bias=True,
                                         use_nonlinearity=True)
+        elif self.random_input:
+            features = noise.random_input
+        elif self.partially_random_input:
+            # the affine map without its ReLU (``build.py:377-379``)
+            c1 = enc.apply_affine(params["input_transform"], None,
+                                  onehot_input=True, use_bias=True)
+            features = enc.apply_dropover(noise.dropover, c1,
+                                          noise.random_input, deterministic)
+        else:
+            features = None  # one-hot input to the first layer
+
+        # -- message-passing layers ----------------------------------------
+        highways = params.get("highways")
         for layer_idx, layer_params in enumerate(params["gcn_layers"]):
-            features = enc.apply_gcn_layer(
+            new = enc.apply_gcn_layer(
                 layer_params, self.variant, graph, features,
                 fused=self.preferred_staircase2,
                 use_nonlinearity=layer_idx < e.n_layers - 1,
@@ -206,17 +304,135 @@ class RGCNModel:
                 n_vertices=self.n_entities,
                 keep_mask=None if keep_masks is None
                 else keep_masks[layer_idx])
-        return EncodeResult(features, rel)
+            if features is not None and e.skip_connections == "Highway":
+                new = enc.apply_highway(highways[layer_idx], new, features)
+            elif features is not None and e.skip_connections == "Residual":
+                new = enc.apply_residual(new, features)
+            features = new
+
+        # -- variational stage and output transform ------------------------
+        mu = log_sigma = None
+        if e.name == "variational_gcn_basis":
+            mu = enc.apply_affine(params["mu_projection"], features)
+            log_sigma = enc.apply_affine(params["sigma_projection"],
+                                         features)
+            features = enc.apply_variational(noise.eps, mu, log_sigma)
+        if e.use_output_transform:
+            features = enc.apply_affine(params["output_transform"], features)
+        return EncodeResult(features, rel, mu, log_sigma)
 
     def draw_keep_masks(self, generator: torch.Generator) -> list:
         """One train-mode dropout keep-mask [V, d] per layer, drawn on the
-        generator's device; none for the embedding encoder."""
+        generator's device; none for the embedding encoders."""
         e = self.config.encoder
         if not self.is_gcn:
             return []
         return [enc.draw_keep_mask((self.n_entities, e.internal_dimension),
                                    e.dropout_keep_probability, generator)
                 for _ in range(e.n_layers)]
+
+    def draw_noise(self, generator: Optional[torch.Generator],
+                   deterministic: bool = False) -> EncoderNoise:
+        """The encode's other draws (``EncoderNoise``), in this order and
+        only those the configuration uses: the random input, the dropover
+        choice (train mode only), the variational noise. Draws nothing for
+        any other configuration; raises ValueError where a draw is needed
+        and ``generator`` is None."""
+        e = self.config.encoder
+        random_in = self.random_input or self.partially_random_input
+        dropover = self.partially_random_input and not deterministic
+        if not (random_in or dropover or self.variational):
+            return EncoderNoise()
+        if generator is None:
+            raise ValueError(f"the {e.name} encoder's random draws need a "
+                             f"noise tuple or a torch.Generator")
+        v, d = self.n_entities, e.internal_dimension
+
+        def uniform():
+            return enc.random_embedding(generator, v, d)
+        return EncoderNoise(
+            random_input=uniform() if random_in else None,
+            dropover=uniform() if dropover else None,
+            eps=torch.randn((v, e.code_dimension), generator=generator,
+                            device=generator.device)
+            if self.variational else None)
+
+    def plus_kl(self, loss: torch.Tensor,
+                encoded: EncodeResult) -> torch.Tensor:
+        """``loss`` plus the variational encoders' KL penalty, which every
+        training loss adds (``build.py:463-465``); ``loss`` itself for any
+        other encoder."""
+        if not self.variational:
+            return loss
+        return loss + enc.variational_kl_penalty(encoded.mu,
+                                                 encoded.log_sigma)
+
+    # ------------------------------------------------------------------
+    # The stored-message variant (``build.py:198-258``)
+    # ------------------------------------------------------------------
+    def init_cache_state(self) -> list:
+        """Zero stored-message caches, one dict a layer, on the model's
+        device (``gcn_basis_stored.py:33-35``)."""
+        e = self.config.encoder
+        return [enc.init_stored_state(self.config.edge_count,
+                                      self.n_entities, e.internal_dimension,
+                                      self.device)
+                for _ in range(e.n_layers)]
+
+    def encode_stateful(self, params: Dict, state: list, graph: GraphBatch,
+                        edge_ids: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None,
+                        keep_masks: Optional[Sequence[torch.Tensor]] = None
+                        ) -> Tuple[EncodeResult, list]:
+        """Train-mode encode of the stored-message variant: as ``encode``,
+        but each layer takes and returns its cache state
+        (``enc.apply_gcn_layer_stored``; ``edge_ids``: the graph's input
+        edges' ids into the train set). As in the JAX package, the input
+        stage is the input transform or one-hot input, and the output
+        transform follows the layers."""
+        if not self.has_state:
+            raise ValueError("encode_stateful is for the stored-message "
+                             "variant (StoreEdgeData=Yes)")
+        e = self.config.encoder
+        features = None
+        if e.use_input_transform:
+            features = enc.apply_affine(params["input_transform"], None,
+                                        onehot_input=True, use_bias=True,
+                                        use_nonlinearity=True)
+        new_state = []
+        for layer_idx, layer_params in enumerate(params["gcn_layers"]):
+            features, st = enc.apply_gcn_layer_stored(
+                layer_params, state[layer_idx], graph, features, edge_ids,
+                use_nonlinearity=layer_idx < e.n_layers - 1,
+                dropout_keep=e.dropout_keep_probability,
+                deterministic=False, generator=generator,
+                n_vertices=self.n_entities,
+                keep_mask=None if keep_masks is None
+                else keep_masks[layer_idx])
+            new_state.append(st)
+        if e.use_output_transform:
+            features = enc.apply_affine(params["output_transform"], features)
+        rel = params["relation_embedding"]["W_relation"]
+        return EncodeResult(features, rel), new_state
+
+    def loss_stateful(self, params: Dict, state: list, graph: GraphBatch,
+                      edge_ids: torch.Tensor, triples: torch.Tensor,
+                      labels: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None, *,
+                      generator: Optional[torch.Generator] = None,
+                      keep_masks: Optional[Sequence] = None
+                      ) -> Tuple[torch.Tensor, list]:
+        """The tiled objective of the stored variant on a host-tiled batch;
+        returns (loss, new state). The new caches carry no gradient."""
+        encoded, new_state = self.encode_stateful(
+            params, state, graph, edge_ids, generator=generator,
+            keep_masks=keep_masks)
+        e1, r, e2 = self.gather_codes(encoded, triples)
+        dp = params["decoder"]
+        energies = self.decoder.energies(dp, e1, r, e2)
+        return (decoders_lib.weighted_ce_loss(energies, labels, mask)
+                + self.decoder.regularization(dp, e1, r, e2, mask)), \
+            new_state
 
     # ------------------------------------------------------------------
     # Training loss
@@ -234,32 +450,35 @@ class RGCNModel:
              triples: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None, *,
              deterministic: bool = False,
-             keep_masks: Optional[Sequence] = None) -> torch.Tensor:
+             keep_masks: Optional[Sequence] = None,
+             noise: Optional[EncoderNoise] = None) -> torch.Tensor:
         """The tiled objective (``build.py:442-466``): mean sigmoid CE over
-        the triples plus the decoder's regularization, for any decoder.
+        the triples plus the decoder's regularization, for any decoder,
+        plus the KL term of a variational encoder.
 
         triples [N, 3] (positives and their corruptions, host-tiled or from
         ``device_negative_sample``); labels / mask [N] float32."""
         encoded = self.encode(params, graph, deterministic=deterministic,
-                              keep_masks=keep_masks)
+                              keep_masks=keep_masks, noise=noise)
         e1, r, e2 = self.gather_codes(encoded, triples)
         dp = params["decoder"]
         energies = self.decoder.energies(dp, e1, r, e2)
-        return (decoders_lib.weighted_ce_loss(energies, labels, mask)
-                + self.decoder.regularization(dp, e1, r, e2, mask))
+        return self.plus_kl(
+            decoders_lib.weighted_ce_loss(energies, labels, mask)
+            + self.decoder.regularization(dp, e1, r, e2, mask), encoded)
 
     def _factorizable_codes(self, params, graph, positives, what,
-                            deterministic, keep_masks):
-        """(codes [V, d], e1, r, e2, positive energies, q_subj, q_obj) of a
-        loss that scores corruptions against one factor a positive."""
+                            deterministic, keep_masks, noise):
+        """(encoded, e1, r, e2, positive energies, q_subj, q_obj) of a loss
+        that scores corruptions against one factor a positive."""
         if not getattr(self.decoder, "factorizable", False):
             raise ValueError(f"decoder {self.decoder.name} does not support "
                              f"the {what} loss")
         encoded = self.encode(params, graph, deterministic=deterministic,
-                              keep_masks=keep_masks)
+                              keep_masks=keep_masks, noise=noise)
         e1, r, e2 = self.gather_codes(encoded, positives)
         dp = params["decoder"]
-        return (encoded.entity_codes, e1, r, e2,
+        return (encoded, e1, r, e2,
                 self.decoder.energies(dp, e1, r, e2),
                 self.decoder.subject_factor(dp, r, e2),
                 self.decoder.object_factor(dp, e1, r))
@@ -300,7 +519,8 @@ class RGCNModel:
                         neg_subjects: torch.Tensor,
                         neg_objects: torch.Tensor, *,
                         deterministic: bool = False,
-                        keep_masks: Optional[Sequence] = None
+                        keep_masks: Optional[Sequence] = None,
+                        noise: Optional[EncoderNoise] = None
                         ) -> torch.Tensor:
         """The split protocol's loss (``build.py:530-613``): the tiled
         objective over [positives; subject corruptions; object
@@ -311,9 +531,10 @@ class RGCNModel:
         neg_objects [n, k_o] corrupted entity ids
         (``device_negative_entities_split``). Raises ValueError for a
         decoder that is not factorizable."""
-        codes, e1, r, e2, pos_energy, q_subj, q_obj = \
+        encoded, e1, r, e2, pos_energy, q_subj, q_obj = \
             self._factorizable_codes(params, graph, positives, "split",
-                                     deterministic, keep_masks)
+                                     deterministic, keep_masks, noise)
+        codes = encoded.entity_codes
         subj_energy, e1n_sq = single_factor_negative_energies(
             codes, q_subj, neg_subjects)
         obj_energy, e2n_sq = single_factor_negative_energies(
@@ -321,10 +542,10 @@ class RGCNModel:
         m = pos_mask[:, None]
         # e1 survives in the positive and the object corruptions, e2 in
         # the positive and the subject corruptions; corrupted codes once.
-        return self._grouped_objective(
+        return self.plus_kl(self._grouped_objective(
             pos_energy, (subj_energy, obj_energy), e1, r, e2, pos_mask,
             (e1n_sq * m).sum(), (e2n_sq * m).sum(),
-            1 + obj_energy.shape[1], 1 + subj_energy.shape[1])
+            1 + obj_energy.shape[1], 1 + subj_energy.shape[1]), encoded)
 
     def loss_shared_negatives(self, params: Dict,
                               graph: Optional[GraphBatch],
@@ -332,7 +553,8 @@ class RGCNModel:
                               pos_mask: torch.Tensor,
                               neg_pool: torch.Tensor, *,
                               deterministic: bool = False,
-                              keep_masks: Optional[Sequence] = None
+                              keep_masks: Optional[Sequence] = None,
+                              noise: Optional[EncoderNoise] = None
                               ) -> torch.Tensor:
         """The shared pool's loss (``build.py:615-689``): every positive
         scores against one pool of P entities as corrupted subjects and as
@@ -342,17 +564,17 @@ class RGCNModel:
 
         neg_pool [P] entity ids (``device_negative_pool``). Raises
         ValueError for a decoder that is not factorizable."""
-        codes, e1, r, e2, pos_energy, q_subj, q_obj = \
+        encoded, e1, r, e2, pos_energy, q_subj, q_obj = \
             self._factorizable_codes(params, graph, positives, "shared",
-                                     deterministic, keep_masks)
+                                     deterministic, keep_masks, noise)
         exact_float32()
-        pool = codes[neg_pool.long()]                           # [P, d]
+        pool = encoded.entity_codes[neg_pool.long()]            # [P, d]
         p = pool.shape[0]
         # Pool codes count once per real positive and side.
         pool_sq = (pool ** 2).sum() * pos_mask.sum().clamp(min=1.0)
-        return self._grouped_objective(
+        return self.plus_kl(self._grouped_objective(
             pos_energy, (q_subj @ pool.T, q_obj @ pool.T), e1, r, e2,
-            pos_mask, pool_sq, pool_sq, 1 + p, 1 + p)
+            pos_mask, pool_sq, pool_sq, 1 + p, 1 + p), encoded)
 
     def loss_binomial_factored(self, params: Dict, graph: GraphBatch,
                                positives: torch.Tensor,
@@ -360,7 +582,8 @@ class RGCNModel:
                                neg_values: torch.Tensor,
                                corrupt_object: torch.Tensor, *,
                                deterministic: bool = False,
-                               keep_masks: Optional[Sequence] = None
+                               keep_masks: Optional[Sequence] = None,
+                               noise: Optional[EncoderNoise] = None
                                ) -> torch.Tensor:
         """The reference's binomial-corruption objective without the
         (rate+1)-tiled batch (``build.py:468-528``): each negative shares
@@ -374,15 +597,15 @@ class RGCNModel:
         dropout keep-mask per layer (``draw_keep_masks``). Raises
         ValueError for a decoder that is not factorizable.
         """
-        codes, e1, r, e2, pos_energy, q_subj, q_obj = \
+        encoded, e1, r, e2, pos_energy, q_subj, q_obj = \
             self._factorizable_codes(params, graph, positives,
                                      "factored binomial", deterministic,
-                                     keep_masks)
+                                     keep_masks, noise)
         neg_energy, ev_sq = factored_negative_energies(
-            codes, q_subj, q_obj, neg_values, corrupt_object)
-        return binomial_factored_objective(
+            encoded.entity_codes, q_subj, q_obj, neg_values, corrupt_object)
+        return self.plus_kl(binomial_factored_objective(
             self.decoder, pos_energy, neg_energy, ev_sq, e1, r, e2,
-            pos_mask, corrupt_object)
+            pos_mask, corrupt_object), encoded)
 
     def _triples(self, triples) -> torch.Tensor:
         return torch.as_tensor(np.asarray(triples), dtype=torch.long,
@@ -430,11 +653,14 @@ class ModelView:
     The test-mode codes are computed once per (params, graph) pair, compared
     by identity, and each chunk is then only the decoder GEMM. Presents the
     (params, graph, triples) surface of RGCNModel, so it can be handed to
-    evaluation.Scorer.
+    evaluation.Scorer. ``noise``: the encoder's test-mode draws
+    (``EncoderNoise``), else the model's own fixed-seed draws.
     """
 
-    def __init__(self, model: RGCNModel):
+    def __init__(self, model: RGCNModel,
+                 noise: Optional[EncoderNoise] = None):
         self.model = model
+        self.noise = noise
         self._key = None
         self._encoded: Optional[EncodeResult] = None
 
@@ -449,7 +675,8 @@ class ModelView:
                 or self._key[1] is not graph):
             with torch.no_grad():
                 self._encoded = self.model.encode(params, graph,
-                                                  deterministic=True)
+                                                  deterministic=True,
+                                                  noise=self.noise)
             self._key = (params, graph)
         return self._encoded
 

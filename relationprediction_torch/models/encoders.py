@@ -1,14 +1,17 @@
 """Encoder components as (init, apply) pairs over dictionaries of tensors.
 
-Counterpart of ``relationprediction_tpu/models/encoders.py`` for what
-``settings/gcn_block.exp`` and ``settings/gcn_basis.exp`` run, with or
-without an input transform, and ``gcn_diag``: the affine input stage, the
-relation embedding and the block-diagonal, basis-decomposition and diagonal
-R-GCN layers. A layer takes one of two routes, as in the JAX package: the
-fused one (``staircase2.block_direction`` / ``basis_direction``, TPU
-kernels 1-2) for block and basis layers of a model with an input transform,
+Counterpart of ``relationprediction_tpu/models/encoders.py``, all of it:
+the affine stages (input, output, variational projections), the relation
+embedding, the random vertex embedding, every R-GCN layer variant (block,
+basis, diag, basis_plus_diag, basis_times_diag, only_bias, basis_stored
+with its stored-message state), and the highway, residual, dropover and
+variational wrappers. A layer takes one of two routes: the fused one
+(``staircase2.block_direction`` / ``basis_direction``, TPU kernels 1-2)
+for block and basis layers on dense input where the model asks for it,
 else per-edge messages aggregated by ``staircase.staircase_aggregate``
-(TPU kernel 3). Other layer variants raise NotImplementedError.
+(TPU kernel 3). Every random draw (dropout keep-masks, random input, the
+dropover choice, the variational noise) is a tensor argument or is drawn
+from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -64,66 +67,92 @@ def init_relation_embedding(generator: torch.Generator, n_relations: int,
 
 
 # ---------------------------------------------------------------------------
+# Random vertex embedding (ablation input)
+# ---------------------------------------------------------------------------
+
+def random_embedding(generator: torch.Generator, n_vertices: int,
+                     dim: int) -> torch.Tensor:
+    """U(-1, 1) codes [V, dim] (``encoders.py:68-71``), drawn anew at every
+    call like the reference's un-materialized ``tf.random_uniform``
+    (``random_vertex_embedding.py:20-24``). The dropover choice is drawn
+    the same way."""
+    return torch.rand((n_vertices, dim), generator=generator,
+                      device=generator.device) * 2.0 - 1.0
+
+
+# ---------------------------------------------------------------------------
 # Message-passing GCN layer
 # ---------------------------------------------------------------------------
 
-PORTED_VARIANTS = ("block", "basis", "diag")
-
-
-def not_ported(variant: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"gcn variant {variant!r} is not ported yet "
-        f"(ROADMAP.md Queue 1 item 2)")
+GCN_VARIANTS = ("basis", "block", "diag", "basis_plus_diag",
+                "basis_times_diag", "only_bias", "basis_stored")
+# Variants whose messages read x[src] itself, so they need dense input.
+_DENSE_ONLY = ("block", "diag", "basis_plus_diag")
+# Variants that add the layer bias b (``gcn_diag.py:50``); block and basis
+# create one but never add it (reference quirk).
+_ADDS_BIAS = ("diag", "basis_plus_diag", "basis_times_diag")
 
 
 def init_gcn_layer(generator: torch.Generator, variant: str, *,
                    n_relations: int, d_in: int, d_out: int, n_bases: int,
                    onehot_dim: Optional[int] = None
                    ) -> Dict[str, torch.Tensor]:
-    """One layer's parameters (``encoders.py:82-126``). ``onehot_dim``: the
-    entity count, for a first layer that takes one-hot input; a basis
-    layer's W_* and W_self then have one row per entity."""
-    if variant not in PORTED_VARIANTS:
-        raise not_ported(variant)
-    if variant == "basis":
-        feat_dim = onehot_dim if onehot_dim is not None else d_in
-        g = init.glorot_std(feat_dim, d_out)
-        return {
-            "W_forward": init.normal(generator, (feat_dim, n_bases, d_out), g),
-            "W_backward": init.normal(generator, (feat_dim, n_bases, d_out),
-                                      g),
-            "C_forward": init.normal(generator, (n_relations, n_bases), 1.0),
-            "C_backward": init.normal(generator, (n_relations, n_bases),
-                                      1.0),
-            "W_self": init.normal(generator, (feat_dim, d_out), g),
-            "b": init.zeros((d_out,), generator.device),  # unused (ref quirk)
-        }
-    if onehot_dim is not None:
+    """One layer's parameters (``encoders.py:82-153``). ``onehot_dim``: the
+    entity count, for a first layer that takes one-hot input; the basis
+    variants' W_* and W_self then have one row per entity."""
+    if variant not in GCN_VARIANTS:
+        raise ValueError(f"unknown gcn variant {variant!r}")
+    dev = generator.device
+    feat_dim = onehot_dim if onehot_dim is not None else d_in
+    g = init.glorot_std(feat_dim, d_out)
+
+    def normal(shape, std):
+        return init.normal(generator, shape, std)
+
+    if variant == "only_bias":
+        gb = init.glorot_std(n_relations, d_out)
+        return {"b_forward": normal((n_relations, d_out), gb),
+                "b_backward": normal((n_relations, d_out), gb)}
+    if variant in ("block", "diag") and onehot_dim is not None:
         raise ValueError(f"the {variant} layer requires dense input (use an "
                          f"input transform before it)")
     if variant == "diag":
-        g = init.glorot_std(d_in, d_out)
         return {
-            "D_types_forward": init.normal(generator, (n_relations, d_out),
-                                           1.0),
-            "D_types_backward": init.normal(generator, (n_relations, d_out),
-                                            1.0),
-            "W_self": init.normal(generator, (d_in, d_out), g),
-            "b": init.zeros((d_out,), generator.device),
+            "D_types_forward": normal((n_relations, d_out), 1.0),
+            "D_types_backward": normal((n_relations, d_out), 1.0),
+            "W_self": normal((d_in, d_out), g),
+            "b": init.zeros((d_out,), dev),
         }
-    if d_out % n_bases != 0:
-        raise ValueError("block variant needs d_out % n_blocks == 0")
-    dr = d_out // n_bases
-    # glorot over (R, dr), the reference's odd fan choice
-    # (``gcn_basis_concat.py:22``), for W_self too.
-    g = init.glorot_std(n_relations, dr)
-    return {
-        "W_forward": init.normal(generator, (n_relations, n_bases, dr, dr), g),
-        "W_backward": init.normal(generator, (n_relations, n_bases, dr, dr),
-                                  g),
-        "W_self": init.normal(generator, (d_in, d_out), g),
-        "b": init.zeros((d_out,), generator.device),  # unused (ref quirk)
+    if variant == "block":
+        if d_out % n_bases != 0:
+            raise ValueError("block variant needs d_out % n_blocks == 0")
+        dr = d_out // n_bases
+        # glorot over (R, dr), the reference's odd fan choice
+        # (``gcn_basis_concat.py:22``), for W_self too.
+        gr = init.glorot_std(n_relations, dr)
+        return {
+            "W_forward": normal((n_relations, n_bases, dr, dr), gr),
+            "W_backward": normal((n_relations, n_bases, dr, dr), gr),
+            "W_self": normal((d_in, d_out), gr),
+            "b": init.zeros((d_out,), dev),  # unused (ref quirk)
+        }
+    # basis, basis_stored (the same tree), basis_plus_diag,
+    # basis_times_diag: bases [feat, B, d_out] and coefficients, [R, B]
+    # or, for basis_times_diag, [R, B, d_out].
+    coef = (n_relations, n_bases, d_out) if variant == "basis_times_diag" \
+        else (n_relations, n_bases)
+    params = {
+        "W_forward": normal((feat_dim, n_bases, d_out), g),
+        "W_backward": normal((feat_dim, n_bases, d_out), g),
+        "C_forward": normal(coef, 1.0),
+        "C_backward": normal(coef, 1.0),
     }
+    if variant == "basis_plus_diag":
+        params["D_types_forward"] = normal((n_relations, d_out), 1.0)
+        params["D_types_backward"] = normal((n_relations, d_out), 1.0)
+    params["W_self"] = normal((feat_dim, d_out), g)
+    params["b"] = init.zeros((d_out,), dev)
+    return params
 
 
 def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
@@ -135,19 +164,21 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
                     keep_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """One R-GCN layer (``message_gcn.py:49-79``; ``encoders.py:242-354``):
-    both directions, then the self-loop, the bias of a diag layer, then an
-    optional ReLU. ``features`` None is one-hot input.
+    both directions, then the self-loop, the bias of the variants that add
+    it, then an optional ReLU. ``features`` None is one-hot input.
 
     With ``fused`` (the model's ``preferred_staircase2``), block and basis
     layers on dense input run ``staircase2.block_direction`` /
     ``basis_direction`` (differentiable through their twin layouts). Every
     other layer builds its messages per direction, in that direction's CSR
     order (``graph.fwd.src`` / ``rel``, ``graph.bwd.src`` / ``rel``), and
-    sums them with ``staircase.staircase_aggregate``. ``keep_mask``: see
+    sums them with ``staircase.staircase_aggregate``, weighted by the
+    graph's normalization, or with unit weights for basis_stored (its
+    'none' normalization, ``encoders.py:319``). ``keep_mask``: see
     ``_combine_with_self_loop``."""
-    if variant not in PORTED_VARIANTS:
-        raise not_ported(variant)
-    if features is None and variant != "basis":
+    if variant not in GCN_VARIANTS:
+        raise ValueError(f"unknown gcn variant {variant!r}")
+    if features is None and variant in _DENSE_ONLY:
         raise ValueError(f"the {variant} layer requires dense input (use an "
                          f"input transform before it)")
     if fused and features is not None and variant == "block":
@@ -167,10 +198,11 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
             features, params["W_backward"].flatten(1), params["C_backward"],
             graph.bwd, n_vertices, graph.bwd_twin)
     else:
+        weighted = variant != "basis_stored"
         collected_f, collected_b = (
             staircase.staircase_aggregate(
                 _edge_messages(params, variant, features, layout, sfx),
-                layout, n_vertices)
+                layout, n_vertices, weighted=weighted)
             for layout, sfx in ((graph.fwd, "forward"),
                                 (graph.bwd, "backward")))
     return _combine_with_self_loop(
@@ -182,20 +214,30 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
 
 def _edge_messages(params, variant, features, layout, sfx) -> torch.Tensor:
     """[E, d_out] messages of one direction in its CSR's entry order
-    (``encoders.py:164-229``): W_<sfx>, C_<sfx> or D_types_<sfx>. Relation
-    ids are not offset for the backward direction; it has its own
+    (``encoders.py:164-229``): W_<sfx>, C_<sfx>, D_types_<sfx> or b_<sfx>.
+    Relation ids are not offset for the backward direction; it has its own
     weights (``gcn_basis.py:43-57``)."""
+    src, rel = layout.src, layout.rel
     if variant == "diag":
         return relblock.diag_messages(features, params[f"D_types_{sfx}"],
-                                      layout.src, layout.rel)
-    if variant == "basis":
-        w = params[f"W_{sfx}"]
-        proj = relblock.basis_vertex_projection(features, w.flatten(1),
-                                                w.shape[1])
-        return relblock.basis_messages(proj, params[f"C_{sfx}"], layout.src,
-                                       layout.rel)
-    raise ValueError(f"the {variant} layer has no unfused route in the "
-                     f"port (its model has an input transform)")
+                                      src, rel)
+    if variant == "only_bias":
+        return relblock.relation_bias_messages(params[f"b_{sfx}"], rel)
+    if variant == "block":
+        raise ValueError("the block layer has no unfused route in the port "
+                         "(its model takes the fused kernel)")
+    w = params[f"W_{sfx}"]
+    proj = relblock.basis_vertex_projection(features, w.flatten(1),
+                                            w.shape[1])
+    if variant == "basis_times_diag":
+        return relblock.basis_messages_scaled(proj, params[f"C_{sfx}"], src,
+                                              rel)
+    msgs = relblock.basis_messages(proj, params[f"C_{sfx}"], src, rel)
+    if variant == "basis_plus_diag":
+        # x[src] * D[r] (``gcn_basis_plus_diag.py:58-61``).
+        msgs = msgs + relblock.diag_messages(
+            features, params[f"D_types_{sfx}"], src, rel)
+    return msgs
 
 
 def draw_keep_mask(shape, dropout_keep: float,
@@ -210,29 +252,157 @@ def _combine_with_self_loop(params, variant, features, combined, *,
                             generator, keep_mask=None):
     """Self-loop + bias + nonlinearity tail (``encoders.py:357-380``). With
     one-hot input (``features`` None) the self-loop is the W_self table.
-    The diag variant adds its bias (``gcn_diag.py:50``); the block and
-    basis variants create one but never add it (reference quirk).
-
-    In train mode (``deterministic`` false) the self-loop gets dropout:
-    ``keep_mask`` [V, d] bool where given (the tests feed the JAX
-    package's draws), else a mask drawn from ``generator``."""
-    self_loop = apply_affine({"W": params["W_self"]}, features,
-                             use_bias=False)
-    if not deterministic:
-        if keep_mask is None:
-            if generator is None:
-                raise ValueError("train-mode dropout needs a keep-mask or "
-                                 "a torch.Generator")
-            keep_mask = draw_keep_mask(self_loop.shape, dropout_keep,
-                                       generator)
-        # tf.nn.dropout: keep w.p. p, scale kept values by 1/p; applied
-        # only to the self-loop messages (``message_gcn.py:64``).
-        self_loop = torch.where(keep_mask.to(self_loop.device),
-                                self_loop / dropout_keep,
-                                torch.zeros_like(self_loop))
-    out = combined + self_loop
-    if variant == "diag":
-        out = out + params["b"]
+    only_bias has no self-loop (``gcn_only_bias.py:34-35``); diag,
+    basis_plus_diag and basis_times_diag add their bias; the block and
+    basis variants create one but never add it (reference quirk)."""
+    if variant == "only_bias":
+        out = combined
+    else:
+        out = combined + _self_loop(params, features, dropout_keep,
+                                    deterministic, generator, keep_mask)
+        if variant in _ADDS_BIAS:
+            out = out + params["b"]
     if use_nonlinearity:
         out = torch.relu(out)
     return out
+
+
+def _self_loop(params, features, dropout_keep, deterministic, generator,
+               keep_mask):
+    """x @ W_self (the W_self table for one-hot input). In train mode
+    (``deterministic`` false) it gets dropout: ``keep_mask`` [V, d] bool
+    where given (the tests feed the JAX package's draws), else a mask
+    drawn from ``generator``."""
+    self_loop = apply_affine({"W": params["W_self"]}, features,
+                             use_bias=False)
+    if deterministic:
+        return self_loop
+    if keep_mask is None:
+        if generator is None:
+            raise ValueError("train-mode dropout needs a keep-mask or a "
+                             "torch.Generator")
+        keep_mask = draw_keep_mask(self_loop.shape, dropout_keep, generator)
+    # tf.nn.dropout: keep w.p. p, scale kept values by 1/p; applied only to
+    # the self-loop messages (``message_gcn.py:64``).
+    return torch.where(keep_mask.to(self_loop.device),
+                       self_loop / dropout_keep, torch.zeros_like(self_loop))
+
+
+# ---------------------------------------------------------------------------
+# Stored-message (incremental) layer state, BasisGcnStore
+# ---------------------------------------------------------------------------
+
+def init_stored_state(n_edges_total: int, n_vertices: int, d: int,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """Zero message and vertex caches (``gcn_basis_stored.py:33-35``,
+    ``encoders.py:387-394``): [edge_count + 1, d] a direction, the last a
+    phantom row, as in the JAX package (which points its padding edges
+    there; the port's graphs have none, so it stays 0), and [V, d]."""
+    def zeros(shape):
+        return init.zeros(shape, device)
+    return {"cached_messages_f": zeros((n_edges_total + 1, d)),
+            "cached_messages_b": zeros((n_edges_total + 1, d)),
+            "cached_vertex_embeddings": zeros((n_vertices, d))}
+
+
+def apply_gcn_layer_stored(params: Dict[str, torch.Tensor],
+                           state: Dict[str, torch.Tensor],
+                           graph: GraphBatch,
+                           features: Optional[torch.Tensor],
+                           edge_ids: torch.Tensor, *,
+                           use_nonlinearity: bool, dropout_keep: float,
+                           deterministic: bool,
+                           generator: Optional[torch.Generator],
+                           n_vertices: int,
+                           keep_mask: Optional[torch.Tensor] = None
+                           ) -> tuple:
+    """Train-mode BasisGcnStore layer (``gcn_basis_stored.py:91-112``,
+    ``encoders.py:397-448``): sum only the delta between the batch edges'
+    fresh basis messages and their cached ones, with unit weights, add
+    the cached vertex state, then the self-loop (with dropout) and an
+    optional ReLU; the basis bias is not added. Returns (vertex codes,
+    new state).
+
+    edge_ids: [E] ids into the train set of the graph's input edges
+    (``TrainBatch.message_edge_ids``). Each direction takes its deltas in
+    its own CSR order, cached row ``edge_ids[order[k]]`` for entry k
+    (``graph.fwd_order``, ``bwd_order``), and sums them through
+    ``staircase.staircase_aggregate`` with ``weighted=False``: forward by
+    receiver, backward by sender. The new state is built outside autograd
+    (JAX's ``stop_gradient``, ``build.py:252``); ``state`` is not
+    changed."""
+    new_state = {}
+    collected = None
+    for layout, order, sfx, key in (
+            (graph.fwd, graph.fwd_order, "forward", "cached_messages_f"),
+            (graph.bwd, graph.bwd_order, "backward", "cached_messages_b")):
+        rows = edge_ids.long()[order.long()]
+        fresh = _edge_messages(params, "basis", features, layout, sfx)
+        cache = state[key]
+        part = staircase.staircase_aggregate(fresh - cache[rows], layout,
+                                             n_vertices, weighted=False)
+        collected = part if collected is None else collected + part
+        with torch.no_grad():
+            new_state[key] = cache.index_copy(0, rows, fresh.detach())
+    updated = collected + state["cached_vertex_embeddings"]
+    new_state["cached_vertex_embeddings"] = updated.detach()
+    out = updated + _self_loop(params, features, dropout_keep,
+                               deterministic, generator, keep_mask)
+    if use_nonlinearity:
+        out = torch.relu(out)
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# Highway / residual / dropover / variational wrappers
+# ---------------------------------------------------------------------------
+
+def init_highway(generator: torch.Generator,
+                 shape) -> Dict[str, torch.Tensor]:
+    """Gate weights, the bias initialised to ones (``highway_layer.py:
+    27-31``, ``encoders.py:455-459``)."""
+    std = init.glorot_std(shape[0], shape[1])
+    return {"W": init.normal(generator, shape, std),
+            "b": torch.ones((shape[1],), dtype=torch.float32,
+                            device=generator.device)}
+
+
+def apply_highway(params: Dict[str, torch.Tensor], code_new: torch.Tensor,
+                  code_prev: torch.Tensor) -> torch.Tensor:
+    """gates * new + (1 - gates) * prev, gates = sigmoid(prev @ W + b)
+    (``highway_layer.py:14-38``)."""
+    gates = torch.sigmoid(apply_affine(params, code_prev))
+    return gates * code_new + (1.0 - gates) * code_prev
+
+
+def apply_residual(code_new: torch.Tensor,
+                   code_prev: torch.Tensor) -> torch.Tensor:
+    """new + prev (``residual_layer.py:12-19``; the JAX package implements
+    the documented intent, ``encoders.py:472-476``)."""
+    return code_new + code_prev
+
+
+def apply_dropover(choice: torch.Tensor, code_1: torch.Tensor,
+                   code_2: torch.Tensor, deterministic: bool) -> torch.Tensor:
+    """Elementwise random choice between two code matrices in train mode,
+    the first in test mode (``dropover.py:13-24``): code_1 where
+    ``choice`` (a U(-1, 1) draw of the codes' shape) is > 0."""
+    if deterministic:
+        return code_1
+    return torch.where(choice > 0, code_1, code_2)
+
+
+def apply_variational(eps: torch.Tensor, mu: torch.Tensor,
+                      log_sigma: torch.Tensor) -> torch.Tensor:
+    """z = mu + exp(log_sigma) * eps, ``eps`` an N(0, 1) draw of mu's
+    shape (``variational_encoding.py:14-25``). The reference draws noise
+    in test mode too, and so does the port's model."""
+    return mu + torch.exp(log_sigma) * eps
+
+
+def variational_kl_penalty(mu: torch.Tensor,
+                           log_sigma: torch.Tensor) -> torch.Tensor:
+    """-0.0005 * sum(1 + 2 log s - mu^2 - exp(2 log s))
+    (``variational_encoding.py:27-31``)."""
+    return -0.0005 * torch.sum(1.0 + 2.0 * log_sigma - mu ** 2
+                               - torch.exp(2.0 * log_sigma))

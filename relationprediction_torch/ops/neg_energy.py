@@ -14,7 +14,7 @@ table; in the JAX package ``_take_rows_sorted_bwd`` sorts the ids first to
 spare XLA a slow scatter compile, with the same sums. The split loss's
 ``single_factor_negative_energies`` is the same with one factor a
 positive. The bf16 ``_fused`` and ``_single_fused`` paths come with bf16
-streams (ROADMAP.md Queue 1 item 2).
+streams (ROADMAP.md Queue 1 item 1).
 """
 from __future__ import annotations
 

@@ -60,6 +60,32 @@ def basis_messages(proj: torch.Tensor, coefficients: torch.Tensor,
     return out
 
 
+def basis_messages_scaled(proj: torch.Tensor, coefficients: torch.Tensor,
+                          edge_vertices: torch.Tensor,
+                          edge_relations: torch.Tensor,
+                          edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
+    """[E, d_out] messages sum_b proj[v_e, b, :] * sigmoid(C[r_e, b, :])
+    with full [R, B, d_out] coefficients (``relblock.py:55-63``,
+    BasisGcnTimesDiag). The sigmoid is taken once on the [R, B, d_out]
+    table, not on its [E, B, d_out] gather (the same values elementwise),
+    and the edges go in chunks as in ``basis_messages``."""
+    scale = torch.sigmoid(coefficients)
+    n_edges = edge_vertices.shape[0]
+    out = proj.new_empty(n_edges, proj.shape[2])
+    for start in range(0, n_edges, edge_chunk):
+        sl = slice(start, start + edge_chunk)
+        out[sl] = (proj[edge_vertices[sl].long()]
+                   * scale[edge_relations[sl].long()]).sum(1)
+    return out
+
+
+def relation_bias_messages(biases: torch.Tensor,
+                           edge_relations: torch.Tensor) -> torch.Tensor:
+    """Messages that are the relation's bias vector alone, b[r_e]
+    (``relblock.py:170-173``, OnlyBiasGcn)."""
+    return biases[edge_relations.long()]
+
+
 def diag_messages(features: torch.Tensor, diags: torch.Tensor,
                   edge_vertices: torch.Tensor,
                   edge_relations: torch.Tensor) -> torch.Tensor:

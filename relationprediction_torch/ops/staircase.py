@@ -163,18 +163,20 @@ def staircase_aggregate_reference(msgs: torch.Tensor, layout: CsrLayout,
 
 
 def staircase_aggregate(msgs: torch.Tensor, layout: CsrLayout,
-                        n_vertices: int) -> torch.Tensor:
+                        n_vertices: int, *,
+                        weighted: bool = True) -> torch.Tensor:
     """One direction's aggregation, differentiable; see the module
     docstring.
 
     msgs: [E, d] float32, entry k the message of the layout's entry k;
-    layout: the direction's CSR with n_vertices rows. Returns
-    [n_vertices, d] float32.
+    layout: the direction's CSR with n_vertices rows. ``weighted`` false
+    takes every weight as 1 (the stored-message layer's 'none'
+    normalization). Returns [n_vertices, d] float32.
     """
     if msgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"staircase_aggregate: unsupported device "
                          f"{msgs.device}")
-    return _Aggregate.apply(msgs, layout, n_vertices, None, True,
+    return _Aggregate.apply(msgs, layout, n_vertices, None, weighted,
                             staircase_aggregate)
 
 

@@ -9,8 +9,14 @@ W_forward, W_self, b}`` with bases [d_in, B, d_out] and coefficients
 W_self, b}`` with D_types [R, d_out] (``jax.tree_util`` order: keys
 sorted). A model without an input transform (one-hot input) has no
 ``input_transform``, and its first basis layer has W_* [V, B, d_out] and
-W_self [V, d_out], one row per entity. The port keeps that structure as
-dictionaries and lists of tensors.
+W_self [V, d_out], one row per entity. The other encoders add
+``embedding`` or ``mu_embedding`` / ``sigma_embedding`` tables,
+``mu_projection`` / ``sigma_projection`` and ``output_transform``
+({W, b}), and ``highways``: one gate {W, b} per layer, or None for a
+layer without one (a one-hot first layer). As under ``jax.tree_util``,
+None is a subtree with no leaves: every function here keeps it as None
+and gives it no leaf. The port keeps that structure as dictionaries and
+lists of tensors.
 """
 from __future__ import annotations
 
@@ -21,7 +27,10 @@ import torch
 
 
 def map_tree(fn: Callable[[Any], Any], tree):
-    """Apply ``fn`` to every leaf of nested dicts, lists and tuples."""
+    """Apply ``fn`` to every leaf of nested dicts, lists and tuples; None
+    stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -31,7 +40,9 @@ def map_tree(fn: Callable[[Any], Any], tree):
 
 def tree_leaves(tree) -> list:
     """The leaves in the JAX package's order (``jax.tree_util``: dict keys
-    sorted, lists in order)."""
+    sorted, lists in order; None has none)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -50,6 +61,8 @@ def _rebuild(tree, leaves):
     # whose iterator keeps the whole ``leaves`` list (gradients, Adam's
     # moments, the updates: 4 x the parameters a train step) alive until
     # the cycle collector runs.
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):

@@ -19,11 +19,19 @@ tiled on the host. Each step
      ``device_negatives=False`` tiles them with their corruptions and
      labels; in pinned host memory on the card's machine; a producer
      copies its batches to the card on its own CUDA stream;
-  2. on the device: draws the corruptions (unless the host tiled them) and
-     the dropout keep-masks from the loop's ``torch.Generator``, encodes in
-     train mode, takes the loss and its gradients (the aggregation
-     kernels' twin passes inside), clips and applies the optimizer in
-     place.
+  2. on the device: draws the corruptions (unless the host tiled them),
+     the dropout keep-masks and the encoder's other noise (random input,
+     the dropover choice, the variational noise, for a configuration that
+     uses them) from the loop's ``torch.Generator``, encodes in train
+     mode, takes the loss and its gradients (the aggregation kernels' twin
+     passes inside), clips and applies the optimizer in place.
+
+The stored-message variant (``RGCNModel.has_state``) trains, as in the
+JAX package (``engine.py:91``, ``:520-535``), on host-tiled batches with
+the tiled loss (``loss_stateful``); its batches carry the message graph's
+edge ids to the device, and the loop holds the per-edge caches and steps
+them (``TrainLoop.cache_state``). Caches are not checkpointed, in the JAX
+package neither: a resumed run starts from zero caches.
 
 Losses are read on the host only at the reporting cadence of the reference
 (iteration 1, then every ``ReportTrainLossEvery`` at i % n == 1). The
@@ -31,8 +39,8 @@ validation score is taken every ``CheckEvery`` iterations, with early
 stopping after the burn-in, and a checkpoint is written at each check that
 did not stop (``shared/algorithms.py:61-161``); ``resume`` continues one.
 Not carried over from the JAX package: its K-step ``lax.scan`` dispatch (a
-TPU transport device), the mesh and vertex-sharded modes (ROADMAP.md Queue
-1 item 5) and the stored-message state (item 2).
+TPU transport device) and the mesh and vertex-sharded modes (ROADMAP.md
+Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ import torch
 from ..config import RunConfig
 from ..data.dataset import KGDataset
 from ..graph import GraphBatch
-from ..models.build import RGCNModel
+from ..models.build import EncoderNoise, RGCNModel
 from ..observability import MetricLogger, StepTimer
 from ..ops import staircase2
 from ..params import map_tree, params_from_jax, params_to_numpy, \
@@ -77,6 +85,9 @@ class TrainBatch(NamedTuple):
     edge_ids: Optional[np.ndarray] = None
     # [N_pad] float32 labels of a host-tiled batch, else None
     labels: Optional[torch.Tensor] = None
+    # The same ids as an int64 [E] tensor that moves with the batch, for a
+    # model with stored-message state (its caches' rows); else None
+    message_edge_ids: Optional[torch.Tensor] = None
 
     def to(self, device, non_blocking: bool = False) -> "TrainBatch":
         def move(t):
@@ -85,19 +96,22 @@ class TrainBatch(NamedTuple):
         graph = None if self.graph is None \
             else self.graph.to(device, non_blocking)
         return TrainBatch(graph, move(self.triples), move(self.mask),
-                          self.edge_ids, move(self.labels))
+                          self.edge_ids, move(self.labels),
+                          move(self.message_edge_ids))
 
     def pin_memory(self) -> "TrainBatch":
+        def pin(t):
+            return None if t is None else t.pin_memory()
         return TrainBatch(
             None if self.graph is None else self.graph.pin_memory(),
             self.triples.pin_memory(), self.mask.pin_memory(),
-            self.edge_ids,
-            None if self.labels is None else self.labels.pin_memory())
+            self.edge_ids, pin(self.labels), pin(self.message_edge_ids))
 
     def tensors(self) -> list:
         graph = [] if self.graph is None else self.graph.tensors()
-        labels = [] if self.labels is None else [self.labels]
-        return graph + [self.triples, self.mask] + labels
+        return graph + [self.triples, self.mask] + [
+            t for t in (self.labels, self.message_edge_ids)
+            if t is not None]
 
 
 class BatchPipeline:
@@ -113,7 +127,9 @@ class BatchPipeline:
 
     The same ``rng`` state gives the JAX package's graphs, positives and
     host-tiled corruptions. The batch stays on the host, pinned when the
-    model is on the card.
+    model is on the card. A model with stored-message state always gets
+    host-tiled batches (``engine.py:91``), with its message graph's edge
+    ids as a tensor (``TrainBatch.message_edge_ids``).
     """
 
     def __init__(self, model: RGCNModel, config: RunConfig,
@@ -143,11 +159,11 @@ class BatchPipeline:
             cap = self.batch_size
         self.n_positives = cap
         self.positives_pad = _round_up(cap, 8)
-        self.device_negatives = device_negatives
+        self.device_negatives = device_negatives and not model.has_state
         rate = t.negative_sample_rate
         # The host-tiled batch's rows, padded as the JAX package pads them.
         self.triple_pad = _round_up(cap * (rate + 1), 128)
-        self.negative_sampler = None if device_negatives \
+        self.negative_sampler = None if self.device_negatives \
             else NegativeSampler(rate, config.entity_count, rng)
         # 'contiguous' minibatches: in-order wrapping windows instead of
         # random ones (``shared/algorithms.py:36-39``).
@@ -197,6 +213,9 @@ class BatchPipeline:
         else:
             x, y = self.negative_sampler.transform(positives)
             batch = self._padded(graph, x, y, self.triple_pad, edge_ids)
+        if self.model.has_state:
+            batch = batch._replace(message_edge_ids=torch.from_numpy(
+                edge_ids.astype(np.int64)))
         return batch.pin_memory() if self.pin else batch
 
     @staticmethod
@@ -381,14 +400,17 @@ class Draws(NamedTuple):
     """A step's random draws on the device: the loss's negatives, by loss
     kind (factored: values and corrupt_object [n, rate]; split:
     neg_subjects and neg_objects; shared: the pool [P]; tiled: the tiled
-    triples, labels and mask, or none for a host-tiled batch), and one
-    dropout keep-mask per layer."""
+    triples, labels and mask, or none for a host-tiled batch), one
+    dropout keep-mask per layer, and the encoder's other noise
+    (``RGCNModel.draw_noise``)."""
     negatives: tuple
     keep_masks: list
+    noise: EncoderNoise = EncoderNoise()
 
     def to(self, device) -> "Draws":
         return Draws(tuple(t.to(device) for t in self.negatives),
-                     [m.to(device) for m in self.keep_masks])
+                     [m.to(device) for m in self.keep_masks],
+                     self.noise.to(device))
 
 
 def step_loss_and_grads(model: RGCNModel, kind: str, params,
@@ -398,7 +420,8 @@ def step_loss_and_grads(model: RGCNModel, kind: str, params,
     reach (the GCN layers' unused bias) gets a zero gradient, as under
     ``jax.grad``."""
     neg = draws.negatives
-    common = dict(deterministic=False, keep_masks=draws.keep_masks)
+    common = dict(deterministic=False, keep_masks=draws.keep_masks,
+                  noise=draws.noise)
     if kind == "tiled":
         args = (params, batch.graph) + (
             neg or (batch.triples, batch.labels, batch.mask))
@@ -408,11 +431,34 @@ def step_loss_and_grads(model: RGCNModel, kind: str, params,
         loss_fn = {"factored": model.loss_binomial_factored,
                    "split": model.loss_structured,
                    "shared": model.loss_shared_negatives}[kind]
+    return _value_and_grad(lambda: loss_fn(*args, **common), params)
+
+
+def stateful_loss_and_grads(model: RGCNModel, params, cache: list,
+                            batch: TrainBatch, draws: Draws) -> tuple:
+    """(loss, gradient tree, new cache state) of the stored-message
+    variant's ``loss_stateful`` on a host-tiled ``batch`` with the
+    keep-masks of ``draws``, from the caches ``cache``."""
+    out = {}
+
+    def loss_fn():
+        loss, out["cache"] = model.loss_stateful(
+            params, cache, batch.graph, batch.message_edge_ids,
+            batch.triples, batch.labels, batch.mask,
+            keep_masks=draws.keep_masks)
+        return loss
+    loss, grads = _value_and_grad(loss_fn, params)
+    return loss, grads, out["cache"]
+
+
+def _value_and_grad(loss_fn, params) -> tuple:
+    """(loss_fn() detached, gradient tree) with respect to every leaf of
+    ``params``, a zero gradient for a leaf the loss does not reach."""
     leaves = tree_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        loss = loss_fn(*args, **common)
+        loss = loss_fn()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for leaf in leaves:
@@ -424,12 +470,13 @@ def step_loss_and_grads(model: RGCNModel, kind: str, params,
 
 def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
                    neg_values: torch.Tensor, corrupt_object: torch.Tensor,
-                   keep_masks) -> tuple:
+                   keep_masks, noise: EncoderNoise = EncoderNoise()
+                   ) -> tuple:
     """(loss, gradient tree) of the factored binomial loss for explicit
     draws."""
     return step_loss_and_grads(model, "factored", params, batch,
                                Draws((neg_values, corrupt_object),
-                                     keep_masks))
+                                     keep_masks, noise))
 
 
 @dataclass
@@ -454,7 +501,9 @@ class TrainLoop:
     """``fit`` with the reference's loss reporter, early stopper and model
     saver, on one device. ``negative_mode`` and ``device_negatives``
     choose the objective (``loss_kind``); ``negative_pool_size`` is the
-    shared pool's size."""
+    shared pool's size. A model with stored-message state takes
+    host-tiled batches and the tiled loss whatever they say, and the loop
+    keeps its caches in ``cache_state``."""
 
     def __init__(self, model: RGCNModel, config: RunConfig,
                  dataset: KGDataset, *,
@@ -476,6 +525,7 @@ class TrainLoop:
         self.seed = seed
         self.metrics = MetricLogger(metrics_path, echo=False)
         self.host_rng = np.random.default_rng(seed)
+        device_negatives = device_negatives and not model.has_state
         # The objective (``loss_kind``); the shared pool has
         # ``negative_pool_size`` entities whatever the rate.
         self.loss_kind = loss_kind(model, negative_mode, device_negatives)
@@ -494,6 +544,8 @@ class TrainLoop:
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(seed)
         self.timer = StepTimer()
+        self.cache_state = model.init_cache_state() if model.has_state \
+            else None
 
     def init_state(self, seed: int = 0) -> tuple:
         params = self.model.init_params(
@@ -503,7 +555,9 @@ class TrainLoop:
     def draw(self, batch: TrainBatch) -> Draws:
         """The step's random draws on the device, from the loop's
         generator: the corruptions of ``loss_kind`` (none for a host-tiled
-        batch), then one dropout keep-mask per layer."""
+        batch), then one dropout keep-mask per layer, then the encoder's
+        other noise, which only a configuration that uses it draws (so the
+        stream of every other configuration stays as it was)."""
         rate = self.config.training.negative_sample_rate
         n_entities, gen = self.config.entity_count, self.generator
         kind = self.loss_kind
@@ -520,13 +574,21 @@ class TrainLoop:
                                          n_entities, gen)
         else:
             neg = ()
-        return Draws(tuple(neg), self.model.draw_keep_masks(gen))
+        keep_masks = self.model.draw_keep_masks(gen)
+        return Draws(tuple(neg), keep_masks, self.model.draw_noise(gen))
 
     def train_step(self, params, opt_state, batch: TrainBatch) -> tuple:
-        """One step (``engine.py:411-483``); updates ``params`` in place.
-        Returns (opt_state, loss as a 0-d tensor on the device)."""
-        loss, grads = step_loss_and_grads(self.model, self.loss_kind, params,
-                                          batch, self.draw(batch))
+        """One step (``engine.py:411-483``, the stored variant's
+        ``:520-535``); updates ``params`` in place, and ``cache_state``
+        for the stored variant. Returns (opt_state, loss as a 0-d tensor
+        on the device)."""
+        if self.model.has_state:
+            loss, grads, self.cache_state = stateful_loss_and_grads(
+                self.model, params, self.cache_state, batch,
+                self.draw(batch))
+        else:
+            loss, grads = step_loss_and_grads(
+                self.model, self.loss_kind, params, batch, self.draw(batch))
         updates, opt_state = self.optimizer.update(grads, opt_state)
         apply_updates(params, updates)
         return opt_state, loss
@@ -684,7 +746,11 @@ class TrainLoop:
         checkpoint has a JAX key instead, which cannot seed torch: the
         device generator is then seeded from (seed, step), so the device
         draws of the resumed run are the port's own, not JAX's. Its optax
-        state is read by ``opt_state_from_jax``."""
+        state is read by ``opt_state_from_jax``.
+
+        The stored-message variant's caches are not in checkpoints (the
+        JAX package's neither): they restart from zero, so a resumed
+        stored run is not the uninterrupted one."""
         state = ckpt_lib.restore_latest(checkpoint_path)
         if state is None:
             raise FileNotFoundError(f"no checkpoint at {checkpoint_path}")
@@ -699,6 +765,8 @@ class TrainLoop:
             opt_state = map_tree(
                 lambda a: torch.from_numpy(np.array(a)).to(device), opt_state)
         extra = state.get("extra") or {}
+        if self.model.has_state:
+            self.cache_state = self.model.init_cache_state()
         if extra.get("torch_generator") is not None:
             self.generator.set_state(
                 torch.from_numpy(np.array(extra["torch_generator"])))

@@ -153,15 +153,21 @@ def test_train_mode_dropout_touches_only_the_self_loop():
 
 
 def test_unported_configurations_raise():
+    """bf16 message and decoder-stream precision are all that raise; the
+    configurations that raised before them now build."""
     ds = jax_synthetic.generate(30, 3, 60, seed=0)
     base = small(torch_config.load(SETTINGS), ds)
-    for enc in (dict(use_input_transform=False, random_input=True),
-                dict(message_precision="bfloat16"),
-                dict(name="variational_embedding")):
-        cfg = dataclasses.replace(
-            base, encoder=dataclasses.replace(base.encoder, **enc))
+    unported = [dataclasses.replace(base, encoder=dataclasses.replace(
+        base.encoder, message_precision="bfloat16")),
+        dataclasses.replace(base, decoder=dataclasses.replace(
+            base.decoder, stream_precision="bfloat16"))]
+    for cfg in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(cfg, CPU)
+    for enc in (dict(use_input_transform=False, random_input=True),
+                dict(name="variational_embedding")):
+        build_model(dataclasses.replace(
+            base, encoder=dataclasses.replace(base.encoder, **enc)), CPU)
 
 
 def test_mlp_decoder_model_builds():

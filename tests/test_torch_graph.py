@@ -76,8 +76,8 @@ def test_padding_and_bad_input_are_dropped_or_refused():
         torch_graph.build_csr([5], [0], [1], [1.0], 4)  # source >= V
     with pytest.raises(ValueError):
         torch_graph.build_graph_batch(tri, 4, 1)  # relation 1 >= R
-    with pytest.raises(NotImplementedError):
-        torch_graph.build_graph_batch(tri, 4, 2, normalization="local")
+    with pytest.raises(ValueError):
+        torch_graph.build_graph_batch(tri, 4, 2, normalization="degree")
 
 
 def test_graph_to_keeps_counts_and_values():

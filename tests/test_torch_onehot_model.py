@@ -6,7 +6,12 @@ params_from_jax and a checkpoint; the train and evaluate CLIs.
 
 Every layer of this model sums per-edge messages with staircase_aggregate
 (TPU kernel 3): the JAX side runs that kernel in Pallas interpret mode.
-The check functions here serve tests/test_torch_diag_model.py too."""
+The check functions here serve every configuration of ``MODELS``: the
+tests of gcn_diag, the other layer variants, the variational encoders and
+the encoder extras (tests/test_torch_{diag_model,layer_variants,
+variational,encoder_extras}.py) import them. A configuration whose encode
+draws noise (random input, variational) gets JAX's own draws
+(``jax_noise``)."""
 import dataclasses
 import functools
 import gc
@@ -15,6 +20,8 @@ import weakref
 import pathlib
 import subprocess
 import sys
+
+import re
 
 import jax
 import numpy as np
@@ -25,6 +32,7 @@ from relationprediction_tpu import config as jax_config
 from relationprediction_tpu.data import dataset as jax_dataset
 from relationprediction_tpu.data import synthetic as jax_synthetic
 from relationprediction_tpu.evaluation import Scorer as JaxScorer
+from relationprediction_tpu.models import initializers as jax_init
 from relationprediction_tpu.models.build import JittedModelView
 from relationprediction_tpu.models.build import build_model as jax_build
 from relationprediction_tpu.training import checkpoint as jax_ckpt
@@ -35,7 +43,8 @@ from relationprediction_tpu.training.optimizers import (
 from relationprediction_torch import config as torch_config
 from relationprediction_torch import evaluate as torch_evaluate
 from relationprediction_torch.evaluation.scorer import Scorer
-from relationprediction_torch.models.build import ModelView, build_model
+from relationprediction_torch.models.build import (EncoderNoise, ModelView,
+                                                   build_model)
 from relationprediction_torch.params import (params_from_jax,
                                              params_to_numpy, tree_leaves,
                                              tree_unflatten)
@@ -47,17 +56,65 @@ from relationprediction_torch.training.optimizers import build_optimizer
 from test_torch_train_step import check_params_after_adam_steps, jax_draws
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SETTINGS = str(ROOT / "settings" / "gcn_basis.exp")
 TOY = str(ROOT / "data" / "Toy")
 CPU = torch.device("cpu")
 CASES = ["toy", "synthetic"]
-# Both configurations derive from gcn_basis.exp, as
-# tests/test_model_variants.py derives them.
-MODELS = {"onehot": dict(use_input_transform=False),
-          "diag": dict(name="gcn_diag")}
+# Each configuration: the shipped settings file it derives from (as
+# tests/test_model_variants.py derives them) and its encoder changes,
+# cut to d=20 by ``small`` (a code dimension of 16 where an output stage
+# maps the layers' 20 onto it).
+MODELS = {
+    "onehot": ("gcn_basis", dict(use_input_transform=False)),
+    "diag": ("gcn_basis", dict(name="gcn_diag")),
+    "plus_diag": ("gcn_basis", dict(add_diagonal=True)),
+    "times_diag": ("gcn_basis", dict(diagonal_coefficients=True)),
+    "times_diag_onehot": ("gcn_basis", dict(diagonal_coefficients=True,
+                                            use_input_transform=False)),
+    "stored": ("gcn_basis", dict(store_edge_data=True)),
+    # One layer, as tests/test_model_variants.py cuts it: with two, the
+    # reference's log sigma reaches ~20 at init here, exp(2 log sigma) in
+    # the KL ~1e17, and gradient entries of ~1e12 cancel in f32.
+    "vgcn": ("gcn_basis", dict(name="variational_gcn_basis",
+                               code_dimension=16, n_layers=1)),
+    "vemb": ("distmult", dict(name="variational_embedding")),
+    "highway": ("gcn_block", dict(skip_connections="Highway")),
+    "highway_onehot": ("gcn_basis", dict(skip_connections="Highway",
+                                         use_input_transform=False)),
+    "residual_out": ("gcn_block", dict(skip_connections="Residual",
+                                       use_output_transform=True,
+                                       code_dimension=16)),
+    "random": ("gcn_block", dict(use_input_transform=False,
+                                 random_input=True)),
+    "partial": ("gcn_block", dict(use_input_transform=False,
+                                  partially_random_input=True)),
+}
 # The .exp lines that give the same configurations.
-EXP_LINES = {"onehot": ("UseInputTransform=Yes", "UseInputTransform=No"),
-             "diag": ("Name=gcn_basis", "Name=gcn_diag")}
+EXP_LINES = {
+    "onehot": [("UseInputTransform=Yes", "UseInputTransform=No")],
+    "diag": [("Name=gcn_basis", "Name=gcn_diag")],
+    "plus_diag": [("AddDiagonal=No", "AddDiagonal=Yes")],
+    "times_diag": [("DiagonalCoefficients=No", "DiagonalCoefficients=Yes")],
+    "times_diag_onehot": [("DiagonalCoefficients=No",
+                           "DiagonalCoefficients=Yes"),
+                          ("UseInputTransform=Yes", "UseInputTransform=No")],
+    "stored": [("StoreEdgeData=No", "StoreEdgeData=Yes")],
+    "vgcn": [("Name=gcn_basis", "Name=variational_gcn_basis"),
+             ("NumberOfLayers=2", "NumberOfLayers=1")],
+    "vemb": [("Name=embedding", "Name=variational_embedding")],
+    "highway": [("SkipConnections=None", "SkipConnections=Highway")],
+    "highway_onehot": [("SkipConnections=None", "SkipConnections=Highway"),
+                       ("UseInputTransform=Yes", "UseInputTransform=No")],
+    "residual_out": [("SkipConnections=None", "SkipConnections=Residual"),
+                     ("UseOutputTransform=No", "UseOutputTransform=Yes")],
+    "random": [("UseInputTransform=Yes", "UseInputTransform=No"),
+               ("RandomInput=No", "RandomInput=Yes")],
+    "partial": [("UseInputTransform=Yes", "UseInputTransform=No"),
+                ("PartiallyRandomInput=No", "PartiallyRandomInput=Yes")],
+}
+
+
+def settings_path(kind) -> str:
+    return str(ROOT / "settings" / f"{MODELS[kind][0]}.exp")
 # Codes and scores: a dense basis layer multiplies per edge in JAX
 # (basis_messages_chunked) and per vertex in the port, the same function
 # rounded otherwise (as in tests/test_torch_basis_model.py); kernel 3 is
@@ -66,13 +123,15 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def small(cfg, ds, kind):
-    """gcn_basis.exp as ``kind`` (MODELS), cut to d=20, B=3, 2 layers."""
+    """The settings as ``kind`` (MODELS), cut to d=20 and B=3 bases (4
+    blocks of 5 for a block layer), 2 layers."""
+    enc = {"code_dimension": 20, "internal_dimension": 20,
+           "n_bases": 4 if cfg.encoder.gcn_variant == "block" else 3,
+           **MODELS[kind][1]}
     return dataclasses.replace(
-        cfg,
-        encoder=dataclasses.replace(cfg.encoder, code_dimension=20,
-                                    internal_dimension=20, n_bases=3,
-                                    **MODELS[kind]),
-        decoder=dataclasses.replace(cfg.decoder, code_dimension=20),
+        cfg, encoder=dataclasses.replace(cfg.encoder, **enc),
+        decoder=dataclasses.replace(cfg.decoder,
+                                    code_dimension=enc["code_dimension"]),
     ).with_counts(ds.n_entities, ds.n_relations, len(ds.train))
 
 
@@ -82,40 +141,82 @@ def dataset(name):
     return jax_synthetic.generate(300, 11, 1500, 50, 50, seed=0)
 
 
+# The configurations whose block and basis layers take the fused kernels
+# (TPU kernels 1-2) in the port; every other R-GCN layer here sums per-edge
+# messages with kernel 3.
+FUSED = ("vgcn", "highway", "residual_out", "random", "partial")
+
+
 @functools.lru_cache(maxsize=None)
 def case(kind, name):
-    """JAX config, model, params and serving graph (with TPU kernel 3's
-    layouts); the port's counterparts."""
+    """JAX config, model and params and serving graph (with TPU kernel 3's
+    layouts, and the fused layouts where its model asks for them); the
+    port's counterparts. No graph for the embedding encoders."""
     ds = dataset(name)
-    jcfg = small(jax_config.load(SETTINGS), ds, kind)
-    tcfg = small(torch_config.load(SETTINGS), ds, kind)
+    jcfg = small(jax_config.load(settings_path(kind)), ds, kind)
+    tcfg = small(torch_config.load(settings_path(kind)), ds, kind)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     jmodel = jax_build(jcfg)
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
-    # gcn_diag built from gcn_basis.exp would get the fused layouts by
-    # default and aggregate in XLA; staircase=True asks for kernel 3's.
-    jgraph = jmodel.make_graph(ds.train,
-                               pad_to=-(-len(ds.train) // 128) * 128,
-                               staircase=True)
-    assert jgraph.sc_fwd is not None and jgraph.sc_bwd is not None
     model = build_model(tcfg, CPU)
-    assert not model.preferred_staircase2
+    assert model.preferred_staircase2 == (kind in FUSED)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                              CPU)
+    if not model.needs_graph():
+        return ds, (jcfg, jmodel, jparams, None), \
+            (tcfg, model, params, None)
+    # gcn_diag built from gcn_basis.exp would get the fused layouts by
+    # default and aggregate in XLA; staircase=True asks for kernel 3's
+    # (the stored variant's graph keeps its edge order and has none).
+    pad = -(-jmodel.graph_pad_bound(len(ds.train)) // 128) * 128
+    jgraph = jmodel.make_graph(ds.train, pad_to=pad,
+                               staircase=not jmodel.has_state)
+    assert jmodel.has_state or jgraph.sc_fwd is not None
     return ds, (jcfg, jmodel, jparams, jgraph), \
         (tcfg, model, params, model.make_graph(ds.train))
 
 
+def jax_noise(kind, name, key, deterministic=False):
+    """The JAX encoder's draws besides the keep-masks under ``key``
+    (``build.py:355-416``: random input at fold_in 23, the dropover choice
+    at 29, the variational noise at 31, or 17 for the embedding), as the
+    port's EncoderNoise; None for a configuration that draws none."""
+    _, (jcfg, jmodel, _, _), (_, model, _, _) = case(kind, name)
+    e = jcfg.encoder
+    v, d = jcfg.entity_count, e.internal_dimension
+    random_in = model.random_input or model.partially_random_input
+    if not (random_in or jmodel.variational):
+        return None
+
+    def draw(a):
+        return None if a is None else torch.from_numpy(np.array(a))
+    fold = functools.partial(jax.random.fold_in, key)
+    return EncoderNoise(
+        random_input=draw(jax_init.uniform(fold(23), (v, d), -1.0, 1.0)
+                          if random_in else None),
+        dropover=draw(jax.random.uniform(fold(29), (v, d), minval=-1.0,
+                                         maxval=1.0)
+                      if model.partially_random_input and not deterministic
+                      else None),
+        eps=draw(jax.random.normal(
+            fold(17 if e.name == "variational_embedding" else 31),
+            (v, e.code_dimension)) if jmodel.variational else None))
+
+
 def check_encode_and_scores(kind, name):
+    """Test-mode codes and all-entity scores; JAX's test-mode noise
+    (``PRNGKey(0)``) goes to the port where the encoder draws any."""
     ds, (_, jmodel, jparams, jgraph), (_, model, params, graph) = \
         case(kind, name)
+    noise = jax_noise(kind, name, jax.random.PRNGKey(0), deterministic=True)
     want = jmodel.encode(jparams, jgraph, deterministic=True)
-    got = model.encode(params, graph, deterministic=True)
+    got = model.encode(params, graph, deterministic=True, noise=noise)
     np.testing.assert_allclose(got.entity_codes.numpy(),
                                np.asarray(want.entity_codes), **TOL)
+    scoring = model if noise is None else ModelView(model, noise)
     for fn in ("score_all_subjects", "score_all_objects"):
         want = np.asarray(getattr(jmodel, fn)(jparams, jgraph, ds.test))
-        got = getattr(model, fn)(params, graph, ds.test)
+        got = getattr(scoring, fn)(params, graph, ds.test)
         assert got.shape == (len(ds.test), ds.n_entities)
         np.testing.assert_allclose(got.numpy(), want, err_msg=fn, **TOL)
 
@@ -133,7 +234,10 @@ def check_ranks(kind, name):
         return scorer.compute_scores(ds.test)
 
     want = summary(JaxScorer(), JittedModelView(jmodel), jparams, jgraph)
-    got = summary(Scorer(), ModelView(model), params, graph)
+    got = summary(Scorer(), ModelView(
+        model, jax_noise(kind, name, jax.random.PRNGKey(0),
+                         deterministic=True)),
+        params, graph)
     np.testing.assert_array_equal(got.raw_ranks, want.raw_ranks)
     np.testing.assert_array_equal(got.filtered_ranks, want.filtered_ranks)
     assert got.results == want.results
@@ -158,17 +262,19 @@ def both_steps(kind, name, jparams, params, jbatch, batch, step):
             p, jbatch.graph, jbatch.triples, jbatch.mask, values, co,
             rng=key, deterministic=False)
     want, jgrads = jax.value_and_grad(jloss)(jparams)
+    noise = jax_noise(kind, name, key)
     got, grads = loss_and_grads(model, params, batch,
                                 torch.from_numpy(values),
                                 torch.from_numpy(co),
-                                [torch.from_numpy(m) for m in masks])
+                                [torch.from_numpy(m) for m in masks],
+                                *([] if noise is None else [noise]))
     return float(want), jgrads, float(got), grads
 
 
-def check_loss_and_grads(kind, name):
+def check_loss_and_grads(kind, name, grad_atol=1e-6):
     """The loss within 1e-5 relative, every gradient leaf within rtol
-    2e-4, atol 1e-6 (the dense layer's other rounding, as in
-    tests/test_torch_basis_model.py); returns the port's gradients."""
+    2e-4, atol ``grad_atol`` (1e-6: the dense layer's other rounding, as
+    in tests/test_torch_basis_model.py); returns the port's gradients."""
     _, (_, _, jparams, _), _ = case(kind, name)
     jpipe, tpipe = pipelines(kind, name)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
@@ -182,15 +288,18 @@ def check_loss_and_grads(kind, name):
     assert len(leaves) == len(jleaves)
     for g, jg in zip(leaves, jleaves):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=2e-4,
-                                   atol=1e-6)
+                                   atol=grad_atol)
     return grads
 
 
-def check_adam_steps(kind, name):
+def check_adam_steps(kind, name, max_near_zero=0.01):
+    """See check_params_after_adam_steps (``max_near_zero``: the share of
+    entries whose JAX gradient falls under 1e-6 at some step)."""
     _, (jcfg, _, jparams, _), (tcfg, _, _, _) = case(kind, name)
     jpipe, tpipe = pipelines(kind, name)
     check_params_after_adam_steps(jcfg, tcfg, jparams, jpipe, tpipe,
-                                  functools.partial(both_steps, kind, name))
+                                  functools.partial(both_steps, kind, name),
+                                  max_near_zero)
 
 
 def check_trees(kind):
@@ -219,18 +328,19 @@ def check_trees(kind):
 
 
 def small_exp(tmp_path, kind):
-    """gcn_basis.exp as ``kind`` at d=20, B=3, saving under tmp_path."""
-    src = open(SETTINGS).read()
-    for old, new in (EXP_LINES[kind],
-                     ("CodeDimension=500", "CodeDimension=20"),
-                     ("InternalEncoderDimension=500",
-                      "InternalEncoderDimension=20"),
-                     ("NumberOfBasisFunctions=5",
-                      "NumberOfBasisFunctions=3"),
-                     ("ExperimentName=models/BasisGCN",
-                      f"ExperimentName={tmp_path / 'm'}")):
+    """The settings file of ``kind`` with its EXP_LINES, cut as ``small``
+    cuts it, saving under tmp_path."""
+    src = open(settings_path(kind)).read()
+    enc = small(torch_config.load(settings_path(kind)),
+                jax_dataset.load(TOY), kind).encoder
+    for old, new in EXP_LINES[kind]:
         assert old in src, old
         src = src.replace(old, new)
+    for key, value in (("CodeDimension", enc.code_dimension),
+                       ("InternalEncoderDimension", enc.internal_dimension),
+                       ("NumberOfBasisFunctions", enc.n_bases),
+                       ("ExperimentName", tmp_path / "m")):
+        src = re.sub(rf"(?m)^(\s*{key}=).*$", rf"\g<1>{value}", src)
     path = tmp_path / f"{kind}.exp"
     path.write_text(src)
     return str(path)
@@ -245,7 +355,7 @@ def check_checkpoint_and_evaluate_cli(tmp_path, capsys, kind):
     cfg = jax_config.load(exp).with_counts(ds.n_entities, ds.n_relations,
                                            len(ds.train))
     assert dataclasses.asdict(cfg.encoder) == dataclasses.asdict(
-        small(jax_config.load(SETTINGS), ds, kind).encoder)
+        small(jax_config.load(settings_path(kind)), ds, kind).encoder)
     model = jax_build(cfg)
     params = model.init_params(jax.random.PRNGKey(1))
     jax_ckpt.save(str(tmp_path / "m"), params=params,
@@ -274,6 +384,27 @@ def check_checkpoint_and_evaluate_cli(tmp_path, capsys, kind):
     printed = capsys.readouterr().out
     assert "(step 5)" in printed
     assert printed.rstrip().endswith(want)
+
+
+def check_evaluate_cli_runs(tmp_path, capsys, kind):
+    """The port's evaluate CLI on a JAX checkpoint of a configuration
+    whose test-mode encode draws noise: it prints the step and the
+    metrics (the port draws its own noise, so the values are not JAX's;
+    check_encode_and_scores holds them to JAX's with JAX's noise)."""
+    exp = small_exp(tmp_path, kind)
+    ds = jax_dataset.load(TOY)
+    cfg = jax_config.load(exp).with_counts(ds.n_entities, ds.n_relations,
+                                           len(ds.train))
+    params = jax_build(cfg).init_params(jax.random.PRNGKey(1))
+    jax_ckpt.save(str(tmp_path / "m"), params=params,
+                  opt_state=jax_optimizer(cfg.optimizer).init(params),
+                  step=7, rng_key=jax.random.PRNGKey(2))
+    capsys.readouterr()
+    torch_evaluate.main(["--settings", exp, "--dataset", TOY, "--split",
+                         "test", "--cpu"])
+    printed = capsys.readouterr().out
+    assert "(step 7)" in printed
+    assert "MRR" in printed and "nan" not in printed.lower()
 
 
 def check_train_cli(tmp_path, kind):
