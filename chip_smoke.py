@@ -172,6 +172,37 @@ build/chip_smoke/<label>), served and trained as serve and train (a fit of
           and with PartiallyRandomInput=Yes: 4 (+ 4 twin) block_direction
           launches an encode (a step).
 
+Then bf16 message and stream precision, each configuration a copy
+of a shipped settings file with ``MessagePrecision=bfloat16`` and
+``stream_precision`` bfloat16 set by ``dataclasses.replace`` (no settings
+key has it), at published widths:
+
+  kernel_bf16  the bf16 entry points (block_direction_bf16 and its twin,
+          basis_project_bf16, basis_combine_bf16 forward and twin CSR,
+          staircase_aggregate_bf16 with and without perm, scatter2 with
+          compute_dtype bf16) on the full train graph and on the first
+          training batch's graph, each against a float64 sum of its
+          bf16-valued inputs within sum_allowance (the product within its
+          f32 allowance plus one bf16 ulp) and the wrong layout outside
+          it, beside its plain version; times beside the f32 kernel's, the
+          bound (bf16 bytes, 989 TFLOP/s for the product) and the library
+          call (torch.matmul in bf16, torch.sparse.mm on a bf16 CSR);
+  serve_bf16, train_bf16, serve_basis_bf16, train_basis_bf16,
+  serve_diag_bf16, train_diag_bf16  as serve and train (10 steps) on
+          gcn_block.exp, gcn_basis.exp and gcn_diag: the bf16 entry points
+          launched 4 (+ 4 twin) times an encode (a step) and no f32 one,
+          one fused energies' kernel 3 launch a step; codes within 1e-3
+          (relative L2) of the CPU plain path and 2e-2 of the f32 encode,
+          MRR beside the f32 one; the step within BF16_STEP_TOL of the CPU
+          plain path and its loss within 1e-2 of the f32 loss on the same
+          draws;
+  train_distmult_bf16  distmult.exp on bf16 streams, 6 steps of all
+          272,115 positives: the fused backward's d codes against
+          autograd's on the same bf16 values, and the fused, bf16 direct
+          and f32 backwards timed side by side;
+  train_split_bf16  gcn_block.exp bf16 with --negative-mode split, 10
+          steps: two single-factor fused backwards a step.
+
 Then a line listing every ported kernel with its numbers (each kernel's
 launches on each of these paths beside them), nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
@@ -205,7 +236,7 @@ from relationprediction_torch.evaluation import ranking
 from relationprediction_torch.evaluation.scorer import Scorer
 from relationprediction_torch.graph import CsrLayout, build_graph_batch
 from relationprediction_torch.models import build, decoders
-from relationprediction_torch.ops import staircase, staircase2
+from relationprediction_torch.ops import neg_energy, staircase, staircase2
 from relationprediction_torch.params import map_tree, tree_leaves
 from relationprediction_torch.training import (checkpoint, device_sampling,
                                                engine, optimizers)
@@ -239,6 +270,7 @@ SWEEP_ITEMS = (16, 32, 64, 128, 256, 512, 1024)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 F32_UNIT_ROUNDOFF = 2.0 ** -24
 
 
@@ -269,18 +301,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def block_direction_bound(layout, n_vertices, n_rel, n_blocks, dr):
+def block_direction_bound(layout, n_vertices, n_rel, n_blocks, dr, elem=4):
     """Least time of one launch: bytes moved (each input read once, the
     output written once) over the HBM rate, against the f32 operations
     this data needs (z = sum w*x per edge, one block product per (target,
     relation) run) over the f32 rate. Inputs are counted as this layout
     needs them: the feature rows its edges gather and the blocks of the
-    relations it holds."""
+    relations it holds, ``elem`` bytes an element (2 for the bf16 entry
+    points); out, the weights and the CSR 4."""
     e, d = layout.n_edges, n_blocks * dr
     rows = int(torch.unique(layout.src).numel()) if e else 0
     rels = int(torch.unique(layout.rel).numel()) if e else 0
-    n_bytes = 4 * ((rows + n_vertices) * d + rels * n_blocks * dr * dr
-                   + (n_vertices + 1) + 3 * e)
+    n_bytes = elem * (rows * d + rels * n_blocks * dr * dr) \
+        + 4 * (n_vertices * d + (n_vertices + 1) + 3 * e)
     targets = torch.repeat_interleave(
         torch.arange(n_vertices, device=layout.row_ptr.device),
         layout.row_ptr.diff().long())
@@ -334,28 +367,30 @@ def split_bound(m, k, n, kp, parts) -> dict:
     return least_time(4 * (m * k + k * n + parts * (m + n) * kp), 0)
 
 
-def combine_bound(layout, n_rows, n_bases, d_out) -> dict:
+def combine_bound(layout, n_rows, n_bases, d_out, elem=4) -> dict:
     """basis_combine on this layout: each gathered projected row (B *
-    d_out floats) once, the coefficients of the relations present, the
-    CSR, and ``out`` written once, against 2 * E * B * d_out f32
-    operations (one FMA per basis and column an edge) and E * B for the
-    edges' coefficients."""
+    d_out elements of ``elem`` bytes, 2 for bf16 P) once, the coefficients
+    of the relations present, the CSR, and ``out`` written once, against
+    2 * E * B * d_out f32 operations (one FMA per basis and column an
+    edge) and E * B for the edges' coefficients."""
     e = layout.n_edges
     rows = int(torch.unique(layout.src).numel()) if e else 0
     rels = int(torch.unique(layout.rel).numel()) if e else 0
-    n_bytes = 4 * (rows * n_bases * d_out + n_rows * d_out + rels * n_bases
-                   + (n_rows + 1) + 3 * e)
+    n_bytes = elem * rows * n_bases * d_out + 4 * (
+        n_rows * d_out + rels * n_bases + (n_rows + 1) + 3 * e)
     return {**least_time(n_bytes, 2 * e * n_bases * d_out + e * n_bases),
             "gathered_rows": rows}
 
 
-def staircase_bound(layout, n_rows, d, perm=False) -> dict:
+def staircase_bound(layout, n_rows, d, perm=False, elem=4) -> dict:
     """staircase_aggregate on this layout: every message row read once
-    (E * d floats), ``out`` written once, the weights and row_ptr (and the
-    permutation on the scatter2 path), against 2 * E * d f32 operations
-    (one FMA an entry and column)."""
+    (E * d elements of ``elem`` bytes, 2 for bf16 messages), ``out``
+    written once, the weights and row_ptr (and the permutation on the
+    scatter2 path), against 2 * E * d f32 operations (one FMA an entry
+    and column)."""
     e = layout.n_edges
-    n_bytes = 4 * (e * d + n_rows * d + e + (n_rows + 1) + (e if perm else 0))
+    n_bytes = elem * e * d + 4 * (n_rows * d + e + (n_rows + 1)
+                                  + (e if perm else 0))
     return least_time(n_bytes, 2 * e * d)
 
 
@@ -481,6 +516,20 @@ def project_exact(x, w):
     allowance = (x.shape[1] ** 0.5 * F32_UNIT_ROUNDOFF
                  * (x.double().abs() @ w.double().abs()))
     return exact, allowance
+
+
+def rel_l2(got, want) -> float:
+    """|got - want| / |want| in the L2 norm, in float64."""
+    want = want.double()
+    return ((got.double() - want).norm() / want.norm()).item()
+
+
+def float32_config(cfg):
+    """``cfg`` with float32 message and stream precision."""
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder,
+                                         message_precision="float32"),
+        decoder=dataclasses.replace(cfg.decoder, stream_precision="float32"))
 
 
 def over_allowance(got, exact, allowance) -> float:
@@ -640,19 +689,88 @@ def phase_kernel(graphs, n_rel, n_blocks, dr, device):
 
 FIXUP_OPS = (staircase2.block_direction, staircase2.basis_direction,
              staircase.staircase_aggregate)
+# The bf16 factored energies' backwards, which launch kernel 3's bf16
+# entry point (its fix-ups count on staircase_aggregate).
+ENERGY_OPS = (neg_energy.factored_negative_energies,
+              neg_energy.single_factor_negative_energies)
 
 
 def reset_launch_counts() -> None:
-    """Every kernel count to 0, just before a main path runs."""
+    """Every kernel count to 0, f32 and bf16, just before a main path
+    runs."""
     for op in (staircase2.block_direction, staircase2.basis_direction):
         op.launches = op.twin_launches = 0
+        op.bf16_launches = op.bf16_twin_launches = 0
     staircase2.basis_direction.project_launches = 0
     staircase2.basis_direction.split_launches = 0
+    staircase2.basis_direction.bf16_project_launches = 0
     for op in (staircase.staircase_aggregate, staircase2.scatter2,
                staircase2.scatter2_slot_order):
-        op.launches = 0
+        op.launches = op.bf16_launches = 0
+    for op in ENERGY_OPS:
+        op.bf16_launches = 0
     for op in FIXUP_OPS:
         op.fixup_launches = 0
+
+
+def precision_counts(bf16: bool) -> dict:
+    """The launches of one precision's entry points since the counts were
+    set to 0, by name: bf16's where ``bf16``, else f32's."""
+    pre = "bf16_" if bf16 else ""
+    out = {}
+    for op in (staircase2.block_direction, staircase2.basis_direction):
+        for kind in ("launches", "twin_launches"):
+            out[f"{op.__name__}.{pre}{kind}"] = getattr(op, pre + kind)
+    out[f"basis_project.{pre}launches"] = getattr(
+        staircase2.basis_direction, f"{pre}project_launches")
+    for op in (staircase.staircase_aggregate, staircase2.scatter2,
+               staircase2.scatter2_slot_order):
+        out[f"{op.__name__}.{pre}launches"] = getattr(op, f"{pre}launches")
+    if not bf16:
+        out["tf32_split.launches"] = \
+            staircase2.basis_direction.split_launches
+    return out
+
+
+def check_other_precision_idle(bf16: bool, dc_projects: int = 0) -> None:
+    """A path of one message precision launched no aggregation entry point
+    of the other: a bf16 tensor never reached an f32 kernel, nor an f32
+    one a bf16 kernel. The one f32 work on a bf16 path is d C's f32 P
+    (features @ W_flat from the saved f32 inputs, as JAX computes it):
+    ``dc_projects`` launches of the f32 basis_project and as many of its
+    split pass. (The bf16 energies' launches follow the stream precision
+    and are checked apart.)"""
+    other = precision_counts(not bf16)
+    want = dict.fromkeys(other, 0)
+    if bf16:
+        want["basis_project.launches"] = dc_projects
+        want["tf32_split.launches"] = dc_projects
+    if other != want:
+        raise AssertionError(f"a {'bf16' if bf16 else 'float32'} path "
+                             f"launched the other precision's kernels: "
+                             f"{other}, expected {want}")
+
+
+def energy_launches() -> int:
+    """Kernel 3 launches of the bf16 energies' backwards since the counts
+    were set to 0."""
+    return sum(op.bf16_launches for op in ENERGY_OPS)
+
+
+def fused_energy_launches(model, kind, rows, rate) -> int:
+    """Kernel 3 launches a step of the bf16 energies' backwards for a
+    batch of ``rows`` positives: one for the factored loss (k = rate), one
+    for each side of the split loss (k = rate // 2 and rate - rate // 2)
+    that neg_energy.fused_backward_applies (the JAX package's rule) sends
+    to the fused form; none for the tiled and shared losses or an f32
+    stream."""
+    if model.stream_dtype is None or kind not in ("factored", "split"):
+        return 0
+    codes = torch.empty(model.n_entities, 1, dtype=model.stream_dtype,
+                        device="meta")
+    ks = (rate,) if kind == "factored" else (rate // 2, rate - rate // 2)
+    return sum(neg_energy.fused_backward_applies(codes, rows, k)
+               for k in ks)
 
 
 def fixup_counts() -> dict:
@@ -666,16 +784,20 @@ def op_name(op) -> str:
 
 
 def check_helper_launches(op, launches, twin_launches, project_launches,
-                          split_launches, fixups) -> None:
+                          split_launches, fixups, energies=0) -> None:
     """The kernels that run beside a main path's aggregation kernel: one
-    split pass before each basis_project launch, one carry fix-up after
-    each launch of ``op`` (forward and twin), and neither elsewhere."""
+    split pass before each f32 basis_project launch (``project_launches``
+    counts the f32 ones; the bf16 product has none), one carry fix-up
+    after each launch of ``op`` (forward and twin) and after each of the
+    ``energies`` kernel 3 launches of the bf16 energies' backwards, and
+    neither elsewhere."""
     if split_launches != project_launches:
         raise AssertionError(f"{split_launches} split passes for "
                              f"{project_launches} basis_project launches")
     want = {name: 0 for name in fixups}
+    want[staircase.staircase_aggregate.__name__] = energies
     if op is not None:
-        want[op.__name__] = launches + twin_launches
+        want[op.__name__] += launches + twin_launches
     if fixups != want:
         raise AssertionError(f"carry fix-ups {fixups}, expected {want}")
 
@@ -685,9 +807,17 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     """The serving path at full width, with the kernels' launch counts:
     ``op`` (block_direction, basis_direction or staircase_aggregate) must
     have launched once a direction and layer, and nothing else launched;
-    with ``op`` None (the embedding encoder, no graph) nothing at all."""
+    with ``op`` None (the embedding encoder, no graph) nothing at all. A
+    bf16 message precision counts the bf16 entry points and no f32 one
+    (and an f32 one no bf16 one); its codes are held to the CPU plain
+    path's within 1e-3 in relative L2 norm (the same bf16 inputs, f32
+    sums in other orders, which can flip a bf16 rounding of the next
+    layer's input) and to the f32 configuration's encode within 2e-2,
+    its filtered MRR beside the f32 one."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
+    bf16 = model.agg_dtype is not None
+    pre = "bf16_" if bf16 else ""
     params = model.init_params(torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
     graph = model.make_graph(ds.train)
@@ -714,14 +844,16 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     summary = scorer.compute_scores(triples)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = op.launches if op else 0
+    launches = getattr(op, pre + "launches") if op else 0
     project_launches = staircase2.basis_direction.project_launches
+    products = getattr(staircase2.basis_direction, pre + "project_launches")
     split_launches = staircase2.basis_direction.split_launches
     fixups = fixup_counts()
     fixup_launches = sum(fixups.values())
     peak = torch.cuda.max_memory_allocated()
     check_helper_launches(op, launches, 0, project_launches, split_launches,
                           fixups)
+    check_other_precision_idle(bf16)
     if staircase2.launch_counts() != (launches, 0):
         raise AssertionError(f"an encode for serving ran a twin pass or "
                              f"another op: {staircase2.launch_counts()}")
@@ -729,9 +861,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     if launches != want:
         raise AssertionError(f"{op_name(op)} launched {launches} times in "
                              f"one encode, expected {want}")
-    if project_launches != (launches if op is staircase2.basis_direction
-                            else 0):
-        raise AssertionError(f"basis_project launched {project_launches} "
+    if products != (launches if op is staircase2.basis_direction else 0):
+        raise AssertionError(f"basis_project launched {products} "
                              f"times for {launches} combine launches")
 
     codes = encoded.entity_codes
@@ -750,8 +881,14 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     # an entry near 0 is a cancellation of terms that large, so its atol
     # is 1e-4 of the largest code; every other model's is 1e-4.
     scale = ref.abs().max().item() if model.has_state else 1.0
-    torch.testing.assert_close(codes.cpu(), ref, rtol=1e-4,
-                               atol=1e-4 * scale)
+    codes_rel = rel_l2(codes.cpu(), ref)
+    if bf16:
+        if not codes_rel <= 1e-3:
+            raise AssertionError(f"bf16 codes differ from the CPU plain "
+                                 f"path's by {codes_rel} (relative L2)")
+    else:
+        torch.testing.assert_close(codes.cpu(), ref, rtol=1e-4,
+                                   atol=1e-4 * scale)
     scorer.register_model(ref_view, cpu_params, cpu_graph,
                           n_entities=ds.n_entities)
     ref_summary = scorer.compute_scores(triples)
@@ -760,6 +897,20 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     if mrr_diff > 1e-3:
         raise AssertionError(f"filtered MRR differs from the CPU plain "
                              f"path by {mrr_diff}")
+    vs_f32 = {}
+    if bf16:
+        f32_view = build.ModelView(build.build_model(float32_config(cfg),
+                                                     device))
+        f32_codes = f32_view.encoded(params, graph).entity_codes
+        scorer.register_model(f32_view, params, graph,
+                              n_entities=ds.n_entities)
+        vs_f32 = {"codes_rel_l2_vs_f32": rel_l2(codes, f32_codes),
+                  "mrr_filtered_f32": scorer.compute_scores(triples)
+                  .results["Filtered"]["MRR"]}
+        if not vs_f32["codes_rel_l2_vs_f32"] <= 2e-2:
+            raise AssertionError(f"bf16 codes differ from the f32 encode "
+                                 f"by {vs_f32['codes_rel_l2_vs_f32']}")
+        del f32_view, f32_codes
 
     # -- warm timings, outside the counted run ---------------------------
     def encode_again():
@@ -805,10 +956,12 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
            "hits10_raw": res["Raw"]["H@10"],
            "hits10_filtered": res["Filtered"]["H@10"],
            "codes_max_abs_err_vs_cpu_plain": codes_err,
+           "codes_rel_l2_vs_cpu_plain": codes_rel,
            "codes_max_abs": ref.abs().max().item(),
            "mrr_filtered_cpu_plain": ref_summary.results["Filtered"]["MRR"],
+           **vs_f32, "precision": "bfloat16" if bf16 else "float32",
            "max_memory_allocated": peak,
-           "launches": launches, "project_launches": project_launches,
+           "launches": launches, "project_launches": products,
            "split_launches": split_launches,
            "fixup_launches": fixup_launches}
     if mlp is not None:
@@ -1612,12 +1765,13 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
     return rows
 
 
-def same_step(loss, grads, ref_loss, ref_grads, what) -> dict:
-    """Hold one step's loss within 1e-5 relative and each gradient leaf
-    within 1e-4 in relative L2 norm of a reference step's (``what`` names
-    the reference)."""
+def same_step(loss, grads, ref_loss, ref_grads, what, loss_rtol=1e-5,
+              leaf_rtol=1e-4) -> dict:
+    """Hold one step's loss within ``loss_rtol`` relative and each
+    gradient leaf within ``leaf_rtol`` in relative L2 norm of a reference
+    step's (``what`` names the reference)."""
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    if not loss_rel <= 1e-5:
+    if not loss_rel <= loss_rtol:
         raise AssertionError(f"step loss differs from {what} by {loss_rel} "
                              f"(relative)")
     grad_rows = []
@@ -1632,7 +1786,7 @@ def same_step(loss, grads, ref_loss, ref_grads, what) -> dict:
         # A ReLU gate at |a| ~ 0 can flip between two f32 summation orders
         # and move a few entries by their own size; a wrong formula moves
         # the whole leaf. So the leaf is held in the L2 norm.
-        if not rel <= 1e-4:
+        if not rel <= leaf_rtol:
             raise AssertionError(f"gradient leaf {list(c.shape)} differs "
                                  f"from {what}: relative L2 {rel}")
     return {"loss": loss.item(), "ref_loss": ref_loss.item(),
@@ -1841,9 +1995,19 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     passes only where lockstep_vs_cpu shows the CPU plain path's loss
     leaving the floats at the same step. The stored variant's comparison runs
     STORED_CACHE_STEPS steps and holds its caches too (stateful_vs_cpu);
-    a variational encoder's adds its KL term (kl_vs_cpu)."""
+    a variational encoder's adds its KL term (kl_vs_cpu). A bf16 message
+    or stream precision counts the bf16 entry points (and the bf16
+    energies' backwards: one kernel 3 launch a step for the factored
+    loss, two for the split loss, where the JAX package's rule takes
+    them) and no f32 one; its step is held to the CPU plain path within
+    BF16_STEP_TOL (the same bf16 arithmetic, f32 sums in other orders,
+    which can flip bf16 roundings and ReLU gates near 0), and its loss to
+    the f32 configuration's on the same draws within 1e-2 relative (the
+    JAX package's own rule, tests/test_bf16_streams.py)."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
+    bf16 = model.agg_dtype is not None or model.stream_dtype is not None
+    pre = "bf16_" if model.agg_dtype is not None else ""
     logged = []
     loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append,
                             prefetch=False, **loop_kwargs)
@@ -1856,6 +2020,12 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     pipeline = engine.BatchPipeline(model, cfg, ds, np.random.default_rng(0),
                                     device_negatives=not host_tiled)
     batch = pipeline.next().to(device)
+    energies_per_step = fused_energy_launches(
+        model, kind, batch.triples.shape[0],
+        cfg.training.negative_sample_rate)
+    if phase == "train_distmult_bf16":
+        emit(f"{phase}_fused_backward", phase_s=time.perf_counter() - t_phase,
+             **fused_vs_autograd(model, params, batch))
     if model.has_state:
         batches = [batch] + [pipeline.next().to(device)
                              for _ in range(STORED_CACHE_STEPS - 1)]
@@ -1889,7 +2059,12 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
              loss_kind=kind, positives=loop.pipeline.n_positives
              if host_tiled else int(batch.mask.sum().item()),
              **same_step(loss, grads, cpu_loss, cpu_grads,
-                         "the CPU plain path"), **kl)
+                         "the CPU plain path",
+                         **(BF16_STEP_TOL if bf16 else {})), **kl)
+        if bf16:
+            emit(f"{phase}_vs_f32", phase_s=time.perf_counter() - t_phase,
+                 **bf16_vs_f32(model, kind, params, batch, draws, loss,
+                               grads))
         del draws, grads, cpu_grads
     del batch
 
@@ -1920,15 +2095,26 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
              equal_to_cpu_pipeline=True,
              phase_s=time.perf_counter() - t_phase)
         del consumed
-    launches = op.launches if op else 0
-    twin_launches = getattr(op, "twin_launches", 0)
+    launches = getattr(op, pre + "launches") if op else 0
+    twin_launches = getattr(op, pre + "twin_launches", 0)
     project_launches = staircase2.basis_direction.project_launches
+    products = getattr(staircase2.basis_direction, pre + "project_launches")
     split_launches = staircase2.basis_direction.split_launches
     fixups = fixup_counts()
     fixup_launches = sum(fixups.values())
+    energies = energy_launches()
     peak = torch.cuda.max_memory_allocated()
     check_helper_launches(op, launches, twin_launches, project_launches,
-                          split_launches, fixups)
+                          split_launches, fixups, energies)
+    # bf16 gcn_basis: one f32 P for d C after each forward pass.
+    dc_projects = launches if pre and op is staircase2.basis_direction \
+        else 0
+    check_other_precision_idle(pre == "bf16_", dc_projects)
+    want_energies = steps * energies_per_step
+    if energies != want_energies:
+        raise AssertionError(f"the bf16 energies' backwards launched kernel "
+                             f"3 {energies} times in {steps} steps, "
+                             f"expected {want_energies}")
     records = result.steps
     per_layer = 2 * cfg.encoder.n_layers if op else 0
     # No twin pass where nothing needs the layer input's gradient: the
@@ -1951,9 +2137,9 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                              f"{twin_launches} twin passes of "
                              f"{op_name(op)}, all ops "
                              f"{staircase2.launch_counts()}")
-    if project_launches != (launches + twin_launches
-                            if op is staircase2.basis_direction else 0):
-        raise AssertionError(f"basis_project launched {project_launches} "
+    if products != (launches + twin_launches
+                    if op is staircase2.basis_direction else 0):
+        raise AssertionError(f"basis_project launched {products} "
                              f"times for {launches + twin_launches} "
                              f"combine launches")
     losses = {i: records[i - 1]["loss"] for i in (1, steps // 2, steps)}
@@ -1987,9 +2173,14 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "edges_per_s": timing["edges_per_sec"],
            "launches_per_step": launches // steps,
            "twin_launches_per_step": twin_launches // steps,
-           "project_launches_per_step": project_launches // steps,
+           "project_launches_per_step": products // steps,
            "split_launches_per_step": split_launches // steps,
+           "dc_project_launches_per_step": dc_projects // steps,
            "fixup_launches_per_step": fixup_launches // steps,
+           "energy_launches_per_step": energies // steps,
+           "precision": {"message": "bfloat16" if pre else "float32",
+                         "stream": "float32" if model.stream_dtype is None
+                         else "bfloat16"},
            "max_memory_allocated": peak, "log": logged}
     emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
@@ -1999,8 +2190,9 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
          **profile_steps(loop, params, result.opt_state),
          phase_s=time.perf_counter() - t_phase)
     return {**row, "launches": launches, "twin_launches": twin_launches,
-            "project_launches": project_launches,
-            "split_launches": split_launches, "fixup_launches": fixup_launches}
+            "project_launches": products, "dc_project_launches": dc_projects,
+            "split_launches": split_launches, "fixup_launches": fixup_launches,
+            "energy_launches": energies}
 
 
 def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
@@ -2685,6 +2877,431 @@ def staircase_kernels_line(ks, runs) -> list:
         "train_batch_scatter2_ms": mean_of(batch, "scatter2_ms")}]
 
 
+# ---------------------------------------------------------------------------
+# bf16 message and stream precision
+# ---------------------------------------------------------------------------
+
+# One step on the card against the CPU plain path, bf16: see phase_train.
+BF16_STEP_TOL = {"loss_rtol": 1e-4, "leaf_rtol": 1e-2}
+BF16 = torch.bfloat16
+# One bf16 ulp is at most 2^-7 of a value: the allowance of a product
+# that the kernel rounds to bf16 (basis_project_bf16's P).
+BF16_ULP = 2.0 ** -7
+
+
+def bf16_vs_f32(model, kind, params, batch, draws, loss, grads) -> dict:
+    """One bf16 step against the f32 configuration's on the same params,
+    batch and draws, on the card: the loss within 1e-2 relative (the JAX
+    package's rule, tests/test_bf16_streams.py), the leaves reported."""
+    ref_loss, ref_grads = engine.step_loss_and_grads(
+        build.build_model(float32_config(model.config), model.device), kind,
+        params, batch, draws)
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    if not rel <= 1e-2:
+        raise AssertionError(f"the bf16 loss {loss.item()} differs from the "
+                             f"f32 loss {ref_loss.item()} by {rel}")
+    leaves = [rel_l2(g, c) if c.norm() > 0 else 0.0
+              for g, c in zip(tree_leaves(grads), tree_leaves(ref_grads))]
+    return {"loss_bf16": loss.item(), "loss_f32": ref_loss.item(),
+            "loss_rel_diff": rel, "worst_leaf_rel_l2_diff": max(leaves)}
+
+
+def fused_vs_autograd(model, params, batch) -> dict:
+    """The factored energies of every positive of the batch (272,115 x 10
+    for distmult) on a bf16 stream, with random cotangents: the fused
+    backward's d codes (kernel 3's bf16 entry point, rounded to bf16) and
+    d factors against autograd's through the f32 form on the same bf16
+    values (within 1e-2 in relative L2 norm: the bf16 rounding of d codes
+    is 2^-9 an element), and the times of the three backwards (CUDA
+    events): fused, autograd through the bf16 direct form (its sort-based
+    index_put_ accumulating in bf16), autograd through the f32 form (the
+    f32 stream's backward)."""
+    enc = model.stream_cast(model.encode(params, None, deterministic=True))
+    e1, r, e2 = model.gather_codes(enc, batch.triples)
+    dp = params["decoder"]
+    q_subj = model.decoder.subject_factor(dp, r, e2).detach()
+    q_obj = model.decoder.object_factor(dp, e1, r).detach()
+    codes = enc.entity_codes.detach()
+    gen = torch.Generator(device=codes.device).manual_seed(1)
+    values, co = device_sampling.device_negative_parts(
+        batch.triples, model.config.training.negative_sample_rate,
+        model.n_entities, gen)
+    d_e = torch.randn(values.shape, generator=gen, device=codes.device)
+    d_s = 1e-3 * torch.randn(values.shape, generator=gen,
+                             device=codes.device)
+
+    def graph(form):
+        leaves = [t.clone().requires_grad_(True) for t in
+                  ((codes, q_subj, q_obj) if form != "f32" else
+                   (codes.float(), q_subj.float(), q_obj.float()))]
+        if form == "direct_bf16":
+            ev = leaves[0][values.long()]
+            es = (ev * leaves[1][:, None]).sum(-1, dtype=torch.float32)
+            eo = (ev * leaves[2][:, None]).sum(-1, dtype=torch.float32)
+            energy = es + co.float() * (eo - es)
+            sq = (ev.float() ** 2).sum(-1)
+        else:
+            energy, sq = neg_energy.factored_negative_energies(
+                *leaves, values, co)
+        return leaves, (energy * d_e).sum() + (sq * d_s).sum()
+
+    out, grads = {"rows": int(values.numel()),
+                  "entities": model.n_entities}, {}
+    before = neg_energy.factored_negative_energies.bf16_launches
+    for form in ("fused", "direct_bf16", "f32"):
+        leaves, total = graph(form)
+        grads[form] = torch.autograd.grad(total, leaves, retain_graph=True)
+        out[f"{form}_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            total, leaves, retain_graph=True), 3, warmup=1)
+        del leaves, total
+    if neg_energy.factored_negative_energies.bf16_launches == before:
+        raise AssertionError("the fused backward launched no kernel 3")
+    for i, name in enumerate(("d_codes", "d_q_subj", "d_q_obj")):
+        want = grads["f32"][i]
+        rel = rel_l2(grads["fused"][i], want)
+        out[f"{name}_rel_l2_vs_f32_autograd"] = rel
+        out[f"{name}_direct_bf16_rel_l2_vs_f32_autograd"] = rel_l2(
+            grads["direct_bf16"][i], want)
+        if not rel <= 1e-2:
+            raise AssertionError(f"the fused backward's {name} differs "
+                                 f"from autograd's by {rel}")
+    return out
+
+
+def bf16_csr_library(csr, dense) -> tuple:
+    """(time, note) of torch.sparse.mm of a CSR matrix with bf16 values
+    by a bf16 dense matrix, or (None, the reason it did not run)."""
+    try:
+        csr16 = torch.sparse_csr_tensor(csr.crow_indices(),
+                                        csr.col_indices(),
+                                        csr.values().to(BF16), csr.shape)
+        torch.sparse.mm(csr16, dense)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        return None, f"none: torch.sparse.mm on a bf16 CSR raised " \
+                     f"{str(err).splitlines()[0][:120]}"
+    return cuda_ms(lambda: torch.sparse.mm(csr16, dense), 20), \
+        "torch.sparse.mm on the same CSR matrix, bf16 values"
+
+
+def bf16_row(kernel, graph_name, direction, got, exact, allowance, wrong,
+             plain, launch, f32_launch, plain_fn, bound, library) -> dict:
+    """One bf16 kernel's checks and times: ``got`` against the float64
+    sum ``exact`` of its bf16-valued inputs within ``allowance``, the
+    output ``wrong`` on the wrong layout outside it, ``plain`` (the plain
+    version on the same bf16 inputs) beside it; CUDA-event times of the
+    bf16 launch, of the f32 kernel on the f32 inputs and of the plain
+    version, with the bound and ``library``, (its time or None, what it
+    is)."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{kernel} {graph_name}/{direction}: not "
+                             f"finite")
+    over = over_allowance(got, exact, allowance)
+    if not over <= 1:
+        raise AssertionError(f"{kernel} {graph_name}/{direction}: {over} "
+                             f"of the allowance")
+    row = {"kernel": kernel, "graph": graph_name, "direction": direction,
+           "max_abs_err": (got.double() - exact).abs().max().item(),
+           "max_abs_diff_vs_plain": (got.float() - plain.float()).abs()
+           .max().item(),
+           "over_allowance": over,
+           "ms": cuda_ms(launch, 20), "f32_ms": cuda_ms(f32_launch, 20),
+           "plain_ms": cuda_ms(plain_fn, 3, warmup=1),
+           "library_ms": library[0], "library": library[1], **bound}
+    if wrong is not None:
+        row["wrong_layout_over_allowance"] = over_allowance(wrong, exact,
+                                                            allowance)
+        if not row["wrong_layout_over_allowance"] > 1:
+            raise AssertionError(f"{kernel} {graph_name}/{direction}: the "
+                                 f"wrong layout passes the allowance")
+    return row
+
+
+def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
+    """The bf16 entry points at the main paths' shapes, on the full train
+    graph and on the first training batch's graph, both directions, each
+    held to a float64 sum of its bf16-valued inputs within sum_allowance
+    (the wrong layout outside it) and beside its plain version:
+    block_direction_bf16 (forward) and block_direction_twin_bf16 (the
+    twin CSR, W read transposed); basis_combine_bf16 on a bf16 P, forward
+    and twin CSR; staircase_aggregate_bf16 without and with perm, and
+    scatter2 with compute_dtype bf16 (TPU kernel 4's mapping onto it);
+    basis_project_bf16 at the forward and twin shapes ([V, d] by [d, B*d])
+    and an odd one (the 2-byte load path) within the f32 product's
+    allowance plus one bf16 ulp (P is rounded). Times (CUDA events) of
+    each bf16 launch, of its f32 kernel on the f32 inputs and of the plain
+    version, beside the bound (bf16 bytes; 989 TFLOP/s for the product)
+    and the library call: torch.matmul in bf16 for the product,
+    torch.sparse.mm on a bf16 CSR for combine and staircase (none for
+    block_direction, whose one-call form has E*B*dr*dr entries). Launches
+    here go through the launch functions, or count on counters the main
+    paths reset."""
+    t_phase = time.perf_counter()
+    lib, _ = staircase2.kernel_library()
+    blib, _ = staircase2.basis_kernel_library()
+    plib, _ = staircase2.project_kernel_library()
+    slib, _ = staircase.kernel_library()
+    exact_float32()
+    rows = []
+
+    def emit_row(row):
+        emit("kernel_bf16", phase_s=time.perf_counter() - t_phase, **row)
+        rows.append(row)
+
+    gen = torch.Generator().manual_seed(12)
+    v_full = graphs["full_train"].n_vertices
+    x = torch.randn(v_full, d, generator=gen).to(device)
+    w_flat = (torch.randn(d, n_bases * d, generator=gen) * 0.05).to(device)
+    w_t = staircase2.basis_twin_weights(w_flat, n_bases)
+    for shape, a, b in (("forward", x, w_flat), ("twin", x, w_t),
+                        ("odd", x[:37, :33], w_flat[:33, :29])):
+        a16, b16 = a.to(BF16).contiguous(), b.to(BF16).contiguous()
+        got = staircase2.launch_project_bf16(plib, a16, b16)
+        again = staircase2.launch_project_bf16(plib, a16, b16)
+        exact, allowance = project_exact(a16.float(), b16.float())
+        allowance = allowance + BF16_ULP * exact.abs()
+        (m, k), n = a16.shape, b16.shape[1]
+        af, bf = a16.float(), b16.float()
+        row = bf16_row(
+            "basis_project_bf16", "-", shape, got, exact, allowance, None,
+            staircase2.basis_project_reference(a16, b16),
+            lambda: staircase2.launch_project_bf16(plib, a16, b16),
+            lambda: staircase2.launch_project(plib, af, bf),
+            lambda: staircase2.basis_project_reference(a16, b16),
+            least_time(2 * (m * k + k * n + m * n), 2 * m * k * n,
+                       BF16_OPS_PER_S),
+            (cuda_ms(lambda: torch.matmul(a16, b16), 20),
+             "torch.matmul in bf16, f32 reduction"))
+        if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+            raise AssertionError("basis_project_bf16: two launches differ")
+        row.update(m=m, k=k, n=n, same_bits_twice=True,
+                   differs_from_plain_share=(got != staircase2
+                                             .basis_project_reference(
+                                                 a16, b16)).float().mean()
+                   .item())
+        emit_row(row)
+
+    for graph_name, graph in graphs.items():
+        v = graph.n_vertices
+        x = torch.randn(v, n_blocks * dr, generator=gen).to(device)
+        w = torch.randn(n_rel, n_blocks, dr, dr, generator=gen).to(device)
+        p = torch.randn(v, n_bases * d, generator=gen).to(device)
+        coef = torch.randn(n_rel, n_bases, generator=gen).to(device)
+        x16, w16, p16 = x.to(BF16), w.to(BF16), p.to(BF16)
+        xf, wf, pf = x16.float(), w16.float(), p16.float()
+        for name, layout, twin, wrong in (
+                ("forward", graph.fwd, graph.fwd_twin, graph.bwd),
+                ("backward", graph.bwd, graph.bwd_twin, graph.fwd)):
+            for kernel, lay, bad, is_twin in (
+                    ("block_direction_bf16", layout, wrong, False),
+                    ("block_direction_twin_bf16", twin, layout, True)):
+                wt = wf.transpose(-1, -2) if is_twin else wf
+                exact, allowance = block_exact(xf, wt, lay, v)
+                row = bf16_row(
+                    kernel, graph_name, name,
+                    staircase2.launch(lib, x16, w16, lay, v, twin=is_twin),
+                    exact, allowance,
+                    staircase2.launch(lib, x16, w16, bad, v, twin=is_twin),
+                    staircase2.block_direction_reference(x16, wt, lay, v),
+                    lambda: staircase2.launch(lib, x16, w16, lay, v,
+                                              twin=is_twin),
+                    lambda: staircase2.launch(lib, xf, wf, lay, v,
+                                              twin=is_twin),
+                    lambda: staircase2.block_direction_reference(
+                        x16, wt, lay, v),
+                    block_direction_bound(lay, v, n_rel, n_blocks, dr,
+                                          elem=2),
+                    (None, "none: the one-call form is a [V*d, V*d] sparse "
+                           "matrix of E*B*dr*dr entries"))
+                row["items"] = staircase.block_direction_items(v,
+                                                               lay.n_edges)
+                emit_row(row)
+            for kernel, lay, bad in (("basis_combine_bf16", layout, wrong),
+                                     ("basis_combine_bf16_twin", twin,
+                                      layout)):
+                exact, allowance = combine_exact(pf, coef, lay, v)
+                row = bf16_row(
+                    "basis_combine_bf16", graph_name,
+                    f"{name}{'_twin' if kernel.endswith('twin') else ''}",
+                    staircase2.launch_combine(blib, p16, coef, lay, v),
+                    exact, allowance,
+                    staircase2.launch_combine(blib, p16, coef, bad, v),
+                    staircase2.basis_combine_reference(p16, coef, lay, v),
+                    lambda: staircase2.launch_combine(blib, p16, coef, lay,
+                                                      v),
+                    lambda: staircase2.launch_combine(blib, pf, coef, lay,
+                                                      v),
+                    lambda: staircase2.basis_combine_reference(p16, coef,
+                                                               lay, v),
+                    combine_bound(lay, v, n_bases, d, elem=2),
+                    bf16_csr_library(combine_matrix(coef, lay, v, v),
+                                     p16.view(v * n_bases, d)))
+                emit_row(row)
+            e = layout.n_edges
+            msgs = torch.randn(e, d, generator=gen).to(device).to(BF16)
+            msgs_f = msgs.float()
+            order = torch.randperm(e, generator=gen).to(device)
+            perm = order.to(torch.int32)
+            primary = torch.empty_like(msgs)
+            primary[order] = msgs
+            csr = torch.sparse_csr_tensor(
+                layout.row_ptr.long(), torch.arange(e, device=device),
+                layout.w, size=(v, e))
+            exact, allowance = staircase_exact(msgs_f, layout, v)
+            for label, m16, pm in (("", msgs, None), ("_perm", primary,
+                                                     perm)):
+                mf = m16.float()
+                row = bf16_row(
+                    "staircase_aggregate_bf16", graph_name, name + label,
+                    staircase.launch(slib, m16, layout, v, pm), exact,
+                    allowance, staircase.launch(slib, m16, wrong, v, pm),
+                    staircase.staircase_aggregate_reference(m16, layout, v,
+                                                            pm),
+                    lambda: staircase.launch(slib, m16, layout, v, pm),
+                    lambda: staircase.launch(slib, mf, layout, v, pm),
+                    lambda: staircase.staircase_aggregate_reference(
+                        m16, layout, v, pm),
+                    staircase_bound(layout, v, d, perm=pm is not None,
+                                    elem=2),
+                    bf16_csr_library(csr, msgs) if pm is None
+                    else (None, "none: timed on the no-perm path"))
+                row["items"] = staircase.merge_path_items(v, e)
+                emit_row(row)
+            # TPU kernel 4: scatter2 with compute_dtype bf16 (its f32
+            # primary-order messages cast, the CSR's order as perm); it
+            # launches the bf16 entry point once and the f32 one never.
+            before = (staircase2.scatter2.launches,
+                      staircase2.scatter2.bf16_launches)
+            scattered = staircase2.scatter2(primary.float(), layout, v,
+                                            order, compute_dtype=BF16)
+            after = (staircase2.scatter2.launches,
+                     staircase2.scatter2.bf16_launches)
+            if after != (before[0], before[1] + 1):
+                raise AssertionError(f"scatter2 bf16 {graph_name}/{name}: "
+                                     f"(f32, bf16) launches went from "
+                                     f"{before} to {after}")
+            over = over_allowance(scattered, exact, allowance)
+            if not over <= 1:
+                raise AssertionError(f"scatter2 bf16 {graph_name}/{name}: "
+                                     f"{over} of the allowance")
+            emit_row({"kernel": "scatter2_bf16", "graph": graph_name,
+                      "direction": name, "over_allowance": over,
+                      "max_abs_err": (scattered.double() - exact).abs()
+                      .max().item()})
+    return rows
+
+
+# The bf16 cells: (label, settings file, changed lines, the aggregation
+# op its path launches); each config also gets stream_precision bfloat16
+# (no settings key has it, in either package).
+BF16_LINE = ("SkipConnections=None",
+             "SkipConnections=None\n\tMessagePrecision=bfloat16")
+BF16_VARIANTS = (
+    ("bf16", SETTINGS, [BF16_LINE], staircase2.block_direction),
+    ("basis_bf16", BASIS_SETTINGS, [BF16_LINE], staircase2.basis_direction),
+    ("diag_bf16", BASIS_SETTINGS, [BF16_LINE, ("Name=gcn_basis",
+                                               "Name=gcn_diag")],
+     staircase.staircase_aggregate),
+)
+BF16_STEPS = 10
+
+
+def bf16_config(ds, label, settings, lines):
+    """variant_config with bf16 stream precision (``dataclasses.replace``;
+    no settings key sets it)."""
+    cfg = variant_config(ds, label, settings, lines)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, stream_precision="bfloat16"))
+
+
+def bf16_kernels_line(kb, runs) -> list:
+    """The five bf16 entry points with this run's numbers: times and
+    bounds on the full train graph (the serving shape; the product at the
+    forward shape), means over the directions, the training batch's beside
+    them; launches those of the bf16 serve and train paths (``runs``:
+    phase -> row with the ``op`` it ran), kernel 3's with the energies'
+    backwards."""
+    def pick(kernel, graph=None, directions=("forward", "backward")):
+        return [r for r in kb if r["kernel"] == kernel
+                and graph in (None, r["graph"])
+                and (directions is None or r["direction"] in directions)]
+
+    def timed(name, source, replaces, kernel, launches, directions=(
+            "forward", "backward"), **extra):
+        full = pick(kernel, "full_train", directions)
+        batch = pick(kernel, "train_batch", directions)
+        lib = [r["library_ms"] for r in full]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in full + batch),
+                "max_over_allowance": max(r["over_allowance"]
+                                          for r in full + batch),
+                "ms": mean_of(full, "ms"), "f32_ms": mean_of(full, "f32_ms"),
+                "plain_ms": mean_of(full, "plain_ms"),
+                "bound_ms": mean_of(full, "bound_ms"),
+                "bound_by": full[0]["bound_by"],
+                "library_ms": None if None in lib else sum(lib) / len(lib),
+                "library": full[0]["library"],
+                "train_batch_ms": mean_of(batch, "ms"),
+                "train_batch_f32_ms": mean_of(batch, "f32_ms"),
+                "train_batch_bound_ms": mean_of(batch, "bound_ms"), **extra}
+
+    def launches(key, op, energies=False):
+        return {k: r.get(key, 0) * (r["op"] == op)
+                + (r.get("energy_launches", 0) if energies else 0)
+                for k, r in runs.items()}
+
+    proj = {r["direction"]: r for r in pick("basis_project_bf16", None,
+                                            None)}
+    fwd = proj["forward"]
+    combine = {k: a + b for (k, a), b in zip(
+        launches("launches", "basis_direction").items(),
+        launches("twin_launches", "basis_direction").values())}
+    return [
+        timed("block_direction_bf16", KERNEL_SOURCE, REPLACES,
+              "block_direction_bf16", launches("launches",
+                                               "block_direction")),
+        timed("block_direction_twin_bf16", KERNEL_SOURCE, REPLACES_TWIN,
+              "block_direction_twin_bf16",
+              launches("twin_launches", "block_direction")),
+        {"name": "basis_project_bf16", "route": "cuda",
+         "source": PROJECT_SOURCE, "replaces": REPLACES_BASIS,
+         "replaces_twin": REPLACES_BASIS_TWIN,
+         "launches": sum(launches("project_launches",
+                                  "basis_direction").values()),
+         "launches_by_path": launches("project_launches", "basis_direction"),
+         "f32_dc_project_launches_by_path": launches("dc_project_launches",
+                                                     "basis_direction"),
+         "max_abs_err": max(r["max_abs_err"] for r in proj.values()),
+         "max_over_allowance": max(r["over_allowance"]
+                                   for r in proj.values()),
+         "differs_from_plain_share": fwd["differs_from_plain_share"],
+         "ms": fwd["ms"], "f32_ms": fwd["f32_ms"],
+         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+         "library": fwd["library"], "twin_ms": proj["twin"]["ms"],
+         "twin_library_ms": proj["twin"]["library_ms"],
+         "odd_shape_ms": proj["odd"]["ms"]},
+        timed("basis_combine_bf16", BASIS_SOURCE, REPLACES_BASIS,
+              "basis_combine_bf16", combine,
+              replaces_twin=REPLACES_BASIS_TWIN,
+              twin_ms=mean_of(pick("basis_combine_bf16", "full_train",
+                                   ("forward_twin", "backward_twin")),
+                              "ms")),
+        timed("staircase_aggregate_bf16", STAIRCASE_SOURCE,
+              REPLACES_STAIRCASE, "staircase_aggregate_bf16",
+              launches("launches", "staircase_aggregate", energies=True),
+              replaces_too=REPLACES_SCATTER2,
+              perm_ms=mean_of(pick("staircase_aggregate_bf16", "full_train",
+                                   ("forward_perm", "backward_perm")), "ms"),
+              scatter2_max_over_allowance=max(
+                  r["over_allowance"]
+                  for r in pick("scatter2_bf16", None, None)))]
+
+
 def variant_config(ds, label, settings, lines):
     """A copy of ``settings`` with each (old, new) line of ``lines``
     replaced, written under build/chip_smoke/<label> and loaded."""
@@ -2877,11 +3494,37 @@ def main() -> int:
             v_cfg, ds, device, op, f"train_{label}", steps=VARIANT_STEPS,
             falling=False, nonfinite_ok=label in NONFINITE_OK, **steps_kw)
 
+    # bf16 message and stream precision: the bf16 entry points of the four
+    # kernels, a serve and a train phase for each kernel family, DistMult's
+    # streams (the fused energies' backward at 272,115 x 10) and the split
+    # loss on gcn_block (the single-factor fused backward).
+    kb16 = phase_kernel_bf16(graphs, ds.n_relations, n_blocks, dr, n_bases,
+                             d, device)
+    bf16_runs = {}
+    for label, settings, lines, op in BF16_VARIANTS:
+        b_cfg = bf16_config(ds, label, settings, lines)
+        bf16_runs[f"serve_{label}"] = {**phase_serve(
+            ds, device, b_cfg, op, f"serve_{label}"), "op": op.__name__}
+        bf16_runs[f"train_{label}"] = {**phase_train(
+            b_cfg, ds, device, op, f"train_{label}", steps=BF16_STEPS),
+            "op": op.__name__}
+    dm_cfg = bf16_config(ds, "distmult_bf16",
+                         ROOT / "settings" / "distmult.exp", [])
+    bf16_runs["train_distmult_bf16"] = {**phase_train(
+        dm_cfg, ds, device, None, "train_distmult_bf16",
+        steps=EMBEDDING_STEPS,
+        compare_positives=EMBEDDING_COMPARE_POSITIVES), "op": None}
+    bf16_runs["train_split_bf16"] = {**phase_train(
+        bf16_config(ds, "split_bf16", SETTINGS, [BF16_LINE]), ds, device,
+        phase="train_split_bf16", steps=BF16_STEPS, negative_mode="split"),
+        "op": "block_direction"}
+
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
                                               paths)
                       + basis_kernels_line(kb, serve_b, train_b,
                                            basis_paths)
-                      + staircase_kernels_line(ks, runs)}),
+                      + staircase_kernels_line(ks, runs)
+                      + bf16_kernels_line(kb16, bf16_runs)}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

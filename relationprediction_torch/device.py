@@ -19,10 +19,13 @@ def resolve_device(cpu: bool) -> torch.device:
 
 
 def exact_float32() -> None:
-    """Keep float32 GEMMs in full float32 (no TF32) on the card.
+    """Keep float32 GEMMs in full float32 (no TF32) on the card, and any
+    bf16 GEMM's sums in f32 (no reduced-precision reduction in cuBLAS).
 
     The JAX reference contracts in float32; TF32 keeps ~3 decimal digits,
-    enough to reorder near-tied candidate scores and change ranks.
+    enough to reorder near-tied candidate scores and change ranks. Its
+    bf16 products accumulate in f32 (``preferred_element_type``).
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

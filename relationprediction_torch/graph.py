@@ -108,6 +108,9 @@ class GraphBatch:
     fwd_order / bwd_order: int64 [E], the input edge (row of the triples
       the graph was built from) of each fwd / bwd CSR entry; the
       stored-message layer indexes its per-edge caches through them.
+    normalization: the weights' rule ('global', 'local' or 'none'); bf16
+      message precision applies to 'global' graphs only, as in the JAX
+      package, whose other normalizations take its f32 segment sum.
     """
 
     fwd: CsrLayout
@@ -118,6 +121,7 @@ class GraphBatch:
     bwd_order: torch.Tensor
     n_vertices: int
     n_relations: int
+    normalization: str = "global"
 
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
         """The same graph on ``device``; the twins keep sharing their
@@ -137,7 +141,8 @@ class GraphBatch:
         return GraphBatch(fwd, bwd, replace(bwd, w=fn(self.fwd_twin.w)),
                           replace(fwd, w=fn(self.bwd_twin.w)),
                           fn(self.fwd_order), fn(self.bwd_order),
-                          self.n_vertices, self.n_relations)
+                          self.n_vertices, self.n_relations,
+                          self.normalization)
 
     def tensors(self) -> list:
         """Every distinct tensor of the graph (the twins' index arrays are
@@ -183,7 +188,8 @@ def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
         fwd_order=torch.from_numpy(fwd_order),
         bwd_order=torch.from_numpy(bwd_order),
         n_vertices=int(n_vertices),
-        n_relations=int(n_relations))
+        n_relations=int(n_relations),
+        normalization=normalization)
 
 
 def _host_norm(targets: np.ndarray, relations: np.ndarray, n_vertices: int,

@@ -12,10 +12,13 @@ or MLP decoder, encoded in test mode and scored against all entities, or
 encoded in train mode and scored by one of the training objectives: the
 tiled loss (``loss``), the factored binomial loss, the split protocol's
 ``loss_structured`` or the shared pool's ``loss_shared_negatives``, each
-with the variational encoders' KL term. bf16 ``message_precision`` and
-``stream_precision`` raise NotImplementedError (ROADMAP.md Queue 1 item
-1). Parameters are a plain dictionary of tensors with the JAX package's
-tree layout (params.py converts between the two).
+with the variational encoders' KL term. bf16 ``message_precision`` runs
+the aggregation ops' bf16 kernels (JAX's ``agg_dtype``, ``build.py:390-401``)
+in every encode but the stored variant's train-mode one; bf16
+``stream_precision`` casts the codes of the four training losses to bf16
+(``_stream_cast``, ``build.py:426-432``), and evaluation scores in f32.
+Parameters are a plain dictionary of tensors with the JAX package's tree
+layout (params.py converts between the two).
 """
 from __future__ import annotations
 
@@ -61,11 +64,12 @@ def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
     co = corrupt_object.to(torch.float32) * m[:, None]
     n_obj = co.sum(1)
     n_subj = m * rate - n_obj
-    e1_sq = ((e1 ** 2).sum(-1) * m * (1.0 + n_obj)).sum() \
+    # Squares in f32 on bf16 streams too (``build.py:66-72``).
+    e1_sq = ((e1.float() ** 2).sum(-1) * m * (1.0 + n_obj)).sum() \
         + (ev_sq * (m[:, None] - co)).sum()
-    e2_sq = ((e2 ** 2).sum(-1) * m * (1.0 + n_subj)).sum() \
+    e2_sq = ((e2.float() ** 2).sum(-1) * m * (1.0 + n_subj)).sum() \
         + (ev_sq * co).sum()
-    r_sq = ((r ** 2).sum(-1) * m).sum() * (rate + 1)
+    r_sq = ((r.float() ** 2).sum(-1) * m).sum() * (rate + 1)
     count = m.sum().clamp(min=1.0) * (rate + 1) * e1.shape[-1]
     reg = (e1_sq + e2_sq + r_sq) / count
     return loss + decoder.regularization_parameter * reg
@@ -103,20 +107,19 @@ TEST_NOISE_SEED = 0
 
 
 def _check_supported(config: RunConfig) -> None:
-    """Raise ValueError for an unknown encoder or skip connection, and
-    NotImplementedError for what the port does not run yet: bf16
-    message or decoder-stream precision."""
+    """Raise ValueError for an unknown encoder or skip connection."""
     e = config.encoder
     if e.name not in ENCODERS:
         raise ValueError(f"unknown encoder {e.name!r}")
     if e.skip_connections not in ("None", "Highway", "Residual"):
         raise ValueError(f"unknown skip connection {e.skip_connections!r}")
-    if e.message_precision != "float32":
-        raise NotImplementedError("message_precision=bfloat16 is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 1)")
-    if config.decoder.stream_precision != "float32":
-        raise NotImplementedError("stream_precision=bfloat16 is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 1)")
+
+
+def precision_dtype(precision: str) -> Optional[torch.dtype]:
+    """torch.bfloat16 for "bfloat16" or "bf16", else None (float32), as the
+    JAX package reads ``message_precision`` and ``stream_precision``
+    (``build.py:117-118``, ``:390-391``)."""
+    return torch.bfloat16 if precision in ("bfloat16", "bf16") else None
 
 
 class RGCNModel:
@@ -167,6 +170,11 @@ class RGCNModel:
         self.preferred_staircase2 = self.is_gcn \
             and not self.first_layer_onehot \
             and self.variant in ("block", "basis")
+        # bf16 message precision: the aggregation kernels' input dtype
+        # (None: float32); bf16 stream precision: the dtype the training
+        # losses cast the codes to (``build.py:113-118``).
+        self.agg_dtype = precision_dtype(e.message_precision)
+        self.stream_dtype = precision_dtype(config.decoder.stream_precision)
         self.decoder = decoders_lib.build_decoder(
             config.decoder.name,
             code_dimension=config.decoder.code_dimension,
@@ -303,7 +311,7 @@ class RGCNModel:
                 deterministic=deterministic, generator=generator,
                 n_vertices=self.n_entities,
                 keep_mask=None if keep_masks is None
-                else keep_masks[layer_idx])
+                else keep_masks[layer_idx], agg_dtype=self.agg_dtype)
             if features is not None and e.skip_connections == "Highway":
                 new = enc.apply_highway(highways[layer_idx], new, features)
             elif features is not None and e.skip_connections == "Residual":
@@ -446,6 +454,17 @@ class RGCNModel:
                 encoded.relation_codes[t[:, 1]],
                 encoded.entity_codes[t[:, 2]])
 
+    def stream_cast(self, encoded: EncodeResult) -> EncodeResult:
+        """The codes in the decoder stream's dtype, for the training losses
+        only (``_stream_cast``, ``build.py:426-432``): entity and relation
+        codes cast to bf16 on a bf16 stream, the variational statistics as
+        they are; ``encoded`` itself on a float32 stream."""
+        if self.stream_dtype is None:
+            return encoded
+        return encoded._replace(
+            entity_codes=encoded.entity_codes.to(self.stream_dtype),
+            relation_codes=encoded.relation_codes.to(self.stream_dtype))
+
     def loss(self, params: Dict, graph: Optional[GraphBatch],
              triples: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None, *,
@@ -460,7 +479,7 @@ class RGCNModel:
         ``device_negative_sample``); labels / mask [N] float32."""
         encoded = self.encode(params, graph, deterministic=deterministic,
                               keep_masks=keep_masks, noise=noise)
-        e1, r, e2 = self.gather_codes(encoded, triples)
+        e1, r, e2 = self.gather_codes(self.stream_cast(encoded), triples)
         dp = params["decoder"]
         energies = self.decoder.energies(dp, e1, r, e2)
         return self.plus_kl(
@@ -470,12 +489,14 @@ class RGCNModel:
     def _factorizable_codes(self, params, graph, positives, what,
                             deterministic, keep_masks, noise):
         """(encoded, e1, r, e2, positive energies, q_subj, q_obj) of a loss
-        that scores corruptions against one factor a positive."""
+        that scores corruptions against one factor a positive; ``encoded``
+        in the decoder stream's dtype (its variational statistics f32)."""
         if not getattr(self.decoder, "factorizable", False):
             raise ValueError(f"decoder {self.decoder.name} does not support "
                              f"the {what} loss")
-        encoded = self.encode(params, graph, deterministic=deterministic,
-                              keep_masks=keep_masks, noise=noise)
+        encoded = self.stream_cast(self.encode(
+            params, graph, deterministic=deterministic,
+            keep_masks=keep_masks, noise=noise))
         e1, r, e2 = self.gather_codes(encoded, positives)
         dp = params["decoder"]
         return (encoded, e1, r, e2,
@@ -572,9 +593,14 @@ class RGCNModel:
         p = pool.shape[0]
         # Pool codes count once per real positive and side.
         pool_sq = (pool ** 2).sum() * pos_mask.sum().clamp(min=1.0)
+        # JAX's dot of bf16 streams accumulates in f32
+        # (``preferred_element_type``, ``build.py:649-652``); torch's bf16
+        # matmul would round the product to bf16, so the GEMMs take the
+        # streams upcast (exact) and multiply in f32.
+        pool_t = pool.float().T
         return self.plus_kl(self._grouped_objective(
-            pos_energy, (q_subj @ pool.T, q_obj @ pool.T), e1, r, e2,
-            pos_mask, pool_sq, pool_sq, 1 + p, 1 + p), encoded)
+            pos_energy, (q_subj.float() @ pool_t, q_obj.float() @ pool_t),
+            e1, r, e2, pos_mask, pool_sq, pool_sq, 1 + p, 1 + p), encoded)
 
     def loss_binomial_factored(self, params: Dict, graph: GraphBatch,
                                positives: torch.Tensor,

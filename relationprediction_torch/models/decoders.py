@@ -19,10 +19,14 @@ from . import initializers as init
 def masked_mean(x: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over the entries where ``mask`` is 1 (``decoders.py:23-36``),
-    with the count clamped to at least 1."""
+    with the count clamped to at least 1. The sum is f32 whatever the
+    dtype of ``x`` (a bf16 stream's squares are summed in f32, as in the
+    JAX package)."""
+    f32 = torch.float32
     if mask is None:
-        return x.sum() / max(x.numel(), 1)
-    return (x * mask.to(x.dtype)).sum() / mask.sum().clamp(min=1.0)
+        return x.sum(dtype=f32) / max(x.numel(), 1)
+    return (x * mask.to(x.dtype)).sum(dtype=f32) \
+        / mask.sum(dtype=f32).clamp(min=1.0)
 
 
 def weighted_ce_loss(energies: torch.Tensor, labels: torch.Tensor,
@@ -150,9 +154,13 @@ class NonlinearTransform:
         }
 
     def energies(self, params, e1, r, e2):
+        """The codes in the weights' dtype: on a bf16 stream JAX's dot of
+        bf16 codes and f32 weights promotes to f32, and torch multiplies
+        no mixed dtypes, so they are upcast (exactly)."""
         exact_float32()
-        hidden = (e1 @ params["W_e1"] + r @ params["W_r"]
-                  + e2 @ params["W_e2"] + params["b_pre"])
+        dt = params["W_e1"].dtype
+        hidden = (e1.to(dt) @ params["W_e1"] + r.to(dt) @ params["W_r"]
+                  + e2.to(dt) @ params["W_e2"] + params["b_pre"])
         return (torch.relu(hidden) @ params["W_transform"]
                 + params["b_post"]).squeeze(-1)
 

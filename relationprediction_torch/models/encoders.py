@@ -161,7 +161,8 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
                     deterministic: bool,
                     generator: Optional[torch.Generator],
                     n_vertices: int,
-                    keep_mask: Optional[torch.Tensor] = None
+                    keep_mask: Optional[torch.Tensor] = None,
+                    agg_dtype: Optional[torch.dtype] = None
                     ) -> torch.Tensor:
     """One R-GCN layer (``message_gcn.py:49-79``; ``encoders.py:242-354``):
     both directions, then the self-loop, the bias of the variants that add
@@ -175,7 +176,14 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
     sums them with ``staircase.staircase_aggregate``, weighted by the
     graph's normalization, or with unit weights for basis_stored (its
     'none' normalization, ``encoders.py:319``). ``keep_mask``: see
-    ``_combine_with_self_loop``."""
+    ``_combine_with_self_loop``. ``agg_dtype`` (torch.bfloat16 for the
+    bf16 message precision, JAX's ``agg_dtype``) goes to the aggregation
+    ops, which then run their bf16 kernels; the 'local' and 'none'
+    normalizations (a graph built with them, or basis_stored's unit
+    weights) sum in f32 whatever it says, as JAX's segment-sum path does
+    (``encoders.py:328-345``)."""
+    if graph.normalization != "global":
+        agg_dtype = None
     if variant not in GCN_VARIANTS:
         raise ValueError(f"unknown gcn variant {variant!r}")
     if features is None and variant in _DENSE_ONLY:
@@ -184,25 +192,26 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
     if fused and features is not None and variant == "block":
         collected_f = staircase2.block_direction(
             features, params["W_forward"], graph.fwd, n_vertices,
-            graph.fwd_twin)
+            graph.fwd_twin, agg_dtype)
         collected_b = staircase2.block_direction(
             features, params["W_backward"], graph.bwd, n_vertices,
-            graph.bwd_twin)
+            graph.bwd_twin, agg_dtype)
     elif fused and features is not None and variant == "basis":
         # [d_in, B, d_out] -> W_flat [d_in, B*d_out], a view
         # (``encoders.py:287-290``).
         collected_f = staircase2.basis_direction(
             features, params["W_forward"].flatten(1), params["C_forward"],
-            graph.fwd, n_vertices, graph.fwd_twin)
+            graph.fwd, n_vertices, graph.fwd_twin, agg_dtype)
         collected_b = staircase2.basis_direction(
             features, params["W_backward"].flatten(1), params["C_backward"],
-            graph.bwd, n_vertices, graph.bwd_twin)
+            graph.bwd, n_vertices, graph.bwd_twin, agg_dtype)
     else:
         weighted = variant != "basis_stored"
         collected_f, collected_b = (
             staircase.staircase_aggregate(
                 _edge_messages(params, variant, features, layout, sfx),
-                layout, n_vertices, weighted=weighted)
+                layout, n_vertices, weighted=weighted,
+                compute_dtype=agg_dtype if weighted else None)
             for layout, sfx in ((graph.fwd, "forward"),
                                 (graph.bwd, "backward")))
     return _combine_with_self_loop(

@@ -35,6 +35,12 @@
 // projecting after would cut those bytes; that reorders basis_project's
 // work and is not done here.
 //
+// basis_combine_bf16 takes P in bf16 (basis_project_bf16's output, the
+// TPU kernel's bf16 t_ref, relationprediction_tpu/ops/staircase2.py:
+// 508-515): each element is widened to f32 as it is loaded, C and the edge
+// weights stay f32, the sums are f32 and out is f32, and the gathers move
+// half the bytes (1.36 GB a launch on the full graph).
+//
 // Design: the merge-path partition of merge_path.cuh. Each thread block
 // takes `items` row ends + entries, so a hub row (about 9k edges at
 // FB15k-237 scale, 90 MB of gathers) is cut across many blocks and a run
@@ -67,10 +73,11 @@ constexpr int kMaxBases = 8;
 constexpr int kMaxItems = 1024;  // staging: 2 + B words an item, 40 KB at most
 
 // T is float4 (units = d_out / 4) or float (units = d_out); P rows are
-// NB * units T wide.
-template <int NB, typename T>
+// NB * units T wide. In is P's element as stored: T for f32, uint2 (four
+// bf16) or uint16_t (one bf16) for bf16.
+template <int NB, typename In, typename T>
 __global__ void __launch_bounds__(kThreads)
-basis_combine_kernel(const T* __restrict__ proj,
+basis_combine_kernel(const In* __restrict__ proj,
                      const float* __restrict__ coef,
                      const int* __restrict__ row_ptr,
                      const int* __restrict__ src,
@@ -111,10 +118,10 @@ basis_combine_kernel(const T* __restrict__ proj,
 #pragma unroll
     for (int e = 0; e < kBatch; ++e) {
       const bool live = col && q0 + e < n_ent;
-      const T* p = proj + (live ? s_src[q0 + e] : 0) * pitch + u;
+      const In* p = proj + (live ? s_src[q0 + e] : 0) * pitch + u;
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
-        v[e][b] = live ? __ldg(p + b * units) : zero_of(T());
+        v[e][b] = live ? merge_path::load_f32(p + b * units) : zero_of(T());
       }
     }
 #pragma unroll
@@ -144,8 +151,8 @@ basis_combine_kernel(const T* __restrict__ proj,
   }
 }
 
-template <int NB, typename T>
-int launch(const T* proj, const float* coef, const int* row_ptr,
+template <int NB, typename In, typename T>
+int launch(const In* proj, const float* coef, const int* row_ptr,
            const int* src, const int* rel, const float* w, T* out,
            int* carry_row, T* carry, int n_rows, int n_edges, int units,
            int items, cudaStream_t s) {
@@ -157,7 +164,7 @@ int launch(const T* proj, const float* coef, const int* row_ptr,
   const dim3 grid(static_cast<unsigned>(n_blocks),
                   static_cast<unsigned>(grid_y));
   const size_t smem = sizeof(int) * (2 + NB) * static_cast<size_t>(items);
-  basis_combine_kernel<NB, T><<<grid, kThreads, smem, s>>>(
+  basis_combine_kernel<NB, In, T><<<grid, kThreads, smem, s>>>(
       proj, coef, row_ptr, src, rel, w, out, carry_row, carry, n_rows,
       n_edges, units, items);
   cudaError_t err = cudaGetLastError();
@@ -166,20 +173,71 @@ int launch(const T* proj, const float* coef, const int* row_ptr,
                                   static_cast<int>(n_blocks), units, s);
 }
 
-template <int NB>
-int dispatch(const float* proj, const float* coef, const int* row_ptr,
+// P f32 (kBf16 false) or bf16: four columns a thread where d_out % 4 == 0
+// and the pointers allow it, else one.
+template <int NB, bool kBf16>
+int dispatch(const void* proj, const float* coef, const int* row_ptr,
              const int* src, const int* rel, const float* w, float* out,
              int* carry_row, float* carry, int n_rows, int n_edges,
              int d_out, int items, cudaStream_t s) {
-  if (d_out % 4 == 0 && merge_path::aligned16(proj) &&
-      merge_path::aligned16(out) && merge_path::aligned16(carry)) {
-    return launch<NB>(reinterpret_cast<const float4*>(proj), coef, row_ptr,
-                      src, rel, w, reinterpret_cast<float4*>(out), carry_row,
-                      reinterpret_cast<float4*>(carry), n_rows, n_edges,
+  const bool wide = d_out % 4 == 0 && merge_path::aligned16(out) &&
+                    merge_path::aligned16(carry) &&
+                    (kBf16 ? merge_path::aligned8(proj)
+                           : merge_path::aligned16(proj));
+  float4* out4 = reinterpret_cast<float4*>(out);
+  float4* carry4 = reinterpret_cast<float4*>(carry);
+  if (kBf16 && wide) {
+    return launch<NB>(static_cast<const uint2*>(proj), coef, row_ptr, src,
+                      rel, w, out4, carry_row, carry4, n_rows, n_edges,
                       d_out / 4, items, s);
   }
-  return launch<NB>(proj, coef, row_ptr, src, rel, w, out, carry_row, carry,
-                    n_rows, n_edges, d_out, items, s);
+  if (kBf16) {
+    return launch<NB>(static_cast<const uint16_t*>(proj), coef, row_ptr, src,
+                      rel, w, out, carry_row, carry, n_rows, n_edges, d_out,
+                      items, s);
+  }
+  if (wide) {
+    return launch<NB>(static_cast<const float4*>(proj), coef, row_ptr, src,
+                      rel, w, out4, carry_row, carry4, n_rows, n_edges,
+                      d_out / 4, items, s);
+  }
+  return launch<NB>(static_cast<const float*>(proj), coef, row_ptr, src, rel,
+                    w, out, carry_row, carry, n_rows, n_edges, d_out, items,
+                    s);
+}
+
+// Checks the sizes and launches for n_bases in [1, kMaxBases].
+template <bool kBf16>
+int combine(const void* proj, const float* coef, const int* row_ptr,
+            const int* src, const int* rel, const float* w, float* out,
+            int* carry_row, float* carry, int n_rows, int n_edges,
+            int n_bases, int d_out, int items, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rows < 0 || n_edges < 0 || d_out < 1 || items < 1 ||
+      items > kMaxItems ||
+      static_cast<int64_t>(n_rows) + n_edges > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BASIS_COMBINE_CASE(NB)                                              \
+  case NB:                                                                  \
+    return dispatch<NB, kBf16>(proj, coef, row_ptr, src, rel, w, out,       \
+                               carry_row, carry, n_rows, n_edges, d_out,    \
+                               items, s);
+  switch (n_bases) {
+    BASIS_COMBINE_CASE(1)
+    BASIS_COMBINE_CASE(2)
+    BASIS_COMBINE_CASE(3)
+    BASIS_COMBINE_CASE(4)
+    BASIS_COMBINE_CASE(5)
+    BASIS_COMBINE_CASE(6)
+    BASIS_COMBINE_CASE(7)
+    BASIS_COMBINE_CASE(8)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef BASIS_COMBINE_CASE
 }
 
 }  // namespace
@@ -205,31 +263,21 @@ int basis_combine_f32(const float* proj, const float* coef,
                       const float* w, float* out, int* carry_row,
                       float* carry, int n_rows, int n_edges, int n_bases,
                       int d_out, int items, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows < 0 || n_edges < 0 || d_out < 1 || items < 1 ||
-      items > kMaxItems ||
-      static_cast<int64_t>(n_rows) + n_edges > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BASIS_COMBINE_CASE(NB)                                             \
-  case NB:                                                                 \
-    return dispatch<NB>(proj, coef, row_ptr, src, rel, w, out, carry_row,  \
-                        carry, n_rows, n_edges, d_out, items, s);
-  switch (n_bases) {
-    BASIS_COMBINE_CASE(1)
-    BASIS_COMBINE_CASE(2)
-    BASIS_COMBINE_CASE(3)
-    BASIS_COMBINE_CASE(4)
-    BASIS_COMBINE_CASE(5)
-    BASIS_COMBINE_CASE(6)
-    BASIS_COMBINE_CASE(7)
-    BASIS_COMBINE_CASE(8)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef BASIS_COMBINE_CASE
+  return combine<false>(proj, coef, row_ptr, src, rel, w, out, carry_row,
+                        carry, n_rows, n_edges, n_bases, d_out, items, device,
+                        stream);
+}
+
+// The same for proj bf16 (its bits as uint16_t); coef, w, out and carry
+// f32.
+int basis_combine_bf16(const void* proj, const float* coef,
+                       const int* row_ptr, const int* src, const int* rel,
+                       const float* w, float* out, int* carry_row,
+                       float* carry, int n_rows, int n_edges, int n_bases,
+                       int d_out, int items, int device, void* stream) {
+  return combine<true>(proj, coef, row_ptr, src, rel, w, out, carry_row,
+                       carry, n_rows, n_edges, n_bases, d_out, items, device,
+                       stream);
 }
 
 const char* basis_direction_error_string(int code) {

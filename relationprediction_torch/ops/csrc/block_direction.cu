@@ -5,6 +5,12 @@
 // x [V, d] f32, W [R, B, dr, dr] f32 with d = B * dr, out [V, d] f32, in the
 // orientation y[b*dr + i] = sum_j W[r, b, i, j] * x[b*dr + j].
 //
+// block_direction_bf16 and block_direction_twin_bf16 take x and W in bf16
+// (the TPU kernel's compute_dtype, relationprediction_tpu/ops/
+// staircase2.py:683-689, twin :711-716): each element is widened to f32 as
+// it is loaded, so the edge weights, products and sums stay f32 and out is
+// f32, while the x gathers and the W reloads move half the bytes.
+//
 // The twin pass (block_direction_twin_f32) is the same kernel reading W
 // transposed, y[b*dr + i] = sum_j W[r, b, j, i] * x[b*dr + j]: run on a
 // direction's twin CSR (rows are the edges' sources, sorted by relation
@@ -48,7 +54,8 @@
 //   parts add up in the carry.
 // * Latency: the feature loads of kBatch entries are all issued before the
 //   first is used.
-// * Precision: f32 throughout, as the TPU kernel; sums in CSR order.
+// * Precision: f32 arithmetic throughout (bf16 inputs widened on load);
+//   sums in CSR order.
 //   chip_smoke.py holds each output to a float64 sum within the rounding
 //   that the element's sum of |terms| allows an f32 sum.
 
@@ -66,20 +73,20 @@ constexpr int kBatch = 4;        // entries whose loads are in flight together
 constexpr int kMaxItems = 2048;  // staging: 4 words an item, 32 KB at most
 
 // y += W[rel] (block b, transposed with kTransposeW) @ z, then z = 0; a
-// negative rel (no run open) adds nothing.
-template <int DR, bool kTransposeW>
-__device__ __forceinline__ void apply_run(const float* __restrict__ blocks,
+// negative rel (no run open) adds nothing. In is float or uint16_t (bf16).
+template <int DR, bool kTransposeW, typename In>
+__device__ __forceinline__ void apply_run(const In* __restrict__ blocks,
                                           int rel, int n_blocks, int b,
                                           float (&z)[DR], float (&y)[DR]) {
   if (rel >= 0) {
-    const float* wb = blocks + (static_cast<int64_t>(rel) * n_blocks + b) *
-                                   (DR * DR);
+    const In* wb = blocks + (static_cast<int64_t>(rel) * n_blocks + b) *
+                                (DR * DR);
 #pragma unroll
     for (int i = 0; i < DR; ++i) {
 #pragma unroll
       for (int j = 0; j < DR; ++j) {
         const int at = kTransposeW ? j * DR + i : i * DR + j;
-        y[i] = fmaf(__ldg(wb + at), z[j], y[i]);
+        y[i] = fmaf(merge_path::load_f32(wb + at), z[j], y[i]);
       }
     }
   }
@@ -97,10 +104,10 @@ __device__ __forceinline__ void store(float* __restrict__ p,
   }
 }
 
-template <int DR, bool kTransposeW>
+template <int DR, bool kTransposeW, typename In>
 __global__ void __launch_bounds__(kMaxBlocks)
-block_direction_kernel(const float* __restrict__ x,
-                       const float* __restrict__ blocks,
+block_direction_kernel(const In* __restrict__ x,
+                       const In* __restrict__ blocks,
                        const int* __restrict__ row_ptr,
                        const int* __restrict__ src,
                        const int* __restrict__ rel,
@@ -145,10 +152,12 @@ block_direction_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const bool live = owner && q0 + u < n_ent;
-      const float* xs =
+      const In* xs =
           x + static_cast<int64_t>(live ? s_src[q0 + u] : 0) * d + col;
 #pragma unroll
-      for (int j = 0; j < DR; ++j) xv[u][j] = live ? __ldg(xs + j) : 0.f;
+      for (int j = 0; j < DR; ++j) {
+        xv[u][j] = live ? merge_path::load_f32(xs + j) : 0.f;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -186,8 +195,8 @@ block_direction_kernel(const float* __restrict__ x,
   }
 }
 
-template <int DR, bool kTransposeW>
-int launch(const float* x, const float* blocks, const int* row_ptr,
+template <int DR, bool kTransposeW, typename In>
+int launch(const In* x, const In* blocks, const int* row_ptr,
            const int* src, const int* rel, const float* w, float* out,
            int* carry_row, float* carry, int n_rows, int n_edges,
            int n_blocks, int items, cudaStream_t s) {
@@ -195,7 +204,7 @@ int launch(const float* x, const float* blocks, const int* row_ptr,
   if (grid < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = (n_blocks + 31) / 32 * 32;
   const size_t smem = sizeof(int) * 4 * static_cast<size_t>(items);
-  block_direction_kernel<DR, kTransposeW>
+  block_direction_kernel<DR, kTransposeW, In>
       <<<static_cast<unsigned>(grid), threads, smem, s>>>(
           x, blocks, row_ptr, src, rel, w, out, carry_row, carry, n_rows,
           n_edges, n_blocks, items);
@@ -212,8 +221,8 @@ int launch(const float* x, const float* blocks, const int* row_ptr,
                                   static_cast<int>(grid), d, s);
 }
 
-template <bool kTransposeW>
-int dispatch(const float* x, const float* blocks, const int* row_ptr,
+template <bool kTransposeW, typename In>
+int dispatch(const In* x, const In* blocks, const int* row_ptr,
              const int* src, const int* rel, const float* w, float* out,
              int* carry_row, float* carry, int n_rows, int n_edges,
              int n_blocks, int dr, int items, int device, void* stream) {
@@ -228,9 +237,9 @@ int dispatch(const float* x, const float* blocks, const int* row_ptr,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BLOCK_DIRECTION_CASE(DR)                                           \
   case DR:                                                                 \
-    return launch<DR, kTransposeW>(x, blocks, row_ptr, src, rel, w, out,   \
-                                   carry_row, carry, n_rows, n_edges,      \
-                                   n_blocks, items, s);
+    return launch<DR, kTransposeW, In>(x, blocks, row_ptr, src, rel, w,    \
+                                       out, carry_row, carry, n_rows,      \
+                                       n_edges, n_blocks, items, s);
   switch (dr) {
     BLOCK_DIRECTION_CASE(1)
     BLOCK_DIRECTION_CASE(2)
@@ -281,6 +290,31 @@ int block_direction_twin_f32(const float* x, const float* blocks,
   return dispatch<true>(x, blocks, row_ptr, src, rel, w, out, carry_row,
                         carry, n_rows, n_edges, n_blocks, dr, items, device,
                         stream);
+}
+
+// block_direction_f32 and block_direction_twin_f32 with x and blocks in
+// bf16 (their bits as uint16_t); w, out and carry f32.
+int block_direction_bf16(const void* x, const void* blocks,
+                         const int* row_ptr, const int* src, const int* rel,
+                         const float* w, float* out, int* carry_row,
+                         float* carry, int n_rows, int n_edges, int n_blocks,
+                         int dr, int items, int device, void* stream) {
+  return dispatch<false>(static_cast<const uint16_t*>(x),
+                         static_cast<const uint16_t*>(blocks), row_ptr, src,
+                         rel, w, out, carry_row, carry, n_rows, n_edges,
+                         n_blocks, dr, items, device, stream);
+}
+
+int block_direction_twin_bf16(const void* x, const void* blocks,
+                              const int* row_ptr, const int* src,
+                              const int* rel, const float* w, float* out,
+                              int* carry_row, float* carry, int n_rows,
+                              int n_edges, int n_blocks, int dr, int items,
+                              int device, void* stream) {
+  return dispatch<true>(static_cast<const uint16_t*>(x),
+                        static_cast<const uint16_t*>(blocks), row_ptr, src,
+                        rel, w, out, carry_row, carry, n_rows, n_edges,
+                        n_blocks, dr, items, device, stream);
 }
 
 const char* block_direction_error_string(int code) {

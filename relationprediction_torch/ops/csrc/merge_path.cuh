@@ -1,6 +1,7 @@
-// The merge-path partition of a CSR and its carry fix-up, for sm_90a;
-// included by the port's three CSR kernels (staircase.cu, block_direction.cu,
-// basis_direction.cu), each built into its own library.
+// The merge-path partition of a CSR and its carry fix-up, and the loads of
+// f32 and bf16 inputs as f32, for sm_90a; included by the port's three CSR
+// kernels (staircase.cu, block_direction.cu, basis_direction.cu), each
+// built into its own library.
 //
 // Merge-based CSR SpMM (Merrill and Garland, "Merge-based Parallel Sparse
 // Matrix-Vector Multiplication", SC'16):
@@ -56,6 +57,25 @@ __device__ __forceinline__ void axpy(float a, float4 x, float4& acc) {
   acc.z = fmaf(a, x.z, acc.z);
   acc.w = fmaf(a, x.w, acc.w);
 }
+// A gathered element or vector as f32: f32 as it is; bf16 (uint16_t, and
+// uint2 for four) widened exactly, its bits the high half of an f32's.
+// The bf16-input kernels read their tables through these, so their
+// products and sums are f32 as in the f32 kernels.
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float4 load_f32(const float4* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ float load_f32(const uint16_t* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
+}
+__device__ __forceinline__ float4 load_f32(const uint2* p) {
+  const uint2 v = __ldg(p);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xFFFF0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xFFFF0000u));
+}
+
 __device__ __forceinline__ void add(float x, float& acc) { acc += x; }
 __device__ __forceinline__ void add(float4 x, float4& acc) {
   acc.x += x.x;
@@ -180,6 +200,10 @@ int launch_fixup(const int* carry_row, const T* carry, T* out, int n_blocks,
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+inline bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7u) == 0;
 }
 
 }  // namespace merge_path

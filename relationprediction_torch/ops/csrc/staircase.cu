@@ -6,8 +6,13 @@
 // msgs [n_msgs, d] f32, perm [E] int32 or null, row_ptr [n_rows + 1]
 // int32 with row_ptr[0] = 0 and row_ptr[n_rows] = E, w [E] f32 or null
 // (every weight 1), out [n_rows, d] f32, all row-major and contiguous.
-// One C entry point, staircase_aggregate_f32, launching two kernels:
-// merge_path_kernel, then merge_path.cuh's carry_fixup_kernel.
+// Two C entry points, each launching two kernels (merge_path_kernel, then
+// merge_path.cuh's carry_fixup_kernel): staircase_aggregate_f32, and
+// staircase_aggregate_bf16 for bf16 msgs (the TPU kernels' compute_dtype,
+// relationprediction_tpu/ops/staircase.py:263-266), which widens each
+// message element to f32 as it loads it: the weights, the products and
+// the sums stay f32, the output is f32, and the gather moves half the
+// bytes.
 //
 // Replaces two TPU kernels:
 // * relationprediction_tpu/ops/staircase.py:191 (_staircase_kernel,
@@ -29,8 +34,9 @@
 //   CSR order with the weights already applied (perm and w null).
 //
 // Bound on an H100: bytes. Every message row is read once (E * d * 4:
-// 544 MB for the full FB15k-237 graph at d = 500), out written once
-// (29 MB), plus the CSR; 2 * E * d operations are far below the f32 rate.
+// 544 MB for the full FB15k-237 graph at d = 500; 272 MB in bf16), out
+// written once (29 MB), plus the CSR; 2 * E * d operations are far below
+// the f32 rate.
 // The graphs are skewed: hub rows of up to 9,155 entries (18 MB of
 // messages) beside rows of one entry, and at the train shape (15,000
 // entries) 2/3 of the 14,541 rows are empty.
@@ -40,8 +46,9 @@
 // fix-up in block order, no atomics), with the d columns across the threads
 // of a block. The block's row ends, message indices and weights are staged
 // in shared memory. 128 threads lie across the columns, each owning one
-// float4 (d % 4 == 0 and 16-byte aligned pointers; d = 500 gives 125
-// threads) or one float otherwise, with gridDim.y covering wider rows. The
+// float4 (d % 4 == 0 and 16-byte aligned pointers, 8-byte aligned bf16
+// msgs; d = 500 gives 125 threads) or one float otherwise, with gridDim.y
+// covering wider rows. The
 // block walks its entries in CSR order, the loads of kBatch entries in
 // flight together. Sums are f32, in CSR order.
 //
@@ -69,12 +76,13 @@ constexpr int kThreads = 128;   // threads of a block, across the columns
 constexpr int kBatch = 8;       // entries whose loads are in flight together
 constexpr int kMaxItems = 2048;  // staging: 3 ints an item, 24 KB at most
 
-// T is float4 (units = d / 4) or float (units = d). An entry whose message
-// index falls outside [0, n_msgs) adds nothing; the wrapper's checks keep
-// every index inside.
-template <typename T>
+// T is float4 (units = d / 4) or float (units = d); In is the message
+// element as stored, T itself for f32, uint2 (four bf16) or uint16_t (one
+// bf16) for bf16. An entry whose message index falls outside [0, n_msgs)
+// adds nothing; the wrapper's checks keep every index inside.
+template <typename In, typename T>
 __global__ void __launch_bounds__(kThreads)
-merge_path_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
+merge_path_kernel(const In* __restrict__ msgs, const int* __restrict__ perm,
                   const int* __restrict__ row_ptr,
                   const float* __restrict__ w, T* __restrict__ out,
                   int* __restrict__ carry_row, T* __restrict__ carry,
@@ -114,7 +122,8 @@ merge_path_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
       const int idx = q < n_ent ? s_idx[q] : -1;
       wk[b] = q < n_ent ? s_w[q] : 0.f;
       v[b] = (col && idx >= 0 && idx < n_msgs)
-                 ? __ldg(msgs + static_cast<int64_t>(idx) * units + u)
+                 ? merge_path::load_f32(msgs + static_cast<int64_t>(idx) *
+                                                   units + u)
                  : zero_of(T());
     }
 #pragma unroll
@@ -141,8 +150,8 @@ merge_path_kernel(const T* __restrict__ msgs, const int* __restrict__ perm,
   }
 }
 
-template <typename T>
-int launch(const T* msgs, const int* perm, const int* row_ptr,
+template <typename In, typename T>
+int launch(const In* msgs, const int* perm, const int* row_ptr,
            const float* w, T* out, int* carry_row, T* carry, int n_rows,
            int n_edges, int units, int n_msgs, int items, cudaStream_t s) {
   const int grid_y = (units + kThreads - 1) / kThreads;
@@ -153,13 +162,54 @@ int launch(const T* msgs, const int* perm, const int* row_ptr,
   const dim3 grid(static_cast<unsigned>(n_blocks),
                   static_cast<unsigned>(grid_y));
   const size_t smem = sizeof(int) * 3 * static_cast<size_t>(items);
-  merge_path_kernel<T><<<grid, kThreads, smem, s>>>(
+  merge_path_kernel<In, T><<<grid, kThreads, smem, s>>>(
       msgs, perm, row_ptr, w, out, carry_row, carry, n_rows, n_edges, units,
       n_msgs, items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return merge_path::launch_fixup(carry_row, carry, out,
                                   static_cast<int>(n_blocks), units, s);
+}
+
+// Checks the sizes and launches on the f32 path (msgs f32) or the bf16
+// one (msgs bf16): four elements a thread where d % 4 == 0 and the
+// pointers allow it, else one.
+template <bool kBf16>
+int dispatch(const void* msgs, const int* perm, const int* row_ptr,
+             const float* w, float* out, int* carry_row, float* carry,
+             int n_rows, int n_edges, int d, int n_msgs, int items,
+             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rows < 0 || n_edges < 0 || d < 1 || n_msgs < 0 || items < 1 ||
+      items > kMaxItems ||
+      static_cast<int64_t>(n_rows) + n_edges > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = d % 4 == 0 && merge_path::aligned16(out) &&
+                    merge_path::aligned16(carry) &&
+                    (kBf16 ? merge_path::aligned8(msgs)
+                           : merge_path::aligned16(msgs));
+  float4* out4 = reinterpret_cast<float4*>(out);
+  float4* carry4 = reinterpret_cast<float4*>(carry);
+  if (kBf16 && wide) {
+    return launch(static_cast<const uint2*>(msgs), perm, row_ptr, w, out4,
+                  carry_row, carry4, n_rows, n_edges, d / 4, n_msgs, items,
+                  s);
+  }
+  if (kBf16) {
+    return launch(static_cast<const uint16_t*>(msgs), perm, row_ptr, w, out,
+                  carry_row, carry, n_rows, n_edges, d, n_msgs, items, s);
+  }
+  if (wide) {
+    return launch(static_cast<const float4*>(msgs), perm, row_ptr, w, out4,
+                  carry_row, carry4, n_rows, n_edges, d / 4, n_msgs, items,
+                  s);
+  }
+  return launch(static_cast<const float*>(msgs), perm, row_ptr, w, out,
+                carry_row, carry, n_rows, n_edges, d, n_msgs, items, s);
 }
 
 }  // namespace
@@ -181,24 +231,18 @@ int staircase_aggregate_f32(const float* msgs, const int* perm,
                             int* carry_row, float* carry, int n_rows,
                             int n_edges, int d, int n_msgs, int items,
                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows < 0 || n_edges < 0 || d < 1 || n_msgs < 0 || items < 1 ||
-      items > kMaxItems ||
-      static_cast<int64_t>(n_rows) + n_edges > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0 && merge_path::aligned16(msgs) &&
-      merge_path::aligned16(out) && merge_path::aligned16(carry)) {
-    return launch(reinterpret_cast<const float4*>(msgs), perm, row_ptr, w,
-                  reinterpret_cast<float4*>(out), carry_row,
-                  reinterpret_cast<float4*>(carry), n_rows, n_edges, d / 4,
-                  n_msgs, items, s);
-  }
-  return launch(msgs, perm, row_ptr, w, out, carry_row, carry, n_rows,
-                n_edges, d, n_msgs, items, s);
+  return dispatch<false>(msgs, perm, row_ptr, w, out, carry_row, carry,
+                         n_rows, n_edges, d, n_msgs, items, device, stream);
+}
+
+// The same for msgs [n_msgs, d] bf16 (its bits as uint16_t).
+int staircase_aggregate_bf16(const void* msgs, const int* perm,
+                             const int* row_ptr, const float* w, float* out,
+                             int* carry_row, float* carry, int n_rows,
+                             int n_edges, int d, int n_msgs, int items,
+                             int device, void* stream) {
+  return dispatch<true>(msgs, perm, row_ptr, w, out, carry_row, carry,
+                        n_rows, n_edges, d, n_msgs, items, device, stream);
 }
 
 const char* staircase_error_string(int code) {

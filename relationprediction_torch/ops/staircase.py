@@ -19,7 +19,15 @@ permutation into its gather; here the same sum with a permutation is
 
 On a CUDA tensor the forward launches ``staircase_aggregate_f32`` of
 ``csrc/staircase.cu`` or raises; on a CPU tensor it runs
-``staircase_aggregate_reference``, the plain PyTorch version. The kernel
+``staircase_aggregate_reference``, the plain PyTorch version. With
+``compute_dtype=torch.bfloat16`` (the JAX op's ``compute_dtype``,
+``staircase.py:263-266``: bf16 message precision) the messages go to the
+kernel in bf16 and ``staircase_aggregate_bf16`` runs: the weights, the
+products and the sums stay f32, and the output and the gradient are f32.
+The JAX op rounds each weighted message to bf16, the port each message
+before its f32 weight; the plain version upcasts the bf16 messages and
+sums as in f32. A bf16 CUDA tensor launches the bf16 kernel or raises:
+it never reaches the f32 kernel. The kernel
 splits the merged list of row ends and entries into blocks of
 ``merge_path_items`` items (a merge path, see the source);
 ``merge_path_split`` and ``merge_path_carry_rows`` state that partition in
@@ -56,9 +64,9 @@ def kernel_library() -> tuple:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the kernel source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.staircase_aggregate_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                            i, i, p]
-    lib.staircase_aggregate_f32.restype = i
+    for fn in (lib.staircase_aggregate_f32, lib.staircase_aggregate_bf16):
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.staircase_max_items.argtypes = []
     lib.staircase_max_items.restype = i
     lib.staircase_error_string.argtypes = [i]
@@ -149,7 +157,9 @@ def staircase_aggregate_reference(msgs: torch.Tensor, layout: CsrLayout,
     """Plain version: per chunk of entries, gather the messages (row
     ``perm[k]`` where given, else row k), weight them by ``w`` (unless
     ``weighted`` is false) and ``index_add_`` them into their rows. Sums in
-    the messages' dtype (float64 inputs give a float64 result)."""
+    the messages' dtype (float64 inputs give a float64 result; bf16
+    messages are upcast and summed in float32)."""
+    msgs = upcast_bf16(msgs)
     rows = row_of_entry(layout)
     out = torch.zeros(n_vertices, msgs.shape[1], dtype=msgs.dtype,
                       device=msgs.device)
@@ -162,42 +172,56 @@ def staircase_aggregate_reference(msgs: torch.Tensor, layout: CsrLayout,
     return out
 
 
+def upcast_bf16(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as float32 (exact), any other as it is: the plain
+    versions of the bf16 kernels compute in float32."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def staircase_aggregate(msgs: torch.Tensor, layout: CsrLayout,
-                        n_vertices: int, *,
-                        weighted: bool = True) -> torch.Tensor:
+                        n_vertices: int, *, weighted: bool = True,
+                        compute_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
     """One direction's aggregation, differentiable; see the module
     docstring.
 
     msgs: [E, d] float32, entry k the message of the layout's entry k;
     layout: the direction's CSR with n_vertices rows. ``weighted`` false
     takes every weight as 1 (the stored-message layer's 'none'
-    normalization). Returns [n_vertices, d] float32.
+    normalization). ``compute_dtype`` torch.bfloat16 sends the messages
+    to the kernel in bf16. Returns [n_vertices, d] float32.
     """
     if msgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"staircase_aggregate: unsupported device "
                          f"{msgs.device}")
     return _Aggregate.apply(msgs, layout, n_vertices, None, weighted,
-                            staircase_aggregate)
+                            staircase_aggregate, compute_dtype)
 
 
 # Kernel launches since the counts were last set to 0 (CPU calls never
-# count): the merge-path kernel of this op, and the carry fix-up kernel
-# that follows every merge-path launch of this op, scatter2 and
-# scatter2_slot_order.
+# count): the merge-path kernel of this op, f32 and bf16 apart, and the
+# carry fix-up kernel that follows every merge-path launch of this op,
+# scatter2, scatter2_slot_order and the bf16 factored energies' backward
+# (ops/neg_energy.py).
 staircase_aggregate.launches = 0
+staircase_aggregate.bf16_launches = 0
 staircase_aggregate.fixup_launches = 0
 
 
 class _Aggregate(torch.autograd.Function):
     """Forward: the kernel (``perm`` may be None; ``weighted`` false takes
-    every weight as 1), counted on ``counter.launches``. Backward: the row
-    gather d msgs[perm[k] or k] = w_k * g[row(k)]; messages no entry reads
-    (the padding edges of scatter2) get zero."""
+    every weight as 1) on the messages cast to ``compute_dtype`` where it
+    is given, counted on ``counter``. Backward: the row gather
+    d msgs[perm[k] or k] = w_k * g[row(k)] in the cotangent's float32;
+    messages no entry reads (the padding edges of scatter2) get zero."""
 
     @staticmethod
-    def forward(ctx, msgs, layout, n_vertices, perm, weighted, counter):
+    def forward(ctx, msgs, layout, n_vertices, perm, weighted, counter,
+                compute_dtype=None):
         ctx.layout, ctx.perm, ctx.weighted = layout, perm, weighted
         ctx.n_msgs = msgs.shape[0]
+        if compute_dtype is not None:
+            msgs = msgs.to(compute_dtype)
         return aggregate(msgs, layout, n_vertices, perm, weighted=weighted,
                          counter=counter)
 
@@ -208,17 +232,18 @@ class _Aggregate(torch.autograd.Function):
         if ctx.weighted:
             d_entries = d_entries * layout.w[:, None]
         if ctx.perm is None:
-            return d_entries, None, None, None, None, None
+            return d_entries, None, None, None, None, None, None
         d_msgs = g.new_zeros(ctx.n_msgs, g.shape[1])
         d_msgs.index_copy_(0, ctx.perm.long(), d_entries)
-        return d_msgs, None, None, None, None, None
+        return d_msgs, None, None, None, None, None, None
 
 
 def aggregate(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
               perm: Optional[torch.Tensor] = None, *, weighted: bool = True,
               counter=None) -> torch.Tensor:
-    """One kernel call (the merge-path kernel and its carry fix-up), which
-    adds one to ``counter.launches`` where a counter is given and to
+    """One kernel call (the merge-path kernel and its carry fix-up), f32 or
+    bf16 by the messages' dtype, which adds one to ``counter.launches``
+    (``counter.bf16_launches`` for bf16) where a counter is given and to
     ``staircase_aggregate.fixup_launches``, or the plain version for a CPU
     tensor."""
     if msgs.device.type == "cpu":
@@ -228,7 +253,10 @@ def aggregate(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
     out = launch(kernel_library()[0], msgs, layout, n_vertices, perm,
                  weighted=weighted)
     if counter is not None:
-        counter.launches += 1
+        if msgs.dtype == torch.bfloat16:
+            counter.bf16_launches += 1
+        else:
+            counter.launches += 1
     staircase_aggregate.fixup_launches += 1
     return out
 
@@ -237,9 +265,10 @@ def launch(lib: ctypes.CDLL, msgs: torch.Tensor, layout: CsrLayout,
            n_vertices: int, perm: Optional[torch.Tensor] = None, *,
            weighted: bool = True, items: Optional[int] = None,
            carries: bool = False):
-    """One call of staircase_aggregate_f32 (the merge-path kernel, then its
-    carry fix-up) on the current stream, on inputs already checked; raises
-    if a launch is refused. ``weighted`` false passes no weights (each
+    """One call of staircase_aggregate_f32, or of staircase_aggregate_bf16
+    for bf16 ``msgs`` (the merge-path kernel, then its carry fix-up), on
+    the current stream, on inputs already checked; raises if a launch is
+    refused. ``weighted`` false passes no weights (each
     entry's weight is 1). Returns ``out``, or (out, carry_rows) with
     ``carries``: the kernel's carried row of each block (see
     ``merge_path_carry_rows``). ``items`` defaults to
@@ -255,7 +284,9 @@ def launch(lib: ctypes.CDLL, msgs: torch.Tensor, layout: CsrLayout,
     carry_rows = torch.empty(n_blocks, dtype=torch.int32, device=msgs.device)
     carry = torch.empty(n_blocks, d, dtype=torch.float32, device=msgs.device)
     stream = torch.cuda.current_stream(msgs.device).cuda_stream
-    rc = lib.staircase_aggregate_f32(
+    fn = lib.staircase_aggregate_bf16 if msgs.dtype == torch.bfloat16 \
+        else lib.staircase_aggregate_f32
+    rc = fn(
         msgs.data_ptr(), None if perm is None else perm.data_ptr(),
         layout.row_ptr.data_ptr(), layout.w.data_ptr() if weighted else None,
         out.data_ptr(), carry_rows.data_ptr(), carry.data_ptr(), n_vertices,
@@ -265,6 +296,17 @@ def launch(lib: ctypes.CDLL, msgs: torch.Tensor, layout: CsrLayout,
         raise RuntimeError(f"staircase_aggregate kernel launch failed: {msg} "
                            f"({rc})")
     return (out, carry_rows) if carries else out
+
+
+def input_dtype(op: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of a kernel's gathered inputs: float32 (its f32 entry
+    point) or bfloat16 (its bf16 one). Raises TypeError for any other, or
+    where they differ."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"{op}: inputs must all be float32 or all bfloat16, "
+                        f"got {sorted(str(d) for d in dtypes)}")
+    return dtypes.pop()
 
 
 def check_tensors(op: str, device, tensors: dict, dtypes: dict) -> None:
@@ -284,8 +326,8 @@ def check_tensors(op: str, device, tensors: dict, dtypes: dict) -> None:
 def _check(msgs, layout, n_vertices, perm) -> None:
     """Raise on anything the kernel does not take."""
     tensors = {"msgs": msgs, "row_ptr": layout.row_ptr, "w": layout.w}
-    dtypes = {"msgs": torch.float32, "row_ptr": torch.int32,
-              "w": torch.float32}
+    dtypes = {"msgs": input_dtype("staircase_aggregate", msgs),
+              "row_ptr": torch.int32, "w": torch.float32}
     if perm is not None:
         tensors["perm"], dtypes["perm"] = perm, torch.int32
     check_tensors("staircase_aggregate", msgs.device, tensors, dtypes)

@@ -54,6 +54,22 @@ are torch ops over chunks of edges (``basis_direction_dweights``).
 ``scatter2`` and ``scatter2_slot_order`` (the JAX package's
 ``staircase2.py:639-661``, TPU kernel 4) are the plain weighted scatter;
 they run the kernel of ``ops/staircase.py`` (``csrc/staircase.cu``).
+
+bf16 message precision (the JAX ops' ``compute_dtype``): with
+``compute_dtype=torch.bfloat16`` each op sends its gathered table and its
+weights operand to the bf16 entry point of its kernel
+(``block_direction_bf16`` and ``block_direction_twin_bf16``: features or
+g and the blocks; ``basis_project_bf16``: x or g and W_flat or w_t, P
+written in bf16; ``basis_combine_bf16``: P), which widens them to f32:
+edge weights and C stay f32, products and sums are f32, outputs f32 but
+P. The JAX kernels round more (the weighted rows, the per-edge products,
+the sum over the bases in bf16). d blocks, d W_flat and d C stay f32
+torch ops on the saved f32 inputs (d C from an f32 P, made by the f32
+basis_project kernel), as the JAX VJPs compute them on the CPU
+(``staircase2.py:736-740``, ``:877-893``). A bf16 CUDA tensor launches a bf16 kernel or raises; each plain version
+upcasts bf16 and computes in f32 (``basis_project_reference`` then
+rounds P to bf16), so on the card a kernel and its plain version differ
+only in the order of their f32 sums.
 """
 from __future__ import annotations
 
@@ -66,7 +82,7 @@ import torch
 from ..device import exact_float32
 from ..graph import CsrLayout
 from . import nvcc, staircase
-from .staircase import check_tensors
+from .staircase import check_tensors, input_dtype, upcast_bf16
 
 _SOURCE = "block_direction.cu"
 _BASIS_SOURCE = "basis_direction.cu"
@@ -85,7 +101,8 @@ def kernel_library() -> tuple:
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the kernel source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.block_direction_f32, lib.block_direction_twin_f32):
+    for fn in (lib.block_direction_f32, lib.block_direction_twin_f32,
+               lib.block_direction_bf16, lib.block_direction_twin_bf16):
         fn.argtypes = [p] * 9 + [i] * 6 + [p]
         fn.restype = i
     for fn in (lib.block_direction_max_blocks, lib.block_direction_max_items):
@@ -101,8 +118,10 @@ def block_direction_reference(features: torch.Tensor, blocks: torch.Tensor,
                               edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
     """Plain PyTorch version: gather, per-edge block transform in chunks of
     edges (so [E, B, dr, dr] weights never exist at once), ``index_add_``.
-    Sums in the features' dtype (float64 inputs give a float64 result)."""
+    Sums in the features' dtype (float64 inputs give a float64 result; bf16
+    inputs are upcast and summed in float32)."""
     exact_float32()
+    features, blocks = upcast_bf16(features), upcast_bf16(blocks)
     n_rel, n_blocks, dr, _ = blocks.shape
     d = n_blocks * dr
     targets = staircase.row_of_entry(layout)
@@ -142,39 +161,54 @@ def block_direction_dblocks(features: torch.Tensor, g: torch.Tensor,
 
 def block_direction(features: torch.Tensor, blocks: torch.Tensor,
                     layout: CsrLayout, n_vertices: int,
-                    twin: Optional[CsrLayout] = None) -> torch.Tensor:
+                    twin: Optional[CsrLayout] = None,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """One direction's aggregation, differentiable; see the module
     docstring.
 
     features: [V, d] float32; blocks: [R, B, dr, dr] float32 (the JAX
     package's layout); layout: the direction's CSR with n_vertices rows;
     twin: its twin CSR (graph.GraphBatch.fwd_twin / bwd_twin), needed only
-    for the gradient with respect to features. Returns [n_vertices, d]
-    float32.
+    for the gradient with respect to features; compute_dtype: None, or
+    torch.bfloat16 for the bf16 kernels. Returns [n_vertices, d] float32.
     """
     if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"block_direction: unsupported device "
                          f"{features.device}")
-    return _BlockDirection.apply(features, blocks, layout, twin, n_vertices)
+    return _BlockDirection.apply(features, blocks, layout, twin, n_vertices,
+                                 compute_dtype)
 
 
 # Kernel launches since the counts were last set to 0, forward passes and
-# twin passes apart, and the carry fix-up that follows each of them (CPU
-# calls never count).
+# twin passes apart, f32 and bf16 apart, and the carry fix-up that follows
+# each of them (CPU calls never count).
 block_direction.launches = 0
 block_direction.twin_launches = 0
+block_direction.bf16_launches = 0
+block_direction.bf16_twin_launches = 0
 block_direction.fixup_launches = 0
 
 
+def _cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return t if dtype is None else t.to(dtype)
+
+
 class _BlockDirection(torch.autograd.Function):
-    """Forward: the kernel on ``layout``. Backward: the twin pass for
-    d features, ``block_direction_dblocks`` for d blocks."""
+    """Forward: the kernel on ``layout`` (features and blocks cast to
+    ``compute_dtype`` where it is given). Backward: the twin pass for
+    d features (g and the blocks cast likewise), ``block_direction_dblocks``
+    on the saved f32 inputs for d blocks."""
 
     @staticmethod
-    def forward(ctx, features, blocks, layout, twin, n_vertices):
+    def forward(ctx, features, blocks, layout, twin, n_vertices,
+                compute_dtype=None):
         ctx.save_for_backward(features, blocks)
         ctx.layout, ctx.twin, ctx.n_vertices = layout, twin, n_vertices
-        return _aggregate(features, blocks, layout, n_vertices, twin=False)
+        ctx.compute_dtype = compute_dtype
+        return _aggregate(_cast(features, compute_dtype),
+                          _cast(blocks, compute_dtype), layout, n_vertices,
+                          twin=False)
 
     @staticmethod
     def backward(ctx, g):
@@ -186,17 +220,19 @@ class _BlockDirection(torch.autograd.Function):
                 raise ValueError("block_direction: the gradient with "
                                  "respect to features needs the "
                                  "direction's twin layout")
-            d_features = _aggregate(g, blocks, ctx.twin, ctx.n_vertices,
-                                    twin=True)
+            cd = ctx.compute_dtype
+            d_features = _aggregate(_cast(g, cd), _cast(blocks, cd),
+                                    ctx.twin, ctx.n_vertices, twin=True)
         if ctx.needs_input_grad[1]:
             d_blocks = block_direction_dblocks(features, g, blocks.shape,
                                                ctx.layout)
-        return d_features, d_blocks, None, None, None
+        return d_features, d_blocks, None, None, None, None
 
 
 def _aggregate(features, blocks, layout, n_vertices, *, twin: bool):
     """One kernel pass: the forward (blocks as given) or the twin pass
-    (blocks transposed), or their plain version for a CPU tensor."""
+    (blocks transposed), f32 or bf16 by the inputs' dtype, or their plain
+    version for a CPU tensor."""
     if features.device.type == "cpu":
         return block_direction_reference(
             features, blocks.transpose(-1, -2) if twin else blocks, layout,
@@ -204,10 +240,9 @@ def _aggregate(features, blocks, layout, n_vertices, *, twin: bool):
     _check(features, blocks, layout, n_vertices)
     out = launch(kernel_library()[0], features, blocks, layout, n_vertices,
                  twin=twin)
-    if twin:
-        block_direction.twin_launches += 1
-    else:
-        block_direction.launches += 1
+    bf16 = "bf16_" if features.dtype == torch.bfloat16 else ""
+    name = f"{bf16}twin_launches" if twin else f"{bf16}launches"
+    setattr(block_direction, name, getattr(block_direction, name) + 1)
     block_direction.fixup_launches += 1
     return out
 
@@ -231,7 +266,8 @@ def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
     """One call of a bound kernel library (the merge-path kernel, then its
     carry fix-up) on the current stream, on inputs already checked; raises
     if a launch is refused. ``twin`` launches the entry point that reads
-    ``blocks`` transposed. Returns ``out``, or (out, carry_rows) with
+    ``blocks`` transposed; bf16 ``features`` and ``blocks`` the bf16 entry
+    points. Returns ``out``, or (out, carry_rows) with
     ``carries`` (see ``staircase.merge_path_carry_rows``). ``items``
     defaults to ``staircase.block_direction_items``."""
     n_blocks, dr = blocks.shape[1], blocks.shape[2]
@@ -243,7 +279,11 @@ def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
     out = torch.empty(n_vertices, n_blocks * dr, dtype=torch.float32,
                       device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
-    fn = lib.block_direction_twin_f32 if twin else lib.block_direction_f32
+    if features.dtype == torch.bfloat16:
+        fn = lib.block_direction_twin_bf16 if twin \
+            else lib.block_direction_bf16
+    else:
+        fn = lib.block_direction_twin_f32 if twin else lib.block_direction_f32
     rc = fn(features.data_ptr(), blocks.data_ptr(), layout.row_ptr.data_ptr(),
             layout.src.data_ptr(), layout.rel.data_ptr(),
             layout.w.data_ptr(), out.data_ptr(), carry_rows.data_ptr(),
@@ -267,10 +307,10 @@ def _csr_tensors(layout: CsrLayout) -> tuple:
 def _check(features, blocks, layout, n_vertices) -> None:
     """Raise on anything the kernel does not take."""
     tensors, dtypes = _csr_tensors(layout)
+    dtype = input_dtype("block_direction", features, blocks)
     check_tensors("block_direction", features.device,
                    {"features": features, "blocks": blocks, **tensors},
-                   {"features": torch.float32, "blocks": torch.float32,
-                    **dtypes})
+                   {"features": dtype, "blocks": dtype, **dtypes})
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"block_direction: blocks must be [R, B, dr, dr], "
                          f"got {tuple(blocks.shape)}")
@@ -321,6 +361,8 @@ def bind_project_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf32_split_f32.restype = i
     lib.basis_project_f32.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.basis_project_f32.restype = i
+    lib.basis_project_bf16.argtypes = [p, p, p, i, i, i, i, p]
+    lib.basis_project_bf16.restype = i
     lib.basis_project_k_tile.argtypes = []
     lib.basis_project_k_tile.restype = i
     lib.basis_project_parts.argtypes = [i]
@@ -333,8 +375,9 @@ def bind_project_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_basis_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the basis source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.basis_combine_f32.argtypes = [p] * 9 + [i] * 6 + [p]
-    lib.basis_combine_f32.restype = i
+    for fn in (lib.basis_combine_f32, lib.basis_combine_bf16):
+        fn.argtypes = [p] * 9 + [i] * 6 + [p]
+        fn.restype = i
     for fn in (lib.basis_direction_max_bases, lib.basis_combine_max_items):
         fn.argtypes = []
         fn.restype = i
@@ -346,8 +389,11 @@ def bind_basis_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 def basis_project_reference(x: torch.Tensor, w: torch.Tensor
                             ) -> torch.Tensor:
     """Plain version of ``basis_project``: x @ w in full float32 (or in the
-    inputs' dtype)."""
+    inputs' dtype); bf16 inputs are upcast, multiplied in float32 and the
+    product rounded to bf16, as ``basis_project_bf16`` stores it."""
     exact_float32()
+    if x.dtype == torch.bfloat16:
+        return torch.matmul(x.float(), w.float()).to(torch.bfloat16)
     return torch.matmul(x, w)
 
 
@@ -381,7 +427,9 @@ def basis_combine_reference(proj: torch.Tensor, coefficients: torch.Tensor,
                             edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
     """Plain version of ``basis_combine``: per chunk of edges, gather the
     projected rows [e, B, d_out], weight them by w_e * C[r_e, b], sum over
-    b and ``index_add_`` into the rows. Sums in ``proj``'s dtype."""
+    b and ``index_add_`` into the rows. Sums in ``proj``'s dtype (bf16
+    upcast to float32)."""
+    proj = upcast_bf16(proj)
     n_bases = coefficients.shape[1]
     d_out = proj.shape[1] // n_bases
     rows = staircase.row_of_entry(layout)
@@ -451,60 +499,77 @@ def basis_direction_dweights(features: torch.Tensor, proj: torch.Tensor,
 
 def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
                     coefficients: torch.Tensor, layout: CsrLayout,
-                    n_vertices: int, twin: Optional[CsrLayout] = None
+                    n_vertices: int, twin: Optional[CsrLayout] = None,
+                    compute_dtype: Optional[torch.dtype] = None
                     ) -> torch.Tensor:
     """One basis direction, differentiable; see the module docstring.
 
     features: [V, d_in] float32; w_flat: [d_in, B*d_out] float32;
     coefficients: [R, B] float32; layout: the direction's CSR with
     n_vertices rows; twin: its twin CSR, needed only for the gradient with
-    respect to features. Returns [n_vertices, d_out] float32.
+    respect to features; compute_dtype: None, or torch.bfloat16 for the
+    bf16 kernels. Returns [n_vertices, d_out] float32.
     """
     if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"basis_direction: unsupported device "
                          f"{features.device}")
     return _BasisDirection.apply(features, w_flat, coefficients, layout,
-                                 twin, n_vertices)
+                                 twin, n_vertices, compute_dtype)
 
 
 # Kernel launches since the counts were last set to 0 (CPU calls never
-# count): basis_combine in forward passes and in twin passes, the carry
-# fix-up after each of them, and basis_project in both (one before each
-# combine), each after one launch of its split pass.
+# count), f32 and bf16 apart: basis_combine in forward passes and in twin
+# passes, the carry fix-up after each of them (both precisions), and
+# basis_project in both (one before each combine), each f32 launch after
+# one launch of its split pass (the bf16 product has none).
 basis_direction.launches = 0
 basis_direction.twin_launches = 0
 basis_direction.fixup_launches = 0
 basis_direction.project_launches = 0
 basis_direction.split_launches = 0
+basis_direction.bf16_launches = 0
+basis_direction.bf16_twin_launches = 0
+basis_direction.bf16_project_launches = 0
 
 
 def launch_counts() -> tuple:
-    """(forward, twin) aggregation launches of the model's ops so far: a
-    layer direction is one forward launch of ``block_direction``, one
-    ``basis_combine`` launch or one ``staircase.staircase_aggregate``
-    launch, and its gradient one twin launch (none for
-    ``staircase_aggregate``, whose gradient is a torch gather)."""
-    return (block_direction.launches + basis_direction.launches
-            + staircase.staircase_aggregate.launches,
-            block_direction.twin_launches + basis_direction.twin_launches)
+    """(forward, twin) aggregation launches of the model's ops so far, f32
+    and bf16 together: a layer direction is one forward launch of
+    ``block_direction``, one ``basis_combine`` launch or one
+    ``staircase.staircase_aggregate`` launch, and its gradient one twin
+    launch (none for ``staircase_aggregate``, whose gradient is a torch
+    gather)."""
+    ops = (block_direction, basis_direction, staircase.staircase_aggregate)
+    return (sum(op.launches + op.bf16_launches for op in ops),
+            sum(op.twin_launches + op.bf16_twin_launches
+                for op in ops[:2]))
 
 
 class _BasisDirection(torch.autograd.Function):
-    """Forward: project, then combine on ``layout``; P is kept for d C.
-    Backward: the twin pass (project g by w_t, combine on the twin CSR)
-    for d features, ``basis_direction_dweights`` for d W_flat and d C."""
+    """Forward: project, then combine on ``layout`` (features and W_flat
+    cast to ``compute_dtype`` where it is given); an f32 P is kept for
+    d C. Backward: the twin pass (project g by w_t, both cast likewise,
+    combine on the twin CSR) for d features, ``basis_direction_dweights``
+    on the saved f32 inputs for d W_flat and d C. In bf16 the forward's P
+    is bf16, so d C's f32 P is computed anew where d C is asked for, by
+    the f32 path of ``_project`` (the split pass and basis_project on the
+    card)."""
 
     @staticmethod
     def forward(ctx, features, w_flat, coefficients, layout, twin,
-                n_vertices):
-        proj = _project(features, w_flat)
-        ctx.save_for_backward(features, w_flat, coefficients, proj)
+                n_vertices, compute_dtype=None):
+        proj = _project(_cast(features, compute_dtype),
+                        _cast(w_flat, compute_dtype))
+        ctx.save_for_backward(features, w_flat, coefficients,
+                              proj if compute_dtype is None else None)
         ctx.layout, ctx.twin, ctx.n_vertices = layout, twin, n_vertices
+        ctx.compute_dtype = compute_dtype
         return _combine(proj, coefficients, layout, n_vertices, twin=False)
 
     @staticmethod
     def backward(ctx, g):
         features, w_flat, coefficients, proj = ctx.saved_tensors
+        cd = ctx.compute_dtype
         g = g.contiguous()
         d_features = None
         if ctx.needs_input_grad[0]:
@@ -513,41 +578,49 @@ class _BasisDirection(torch.autograd.Function):
                                  "respect to features needs the "
                                  "direction's twin layout")
             w_t = basis_twin_weights(w_flat, coefficients.shape[1])
-            d_features = _combine(_project(g, w_t), coefficients, ctx.twin,
-                                  ctx.n_vertices, twin=True)
+            d_features = _combine(_project(_cast(g, cd), _cast(w_t, cd)),
+                                  coefficients, ctx.twin, ctx.n_vertices,
+                                  twin=True)
         d_w = d_c = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            if proj is None and ctx.needs_input_grad[2]:
+                proj = _project(features, w_flat)
             d_w, d_c = basis_direction_dweights(
                 features, proj, g, coefficients, ctx.layout,
                 need_w=ctx.needs_input_grad[1],
                 need_c=ctx.needs_input_grad[2])
-        return d_features, d_w, d_c, None, None, None
+        return d_features, d_w, d_c, None, None, None, None
 
 
 def _project(x, w):
-    """x @ w: the split pass and the basis_project kernel, or its plain
-    version for a CPU tensor."""
+    """x @ w: the split pass and the basis_project kernel (f32), or
+    basis_project_bf16 (bf16 x and w, a bf16 P), or the plain version for
+    a CPU tensor."""
     if x.device.type == "cpu":
         return basis_project_reference(x, w)
     _check_project(x, w)
-    out = launch_project(project_kernel_library()[0], x, w)
+    lib = project_kernel_library()[0]
+    if x.dtype == torch.bfloat16:
+        out = launch_project_bf16(lib, x, w)
+        basis_direction.bf16_project_launches += 1
+        return out
+    out = launch_project(lib, x, w)
     basis_direction.split_launches += 1
     basis_direction.project_launches += 1
     return out
 
 
 def _combine(proj, coefficients, layout, n_rows, *, twin: bool):
-    """One basis_combine pass (forward or twin), or its plain version for a
-    CPU tensor."""
+    """One basis_combine pass (forward or twin), f32 or bf16 by ``proj``'s
+    dtype, or its plain version for a CPU tensor."""
     if proj.device.type == "cpu":
         return basis_combine_reference(proj, coefficients, layout, n_rows)
     _check_combine(proj, coefficients, layout, n_rows)
     out = launch_combine(basis_kernel_library()[0], proj, coefficients,
                          layout, n_rows)
-    if twin:
-        basis_direction.twin_launches += 1
-    else:
-        basis_direction.launches += 1
+    bf16 = "bf16_" if proj.dtype == torch.bfloat16 else ""
+    name = f"{bf16}twin_launches" if twin else f"{bf16}launches"
+    setattr(basis_direction, name, getattr(basis_direction, name) + 1)
     basis_direction.fixup_launches += 1
     return out
 
@@ -602,13 +675,27 @@ def launch_project(lib: ctypes.CDLL, x: torch.Tensor,
     return launch_product(lib, *launch_split(lib, x, w))
 
 
+def launch_project_bf16(lib: ctypes.CDLL, x: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """x @ w for bf16 x and w on the current stream, on inputs already
+    checked: one launch of basis_project_bf16, P [m, n] bf16 (f32 sums
+    rounded to nearest even); raises if it is refused."""
+    (m, k), n = x.shape, w.shape[1]
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib, lib.basis_project_bf16(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+        x.device.index, stream), "basis_project_bf16")
+    return out
+
+
 def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
                    coefficients: torch.Tensor, layout: CsrLayout,
                    n_rows: int, *, items: Optional[int] = None,
                    carries: bool = False):
-    """One call of basis_combine_f32 (the merge-path kernel, then its carry
-    fix-up) on the current stream, on inputs already checked; raises if a
-    launch is refused. Returns ``out``, or (out, carry_rows) with
+    """One call of basis_combine_f32, or of basis_combine_bf16 for a bf16
+    ``proj`` (the merge-path kernel, then its carry fix-up), on the current
+    stream, on inputs already checked; raises if a launch is refused. Returns ``out``, or (out, carry_rows) with
     ``carries`` (see ``staircase.merge_path_carry_rows``). ``items``
     defaults to ``staircase.basis_combine_items``."""
     n_bases = coefficients.shape[1]
@@ -621,7 +708,9 @@ def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
     out = torch.empty(n_rows, d_out, dtype=torch.float32,
                       device=proj.device)
     stream = torch.cuda.current_stream(proj.device).cuda_stream
-    rc = lib.basis_combine_f32(
+    fn = lib.basis_combine_bf16 if proj.dtype == torch.bfloat16 \
+        else lib.basis_combine_f32
+    rc = fn(
         proj.data_ptr(), coefficients.data_ptr(), layout.row_ptr.data_ptr(),
         layout.src.data_ptr(), layout.rel.data_ptr(), layout.w.data_ptr(),
         out.data_ptr(), carry_rows.data_ptr(), carry.data_ptr(), n_rows,
@@ -634,9 +723,11 @@ def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
 
 
 def _check_project(x, w) -> None:
-    """Raise on anything basis_project_f32 does not take."""
+    """Raise on anything basis_project_f32 or basis_project_bf16 does not
+    take."""
+    dtype = input_dtype("basis_project", x, w)
     check_tensors("basis_project", x.device, {"x": x, "w": w},
-                   {"x": torch.float32, "w": torch.float32})
+                   {"x": dtype, "w": dtype})
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"basis_project: cannot multiply "
                          f"{tuple(x.shape)} by {tuple(w.shape)}")
@@ -649,8 +740,8 @@ def _check_combine(proj, coefficients, layout, n_rows) -> None:
     tensors, dtypes = _csr_tensors(layout)
     check_tensors("basis_combine", proj.device,
                    {"proj": proj, "coefficients": coefficients, **tensors},
-                   {"proj": torch.float32, "coefficients": torch.float32,
-                    **dtypes})
+                   {"proj": input_dtype("basis_combine", proj),
+                    "coefficients": torch.float32, **dtypes})
     lib, _ = basis_kernel_library()
     if coefficients.dim() != 2 or proj.dim() != 2:
         raise ValueError("basis_combine: proj and coefficients must be 2-d")
@@ -675,14 +766,16 @@ def _check_combine(proj, coefficients, layout, n_rows) -> None:
 # ---------------------------------------------------------------------------
 
 def scatter2(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
-             order) -> torch.Tensor:
+             order, compute_dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
     """out[v] = sum over edges e with target v of w_e * msgs[e], with
     ``msgs`` [E_in, d] in primary (input) edge order: ``layout`` and
     ``order`` are what ``graph.build_csr`` returned for those edges (CSR
     entry k is input edge ``order[k]``; padding edges, dropped there, add
     nothing). The permutation is fused into the kernel's gather.
-    Differentiable: d msgs[order[k]] = w_k * g[row(k)], zero for padding
-    edges. Returns [n_vertices, d] float32.
+    ``compute_dtype`` torch.bfloat16 sends the messages to the kernel in
+    bf16 (JAX's ``compute_dtype``). Differentiable: d msgs[order[k]] = w_k *
+    g[row(k)], zero for padding edges. Returns [n_vertices, d] float32.
 
     Raises ValueError unless every ``order`` entry lies in [0, E_in), on
     the CPU path and the card's alike; host data is checked before it is
@@ -696,7 +789,7 @@ def scatter2(msgs: torch.Tensor, layout: CsrLayout, n_vertices: int,
                              f"[0, {n}) of msgs")
     perm = order.to(device=msgs.device, dtype=torch.int32)
     return staircase._Aggregate.apply(msgs, layout, n_vertices, perm, True,
-                                      scatter2)
+                                      scatter2, compute_dtype)
 
 
 def scatter2_slot_order(msgs_csr: torch.Tensor, layout: CsrLayout,
@@ -708,7 +801,9 @@ def scatter2_slot_order(msgs_csr: torch.Tensor, layout: CsrLayout,
                                       False, scatter2_slot_order)
 
 
-# Kernel launches since the counts were last set to 0 (CPU calls never
-# count).
+# Kernel launches since the counts were last set to 0, f32 and bf16 apart
+# (CPU calls never count).
 scatter2.launches = 0
+scatter2.bf16_launches = 0
 scatter2_slot_order.launches = 0
+scatter2_slot_order.bf16_launches = 0

@@ -153,21 +153,29 @@ def test_train_mode_dropout_touches_only_the_self_loop():
 
 
 def test_unported_configurations_raise():
-    """bf16 message and decoder-stream precision are all that raise; the
-    configurations that raised before them now build."""
+    """Nothing the JAX package accepts raises any more: every message and
+    decoder-stream precision builds (bf16 as "bfloat16" or "bf16", read as
+    the JAX package reads them), as do the configurations that raised
+    before them; an unknown precision is refused by the config."""
     ds = jax_synthetic.generate(30, 3, 60, seed=0)
     base = small(torch_config.load(SETTINGS), ds)
-    unported = [dataclasses.replace(base, encoder=dataclasses.replace(
-        base.encoder, message_precision="bfloat16")),
-        dataclasses.replace(base, decoder=dataclasses.replace(
-            base.decoder, stream_precision="bfloat16"))]
-    for cfg in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(cfg, CPU)
+    for message in ("float32", "bfloat16", "bf16"):
+        for stream in ("float32", "bfloat16", "bf16"):
+            model = build_model(dataclasses.replace(
+                base, encoder=dataclasses.replace(
+                    base.encoder, message_precision=message),
+                decoder=dataclasses.replace(
+                    base.decoder, stream_precision=stream)), CPU)
+            for got, precision in ((model.agg_dtype, message),
+                                   (model.stream_dtype, stream)):
+                assert got == (None if precision == "float32"
+                               else torch.bfloat16)
     for enc in (dict(use_input_transform=False, random_input=True),
                 dict(name="variational_embedding")):
         build_model(dataclasses.replace(
             base, encoder=dataclasses.replace(base.encoder, **enc)), CPU)
+    with pytest.raises(ValueError, match="precision"):
+        dataclasses.replace(base.encoder, message_precision="float16")
 
 
 def test_mlp_decoder_model_builds():

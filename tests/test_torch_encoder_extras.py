@@ -5,8 +5,8 @@ Encode and all-entity scores, ranks, the loss and every gradient leaf of
 one step and the params after 1 and 3 Adam steps, each with JAX's own
 draws (keep-masks, random input at fold_in 23, the dropover choice at 29);
 the param tree through params_from_jax, checkpoints both ways and
-opt_state_from_jax; the train CLI; and bf16 stream precision, which the
-port refused to run only from this slice on. Block layers on dense input
+opt_state_from_jax; the train CLI; and the bf16 stream precision's dtype
+and cast against the JAX package's. Block layers on dense input
 take TPU kernel 1 (block_direction), basis layers on one-hot input kernel
 3 (staircase_aggregate)."""
 import dataclasses
@@ -155,18 +155,42 @@ def test_train_cli_runs_the_extras_on_cpu(tmp_path, kind):
 
 
 def test_bf16_stream_precision_raises():
-    """DecoderConfig.stream_precision="bfloat16": the JAX package casts its
-    training-loss streams to bf16 (``build.py:117-118``, ``_stream_cast``);
-    the port built this config and trained it in f32. It raises now, as
-    bf16 message precision does, until both are ported."""
+    """DecoderConfig.stream_precision: the port's stream dtype is the JAX
+    package's ``_dec_dtype`` for every spelling (``build.py:117-118``),
+    and its stream cast gives ``_stream_cast``'s bits: entity and relation
+    codes rounded to bf16, the variational statistics untouched. (Until
+    bf16 streams were ported this config raised, after building silently
+    in f32 before that.)"""
+    from relationprediction_tpu.models.build import (
+        EncodeResult as JaxEncodeResult)
+    from relationprediction_torch.models.build import EncodeResult
     ds, (jcfg, _, _, _), (tcfg, _, _, _) = case("highway", "synthetic")
-    bf16 = dataclasses.replace(tcfg, decoder=dataclasses.replace(
-        tcfg.decoder, stream_precision="bfloat16"))
-    jmodel = jax_build(dataclasses.replace(jcfg, decoder=dataclasses.replace(
-        jcfg.decoder, stream_precision="bfloat16")))
-    assert jmodel._dec_dtype is not None  # JAX casts; the port cannot yet
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        build_model(bf16, CPU)
+    rng = np.random.default_rng(0)
+    codes = rng.standard_normal((ds.n_entities, 20)).astype(np.float32)
+    rel = rng.standard_normal((ds.n_relations, 20)).astype(np.float32)
+    mu = rng.standard_normal((ds.n_entities, 20)).astype(np.float32)
+    for stream in ("float32", "bfloat16", "bf16"):
+        jmodel = jax_build(dataclasses.replace(
+            jcfg, decoder=dataclasses.replace(jcfg.decoder,
+                                              stream_precision=stream)))
+        model = build_model(dataclasses.replace(
+            tcfg, decoder=dataclasses.replace(tcfg.decoder,
+                                              stream_precision=stream)), CPU)
+        if jmodel._dec_dtype is None:
+            assert model.stream_dtype is None
+        else:
+            assert np.dtype(jmodel._dec_dtype).name == "bfloat16"
+            assert model.stream_dtype == torch.bfloat16
+        want = jmodel._stream_cast(JaxEncodeResult(codes, rel, mu, mu))
+        got = model.stream_cast(EncodeResult(
+            *(torch.from_numpy(a) for a in (codes, rel, mu, mu))))
+        for w, g in zip(want, got):
+            w = np.asarray(w)
+            assert str(g.dtype).endswith(w.dtype.name)
+            np.testing.assert_array_equal(
+                g.view(torch.int16).numpy() if g.dtype == torch.bfloat16
+                else g.numpy(),
+                w.view(np.int16) if w.dtype.name == "bfloat16" else w)
     for cfg in (small(torch_config.load(settings_path("onehot")), ds,
                       "onehot"), tcfg):
         build_model(cfg, CPU)  # float32 streams build
