@@ -28,7 +28,8 @@ each with the seconds the phase has taken so far (``phase_s``):
           be 4: 2 layers x 2 directions), MRR and Hits@10, and the codes
           held against the plain path on the CPU;
   grad    block_direction's output and gradient (kernel forward, twin
-          kernel, torch d blocks) against autograd through
+          kernel, d blocks summed by relation on kernel 3) against
+          autograd through
           block_direction_reference in float64 on the card, both
           directions, on the full train graph and on the first training
           batch's graph; d features and the twin pass within the rounding
@@ -36,7 +37,11 @@ each with the seconds the phase has taken so far (``phase_s``):
           wrong twin outside it; the twin pass's carry rows and two
           launches bit for bit; times of both kernels (the twin pass also
           on the hub rows and the others apart, and at every item count),
-          the d blocks contraction and the plain backward, and the bounds;
+          the d blocks contraction (two calls bit for bit; beside it the
+          same sums by index_add_, the form before the sums by relation),
+          kernel 3 as sum_by_csr runs it on one chunk of d blocks'
+          products (against a float64 sum, index_add_ beside it) and the
+          plain backward, and the bounds;
   train   one train step on the card against the same step (params, batch,
           draws, masks) on the CPU plain path, then 20 steps of
           TrainLoop.fit: host batch and device step times, the loss at
@@ -66,11 +71,15 @@ Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
   serve_basis, grad_basis, train_basis  as serve, grad and train, through
           staircase2.basis_direction (4 combine launches an encode; 4
           forward and 4 twin combine launches a step, each after a project
-          launch and its split pass).
+          launch and its split pass); grad_basis also times d C (two calls
+          bit for bit) beside the same sums by index_add_.
 
 Every aggregation launch of the main paths (block_direction and its twin,
 basis_combine forward and twin, staircase_aggregate) is followed by one
-launch of its carry fix-up, counted apart and checked on every path.
+launch of its carry fix-up, counted apart and checked on every path; so is
+every kernel 3 launch of ops/gather.sum_by_csr (d blocks and d C summed by
+relation, once a direction and layer a step; the fused energies' per-id
+scalars), whose count each train phase checks.
 
 Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
 gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
@@ -106,16 +115,21 @@ Then the rest of TrainLoop on gcn_block.exp:
           stop rule on the logged scores, a checkpoint for each check that
           did not stop, train_loss and validation records, 4 forward and 4
           twin block_direction launches a step, 4 more forward a check;
-  prefetch, prefetch_basis  15 steps serial, prefetch, prefetch, serial
+  prefetch, prefetch_basis  10 steps serial, prefetch, prefetch, serial
           (gcn_block, then gcn_basis), in turns in one process: steps/s,
           median step_ms, batch_ms (in the producer) and wait_ms; the
           device idle share of a whole 5-step fit each way
           (torch.profiler); prefetch with one producer consumes the serial
           run's batches, hash for hash;
   resume  20 steps against 10 and a resume to 20 in a new loop, saves
-          every 10, prefetch on 2 threads, under
-          torch.use_deterministic_algorithms: batches, losses, params and
-          Adam state equal bit for bit.
+          every 10, prefetch on 2 threads, at PyTorch's default settings:
+          batches, losses, params and Adam state equal bit for bit;
+  determinism  in a child process (``chip_smoke.py --determinism-child``)
+          whose environment lacks CUBLAS_WORKSPACE_CONFIG: two 10-step
+          fits from seed 0 as train.py runs them, at default settings, of
+          gcn_block, gcn_basis bf16 and distmult bf16 (d blocks', d C's
+          and the fused energies' sums by id, the gathers' backward):
+          params and Adam state equal bit for bit, each fit's step time.
 
 Then distmult.exp and complex.exp (the embedding table, no graph, all
 272,115 positives a step):
@@ -178,7 +192,10 @@ of a shipped settings file with ``MessagePrecision=bfloat16`` and
 key has it), at published widths:
 
   kernel_bf16  the bf16 entry points (block_direction_bf16 and its twin,
-          basis_project_bf16, basis_combine_bf16 forward and twin CSR,
+          basis_project_bf16 after its pad pass (the pad equal to
+          bf16_pad_reference bit for bit; pad and product timed apart,
+          their device times from torch.profiler, the product's
+          registers and stages), basis_combine_bf16 forward and twin CSR,
           staircase_aggregate_bf16 with and without perm, scatter2 with
           compute_dtype bf16) on the full train graph and on the first
           training batch's graph, each against a float64 sum of its
@@ -212,6 +229,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -278,7 +296,9 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+@functools.lru_cache(maxsize=None)
 def nvidia_smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -299,6 +319,45 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names, iters: int = 20) -> dict:
+    """Mean device time of each kernel whose name holds one of ``names``
+    over ``iters`` calls of ``fn``, from torch.profiler's CUDA activity
+    (CUDA events around calls of a launch function that spends more time
+    on the host than the kernel takes measure the host instead). Empty
+    where the profiler's record cannot be right: a kernel not recorded
+    once a call, or kernels whose times add up to more than the CUDA
+    events around the same calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        for name in names:
+            if name in event.key and event.device_time_total > 0:
+                out[name] = (event.device_time_total / iters / 1e3
+                             if event.count == iters else None)
+    if None in out.values() or sum(out.values()) > 1.05 * (
+            start.elapsed_time(end) / iters):
+        return {}
+    return out
+
+
+def sum_by_csr_op():
+    """ops/gather.sum_by_csr, imported where it is used: the determinism
+    child also runs on a checkout of the port before that module existed,
+    to show how its parent commit fared."""
+    from relationprediction_torch.ops import gather
+    return gather.sum_by_csr
 
 
 def block_direction_bound(layout, n_vertices, n_rel, n_blocks, dr, elem=4):
@@ -704,8 +763,9 @@ def reset_launch_counts() -> None:
     staircase2.basis_direction.project_launches = 0
     staircase2.basis_direction.split_launches = 0
     staircase2.basis_direction.bf16_project_launches = 0
+    staircase2.basis_direction.bf16_pad_launches = 0
     for op in (staircase.staircase_aggregate, staircase2.scatter2,
-               staircase2.scatter2_slot_order):
+               staircase2.scatter2_slot_order, sum_by_csr_op()):
         op.launches = op.bf16_launches = 0
     for op in ENERGY_OPS:
         op.bf16_launches = 0
@@ -726,7 +786,10 @@ def precision_counts(bf16: bool) -> dict:
     for op in (staircase.staircase_aggregate, staircase2.scatter2,
                staircase2.scatter2_slot_order):
         out[f"{op.__name__}.{pre}launches"] = getattr(op, f"{pre}launches")
-    if not bf16:
+    if bf16:
+        out["bf16_pad.launches"] = \
+            staircase2.basis_direction.bf16_pad_launches
+    else:
         out["tf32_split.launches"] = \
             staircase2.basis_direction.split_launches
     return out
@@ -787,15 +850,23 @@ def check_helper_launches(op, launches, twin_launches, project_launches,
                           split_launches, fixups, energies=0) -> None:
     """The kernels that run beside a main path's aggregation kernel: one
     split pass before each f32 basis_project launch (``project_launches``
-    counts the f32 ones; the bf16 product has none), one carry fix-up
-    after each launch of ``op`` (forward and twin) and after each of the
-    ``energies`` kernel 3 launches of the bf16 energies' backwards, and
-    neither elsewhere."""
+    counts the f32 ones), one pad pass before each bf16 one, one carry
+    fix-up after each launch of ``op`` (forward and twin), after each of
+    the ``energies`` kernel 3 launches of the bf16 energies' backwards and
+    after each kernel 3 launch of sum_by_csr (the sums by id of d blocks,
+    d C and the fused backwards' per-id scalars), and neither
+    elsewhere."""
     if split_launches != project_launches:
         raise AssertionError(f"{split_launches} split passes for "
                              f"{project_launches} basis_project launches")
+    pads = staircase2.basis_direction.bf16_pad_launches
+    products = staircase2.basis_direction.bf16_project_launches
+    if pads != products:
+        raise AssertionError(f"{pads} pad passes for {products} "
+                             f"basis_project_bf16 launches")
     want = {name: 0 for name in fixups}
-    want[staircase.staircase_aggregate.__name__] = energies
+    want[staircase.staircase_aggregate.__name__] = \
+        energies + sum_by_csr_op().launches
     if op is not None:
         want[op.__name__] += launches + twin_launches
     if fixups != want:
@@ -848,6 +919,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     project_launches = staircase2.basis_direction.project_launches
     products = getattr(staircase2.basis_direction, pre + "project_launches")
     split_launches = staircase2.basis_direction.split_launches
+    pads = staircase2.basis_direction.bf16_pad_launches
     fixups = fixup_counts()
     fixup_launches = sum(fixups.values())
     peak = torch.cuda.max_memory_allocated()
@@ -963,7 +1035,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
            "max_memory_allocated": peak,
            "launches": launches, "project_launches": products,
            "split_launches": split_launches,
-           "fixup_launches": fixup_launches}
+           "pad_launches": pads, "fixup_launches": fixup_launches}
     if mlp is not None:
         row["mlp_scoring"] = mlp
     emit(phase, model=model_label(cfg),
@@ -1009,6 +1081,97 @@ def first_batch_graph(cfg, ds, device):
     return engine.BatchPipeline(model, cfg, ds,
                                 np.random.default_rng(0)).next().graph.to(
                                     device)
+
+
+def dblocks_index_add(features, g, blocks_shape, layout):
+    """d blocks as the port summed them before its sums by relation ran on
+    kernel 3: each chunk's products added into their relation with
+    ``index_add_`` (atomics on the card), timed beside the sorted form."""
+    n_rel, n_blocks, dr, _ = blocks_shape
+    targets = staircase.row_of_entry(layout)
+    dw = torch.zeros(n_rel, n_blocks, dr, dr, device=features.device)
+    for start in range(0, layout.n_edges, staircase2._EDGE_CHUNK):
+        sl = slice(start, start + staircase2._EDGE_CHUNK)
+        gw = (g[targets[sl]] * layout.w[sl, None]).view(-1, n_blocks, dr)
+        x = features[layout.src[sl].long()].view(-1, n_blocks, dr)
+        dw.index_add_(0, layout.rel[sl].long(),
+                      torch.einsum("ebi,ebj->ebij", gw, x))
+    return dw
+
+
+def dc_index_add(proj, g, coefficients, layout):
+    """d C as the port summed it before (``index_add_`` into the
+    relations), for its time beside the sorted form."""
+    n_bases = coefficients.shape[1]
+    targets = staircase.row_of_entry(layout)
+    dc = torch.zeros_like(coefficients)
+    for start in range(0, layout.n_edges, staircase2._EDGE_CHUNK):
+        sl = slice(start, start + staircase2._EDGE_CHUNK)
+        src = layout.src[sl].long()
+        gw = g[targets[sl]] * layout.w[sl, None]
+        dots = torch.bmm(proj[src].view(-1, n_bases, g.shape[1]),
+                         gw[:, :, None]).squeeze(-1)
+        dc.index_add_(0, layout.rel[sl].long(), dots)
+    return dc
+
+
+def twice_same(fn) -> bool:
+    """Two calls of ``fn`` give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return torch.equal(a, b)
+
+
+def sum_by_csr_timings(features, g, layout, n_rel, n_blocks, dr) -> dict:
+    """Kernel 3 as sum_by_csr runs it for d blocks, on the first chunk of
+    ``layout``'s edges: the per-edge products [chunk, B*dr*dr] summed by
+    relation, held to a float64 index_add_ within sum_allowance, two calls
+    bit for bit; device times of the kernel and its carry fix-up
+    (profiler), CUDA-event times of the call (CSR given), of the sort and
+    CSR, of the plain version and of index_add_ (the library call), and
+    the bound: the products, the permutation, row_ptr and the sums each
+    moved once, one add a product element."""
+    n = min(layout.n_edges, staircase2._EDGE_CHUNK)
+    targets = staircase.row_of_entry(layout)[:n]
+    gw = (g[targets] * layout.w[:n, None]).view(-1, n_blocks, dr)
+    x = features[layout.src[:n].long()].view(-1, n_blocks, dr)
+    values = torch.einsum("ebi,ebj->ebij", gw, x).reshape(n, -1)
+    rel = layout.rel[:n]
+    sum_by_csr = sum_by_csr_op()
+    from relationprediction_torch.ops.gather import id_csr
+    csr = id_csr(rel, n_rel)
+    got = sum_by_csr(values, *csr, n_rel)
+    if not twice_same(lambda: sum_by_csr(values, *csr, n_rel)):
+        raise AssertionError("sum_by_csr: two calls differ")
+    exact = torch.zeros(n_rel, values.shape[1], dtype=torch.float64,
+                        device=values.device).index_add_(
+                            0, rel.long(), values.double())
+    abs_sum = torch.zeros_like(exact).index_add_(0, rel.long(),
+                                                 values.double().abs())
+    counts = torch.bincount(rel.long(), minlength=n_rel)[:, None]
+    over = over_allowance(got, exact, sum_allowance(exact, abs_sum, counts))
+    if not over <= 1:
+        raise AssertionError(f"sum_by_csr: {over} of the allowance")
+    w = values.shape[1]
+    dev = device_ms(lambda: sum_by_csr(values, *csr, n_rel),
+                    ("merge_path_kernel", "carry_fixup"))
+    return {"sum_entries": n, "sum_width": w,
+            "sum_max_abs_err": (got.double() - exact).abs().max().item(),
+            "sum_over_allowance": over, "sum_same_bits_twice": True,
+            "sum_ms": cuda_ms(lambda: sum_by_csr(values, *csr, n_rel), 20),
+            "sum_kernel_device_ms": dev.get("merge_path_kernel"),
+            "sum_fixup_device_ms": dev.get("carry_fixup"),
+            "sum_csr_ms": cuda_ms(lambda: id_csr(rel, n_rel), 20),
+            "sum_plain_ms": cuda_ms(
+                lambda: staircase.staircase_aggregate_reference(
+                    values, CsrLayout(csr[0], csr[1].int(), csr[1].int(),
+                                      layout.w[:n]),
+                    n_rel, csr[1].int(), weighted=False), 5),
+            "sum_library_ms": cuda_ms(lambda: torch.zeros(
+                n_rel, w, device=values.device).index_add_(
+                    0, rel.long(), values), 20),
+            **{f"sum_{k}": v for k, v in least_time(
+                4 * (n * w + n + n_rel + 1 + n_rel * w), n * w).items()}}
 
 
 def phase_grad(graphs, n_rel, n_blocks, dr, device):
@@ -1081,13 +1244,21 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
             fixed = 1e-5 + 1e-4 * gx_ref.abs()
             twin_err = (twin_out.double() - gx_ref).abs()
             # d blocks sums w * g * x over every edge of a relation (up to
-            # ~44k edges here) in float32 with atomics: its rounding grows
+            # ~44k edges here) in float32: its rounding grows
             # as ~sqrt(edges) ulps of the entries' scale, so the tolerance
             # is relative to that scale.
             gw_scale = gw_ref.abs().max().item()
             torch.testing.assert_close(gw, gw_ref, rtol=1e-4,
                                        atol=1e-4 * gw_scale)
             dblocks_ms = cuda_ms(lambda: staircase2.block_direction_dblocks(
+                x, probe, w.shape, layout), 10)
+            if not twice_same(lambda: staircase2.block_direction_dblocks(
+                    x, probe, w.shape, layout)):
+                raise AssertionError(f"{graph_name}/{name}: two d blocks "
+                                     f"calls differ")
+            index_add_same = twice_same(
+                lambda: dblocks_index_add(x, probe, w.shape, layout))
+            dblocks_index_add_ms = cuda_ms(lambda: dblocks_index_add(
                 x, probe, w.shape, layout), 10)
             twin_plain_ms = cuda_ms(
                 lambda: staircase2.block_direction_reference(
@@ -1111,6 +1282,11 @@ def phase_grad(graphs, n_rel, n_blocks, dr, device):
                    "twin_same_bits_twice": True,
                    "twin_plain_ms": twin_plain_ms,
                    "dblocks_ms": dblocks_ms,
+                   "dblocks_same_bits_twice": True,
+                   "dblocks_index_add_ms": dblocks_index_add_ms,
+                   "dblocks_index_add_same_bits_twice": index_add_same,
+                   **sum_by_csr_timings(x, probe, layout, n_rel, n_blocks,
+                                        dr),
                    "dblocks_bound_ms": dblocks_bound(
                        layout, v, n_rel, n_blocks, dr)["bound_ms"],
                    "plain_backward_ms": plain_backward_ms,
@@ -1685,8 +1861,10 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
     each graph: the output and d features within the rounding an f32 sum
     of their terms may have (basis_exact), d W_flat and d C within
     rtol 1e-4 and 1e-4 of their largest entry (sums over up to ~44k edges
-    of a relation, with atomics). Times of the differentiable op's
-    forward, of d W_flat + d C, of its whole backward and of the plain
+    of a relation, in f32). Times of the differentiable op's
+    forward, of d W_flat + d C, of d C alone beside the same sums by
+    index_add_ (and two d C calls bit for bit), of its whole backward and
+    of the plain
     backward (float32)."""
     t_phase = time.perf_counter()
     plib, _ = staircase2.project_kernel_library()
@@ -1731,6 +1909,11 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
                     got, ref.float(), rtol=1e-4,
                     atol=1e-4 * ref.abs().max().item())
             proj = staircase2.launch_project(plib, x, w_flat)
+            dc_same = twice_same(lambda: staircase2.basis_direction_dweights(
+                x, proj, probe, coef, layout, need_w=False)[1])
+            if not dc_same:
+                raise AssertionError(f"{graph_name}/{name}: two d C calls "
+                                     f"differ")
             xr = [t.clone().requires_grad_(True) for t in (x, w_flat, coef)]
             ref_loss = (staircase2.basis_direction_reference(*xr, layout, v)
                         * probe).sum()
@@ -1758,6 +1941,14 @@ def phase_grad_basis(graphs, n_rel, n_bases, d, device):
                    "dweights_ms": cuda_ms(
                        lambda: staircase2.basis_direction_dweights(
                            x, proj, probe, coef, layout), 5),
+                   "dc_ms": cuda_ms(
+                       lambda: staircase2.basis_direction_dweights(
+                           x, proj, probe, coef, layout, need_w=False), 10),
+                   "dc_same_bits_twice": dc_same,
+                   "dc_index_add_ms": cuda_ms(lambda: dc_index_add(
+                       proj, probe, coef, layout), 10),
+                   "dc_index_add_same_bits_twice": twice_same(
+                       lambda: dc_index_add(proj, probe, coef, layout)),
                    "plain_backward_ms": cuda_ms(lambda: torch.autograd.grad(
                        ref_loss, xr, retain_graph=True), 3, warmup=1)}
             emit("grad_basis", phase_s=time.perf_counter() - t_phase, **row)
@@ -2103,6 +2294,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     fixups = fixup_counts()
     fixup_launches = sum(fixups.values())
     energies = energy_launches()
+    id_sums = sum_by_csr_op().launches
+    pads = staircase2.basis_direction.bf16_pad_launches
     peak = torch.cuda.max_memory_allocated()
     check_helper_launches(op, launches, twin_launches, project_launches,
                           split_launches, fixups, energies)
@@ -2130,6 +2323,16 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                                  f"{s['twin_launches']} twin launches, "
                                  f"expected {per_layer} and "
                                  f"{twin_per_layer}")
+    # d blocks (block_direction) and d C (basis_direction) sum by relation
+    # once a direction and layer for each chunk of its edges; each fused
+    # energies' backward sums its per-id scalars once.
+    chunks = -(-loop.pipeline.split_size // staircase2._EDGE_CHUNK)
+    by_relation = per_layer * chunks if op in (
+        staircase2.block_direction, staircase2.basis_direction) else 0
+    if id_sums != steps * by_relation + energies:
+        raise AssertionError(f"sum_by_csr launched kernel 3 {id_sums} "
+                             f"times in {steps} steps, expected "
+                             f"{steps * by_relation + energies}")
     if staircase2.launch_counts() != (launches, twin_launches) \
             or launches != per_layer * steps \
             or twin_launches != twin_per_layer * steps:
@@ -2178,6 +2381,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "dc_project_launches_per_step": dc_projects // steps,
            "fixup_launches_per_step": fixup_launches // steps,
            "energy_launches_per_step": energies // steps,
+           "sum_by_csr_launches_per_step": id_sums // steps,
+           "pad_launches_per_step": pads // steps,
            "precision": {"message": "bfloat16" if pre else "float32",
                          "stream": "float32" if model.stream_dtype is None
                          else "bfloat16"},
@@ -2192,7 +2397,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     return {**row, "launches": launches, "twin_launches": twin_launches,
             "project_launches": products, "dc_project_launches": dc_projects,
             "split_launches": split_launches, "fixup_launches": fixup_launches,
-            "energy_launches": energies}
+            "energy_launches": energies, "sum_by_csr_launches": id_sums,
+            "pad_launches": pads}
 
 
 def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
@@ -2259,7 +2465,7 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
 FIT_CUTS = {"early_stopping_check_every": 10, "early_stopping_burnin": 20,
             "report_train_loss_every": 10}
 FIT_STEPS = 40
-PREFETCH_STEPS = 15
+PREFETCH_STEPS = 10
 PROFILE_STEPS = 5
 # The thread switch interval (s) of the interpreter-lock diagnostic runs,
 # against the default 5 ms.
@@ -2353,6 +2559,7 @@ def phase_fit(cfg, ds, device):
                           staircase2.basis_direction.project_launches,
                           staircase2.basis_direction.split_launches,
                           fixup_counts())
+    id_sums = sum_by_csr_op().launches
     loop.metrics.close()
     with open(out / "metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
@@ -2393,6 +2600,10 @@ def phase_fit(cfg, ds, device):
                              f"block_direction passes in {steps} steps and "
                              f"{len(checks)} checks; all ops "
                              f"{staircase2.launch_counts()}")
+    chunks = -(-loop.pipeline.split_size // staircase2._EDGE_CHUNK)
+    if id_sums != per_step * chunks * steps:
+        raise AssertionError(f"d blocks' sums by relation launched kernel 3 "
+                             f"{id_sums} times in {steps} steps")
     row = {"steps": steps, "stopped_early": result.stopped_early,
            "best_score": result.best_score, "scores": scores,
            "checks": len(checks), "checkpoints": saved,
@@ -2405,6 +2616,7 @@ def phase_fit(cfg, ds, device):
            "wait_ms_median": statistics.median(s["wait_ms"]
                                                for s in result.steps),
            "launches": fwd, "twin_launches": twin,
+           "sum_by_csr_launches": id_sums,
            "metric_records": len(records),
            "printed_tables": printed.getvalue().count("MRR"),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -2619,29 +2831,25 @@ def phase_prefetch(cfg, ds, device, phase="prefetch"):
 def phase_resume(cfg, ds, device):
     """RESUME_STEPS steps straight against half of them and a resume to
     RESUME_STEPS in a fresh loop, saves every 10 steps, prefetch on 2
-    threads, under torch.use_deterministic_algorithms(True): the batches
-    of the second half equal hash for hash, the losses and the params bit
-    for bit."""
+    threads, at PyTorch's default settings (no deterministic algorithms):
+    the batches of the second half equal hash for hash, the losses and the
+    params bit for bit."""
     t_phase = time.perf_counter()
     out = fresh_dir("resume")
     cfg = with_optimizer(cfg, save_every_n=RESUME_STEPS // 2)
-    torch.use_deterministic_algorithms(True)
-    try:
-        loop = new_loop(cfg, ds, device, prefetch=True)
-        straight = hashing(loop)
-        params, opt_state = loop.init_state(0)
-        whole = loop.fit(params, opt_state, max_iterations=RESUME_STEPS,
-                         checkpoint_path=str(out / "a"))
-        loop = new_loop(cfg, ds, device, prefetch=True)
-        params, opt_state = loop.init_state(0)
-        loop.fit(params, opt_state, max_iterations=RESUME_STEPS // 2,
-                 checkpoint_path=str(out / "b"))
-        loop = new_loop(cfg, ds, device, prefetch=True)
-        resumed = hashing(loop)
-        tail = loop.resume(str(out / "b"), max_iterations=RESUME_STEPS)
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
+    loop = new_loop(cfg, ds, device, prefetch=True)
+    straight = hashing(loop)
+    params, opt_state = loop.init_state(0)
+    whole = loop.fit(params, opt_state, max_iterations=RESUME_STEPS,
+                     checkpoint_path=str(out / "a"))
+    loop = new_loop(cfg, ds, device, prefetch=True)
+    params, opt_state = loop.init_state(0)
+    loop.fit(params, opt_state, max_iterations=RESUME_STEPS // 2,
+             checkpoint_path=str(out / "b"))
+    loop = new_loop(cfg, ds, device, prefetch=True)
+    resumed = hashing(loop)
+    tail = loop.resume(str(out / "b"), max_iterations=RESUME_STEPS)
+    torch.cuda.synchronize()
     half = RESUME_STEPS // 2
     if straight[half:] != resumed or len(resumed) != half:
         raise AssertionError("the resumed run consumed other batches")
@@ -2660,9 +2868,96 @@ def phase_resume(cfg, ds, device):
     row = {"steps": RESUME_STEPS, "resumed_at": half,
            "batches_equal": True, "losses_equal": True,
            "params_and_state_equal_bitwise": True,
-           "deterministic_algorithms": True, "loss_last": losses[-1]}
+           "deterministic_algorithms":
+               torch.are_deterministic_algorithms_enabled(),
+           "loss_last": losses[-1]}
     emit("resume", model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
+    return row
+
+
+DETERMINISM_STEPS = 10
+
+
+def determinism_cells(ds):
+    """(label, config) of the determinism phase: gcn_block in f32 (d
+    blocks' sums by relation), gcn_basis with bf16 message and stream
+    precision (d C's sums, the fused energies' per-id scalars) and
+    distmult on bf16 streams (the fused energies at 272,115 x 10, the
+    positives' gathers)."""
+    return (("gcn_block", config.load(str(SETTINGS)).with_counts(
+                ds.n_entities, ds.n_relations, len(ds.train))),
+            ("gcn_basis_bf16", bf16_config(ds, "determinism_basis_bf16",
+                                           BASIS_SETTINGS, [BF16_LINE])),
+            ("distmult_bf16", bf16_config(
+                ds, "determinism_distmult_bf16",
+                ROOT / "settings" / "distmult.exp", [])))
+
+
+def determinism_child() -> int:
+    """The determinism phase's child process: for each cell two fits of
+    DETERMINISM_STEPS steps from seed 0 as train.py runs them (TrainLoop's
+    defaults, batches on 2 producer threads) at PyTorch's default
+    settings; one JSON line a cell with both fits' step times and the
+    leaves of the params and the Adam state that differ between them.
+    Returns 1 where any differs, else 0. Uses only what the port had
+    before its sums by id, so that it also runs on that checkout."""
+    device = torch.device("cuda:0")
+    ds = synthetic.like("FB15k-237", seed=0)
+    differ = False
+    for label, cfg in determinism_cells(ds):
+        t_cell = time.perf_counter()
+        fits = []
+        for _ in range(2):
+            loop = engine.TrainLoop(build.build_model(cfg, device), cfg, ds,
+                                    seed=0, log=lambda line: None)
+            fits.append(loop.fit(max_iterations=DETERMINISM_STEPS))
+            torch.cuda.synchronize()
+        a, b = fits
+        unequal = [f"{part} {i} {list(x.shape)}"
+                   for part in ("params", "opt_state")
+                   for i, (x, y) in enumerate(zip(
+                       tree_leaves(getattr(a, part)),
+                       tree_leaves(getattr(b, part))))
+                   if not torch.equal(x, y)]
+        differ = differ or bool(unequal)
+        emit("determinism_cell", label=label, model=model_label(cfg),
+             steps=DETERMINISM_STEPS,
+             step_ms_median=[statistics.median(s["step_ms"]
+                                               for s in f.steps)
+                             for f in fits],
+             losses_equal=[s["loss"] for s in a.steps]
+             == [s["loss"] for s in b.steps],
+             params_and_state_equal_bitwise=not unequal,
+             unequal_leaves=unequal,
+             deterministic_algorithms=(
+                 torch.are_deterministic_algorithms_enabled()),
+             cublas_workspace_config=os.environ.get(
+                 "CUBLAS_WORKSPACE_CONFIG"),
+             card=nvidia_smi_line(), cell_s=time.perf_counter() - t_cell)
+    return 1 if differ else 0
+
+
+def phase_determinism():
+    """determinism_child in a process of its own whose environment lacks
+    CUBLAS_WORKSPACE_CONFIG (the port's entry points do not set it):
+    params and Adam state equal bit for bit in every cell, or the phase
+    fails."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--determinism-child"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    cells = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith('{"phase": "determinism_cell"')]
+    row = {"cells": cells, "child_rc": proc.returncode,
+           "card": nvidia_smi_line()}
+    emit("determinism", phase_s=time.perf_counter() - t_phase, **row)
+    if proc.returncode != 0 or len(cells) != 3 or not all(
+            c["params_and_state_equal_bitwise"] for c in cells):
+        raise AssertionError(f"two fits at one seed differ, or the child "
+                             f"failed: {proc.stderr[-3000:]}")
     return row
 
 
@@ -2670,6 +2965,13 @@ def mean_of(items, key, sub=None) -> float:
     """The mean of ``key`` (of its entry ``sub``) over phase rows."""
     pick = (lambda r: r[key]) if sub is None else (lambda r: r[key][sub])
     return sum(pick(r) for r in items) / len(items)
+
+
+def mean_or_none(items, key):
+    """The mean of ``key`` over phase rows, or None where a row has none
+    (a device time the profiler did not report)."""
+    values = [r[key] for r in items]
+    return None if None in values else sum(values) / len(values)
 
 
 def merge_path_numbers(full, batch, prefix="") -> dict:
@@ -2750,6 +3052,44 @@ def kernels_line(rows, serve, grads, train, fit, paths) -> list:
         "full_train_relation_0_ms": mean_of(g_full, "twin_relation_0_ms"),
         "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts
                        if r["kernel"] == "block_direction_twin"}}]
+
+
+def sum_by_csr_line(grads, runs) -> list:
+    """Kernel 3's f32 entry point as ops/gather.sum_by_csr runs it: the
+    sums by relation of d blocks (timed on one chunk of the first training
+    batch's graph, the train step's shape, and of the full train graph;
+    means over the directions), index_add_ beside it as the library call;
+    launches those of every training path (``runs``: phase -> row), d
+    blocks, d C and the fused energies' per-id scalars together."""
+    batch = [r for r in grads if r["graph"] == "train_batch"]
+    full = [r for r in grads if r["graph"] == "full_train"]
+    return [{
+        "name": "sum_by_csr", "route": "cuda", "source": STAIRCASE_SOURCE,
+        "replaces": REPLACES_STAIRCASE,
+        "launches": sum(r.get("sum_by_csr_launches", 0)
+                        for r in runs.values()),
+        "launches_by_path": {k: r.get("sum_by_csr_launches", 0)
+                             for k, r in runs.items()},
+        "max_abs_err": max(r["sum_max_abs_err"] for r in grads),
+        "max_over_allowance": max(r["sum_over_allowance"] for r in grads),
+        "entries": batch[0]["sum_entries"], "width": batch[0]["sum_width"],
+        "ms": mean_of(batch, "sum_ms"),
+        "kernel_device_ms": mean_or_none(batch, "sum_kernel_device_ms"),
+        "fixup_device_ms": mean_or_none(batch, "sum_fixup_device_ms"),
+        "csr_ms": mean_of(batch, "sum_csr_ms"),
+        "plain_ms": mean_of(batch, "sum_plain_ms"),
+        "bound_ms": mean_of(batch, "sum_bound_ms"),
+        "bound_by": batch[0]["sum_bound_by"],
+        "library_ms": mean_of(batch, "sum_library_ms"),
+        "library": "index_add_ into zeros (atomics)",
+        "full_train_ms": mean_of(full, "sum_ms"),
+        "full_train_library_ms": mean_of(full, "sum_library_ms"),
+        "dblocks_ms": mean_of(batch, "dblocks_ms"),
+        "dblocks_index_add_ms": mean_of(batch, "dblocks_index_add_ms"),
+        "full_train_dblocks_ms": mean_of(full, "dblocks_ms"),
+        "full_train_dblocks_index_add_ms": mean_of(full,
+                                                   "dblocks_index_add_ms"),
+        "card": nvidia_smi_line()}]
 
 
 def basis_kernels_line(kb, serve, train, paths) -> list:
@@ -3075,11 +3415,36 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
              "torch.matmul in bf16, f32 reduction"))
         if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
             raise AssertionError("basis_project_bf16: two launches differ")
-        row.update(m=m, k=k, n=n, same_bits_twice=True,
-                   differs_from_plain_share=(got != staircase2
-                                             .basis_project_reference(
-                                                 a16, b16)).float().mean()
-                   .item())
+        xp, wt = staircase2.launch_pad_bf16(plib, a16, b16)
+        kp = xp.shape[1]
+        for got_pad, want_pad in zip((xp, wt), staircase2.bf16_pad_reference(
+                a16, b16, kp)):
+            if not torch.equal(got_pad.view(torch.int16),
+                               want_pad.view(torch.int16)):
+                raise AssertionError(f"bf16_pad {shape}: differs from "
+                                     f"bf16_pad_reference")
+        dev = device_ms(lambda: staircase2.launch_project_bf16(plib, a16,
+                                                               b16),
+                        ("bf16_pad_kernel", "project_bf16_kernel"))
+        row.update(
+            m=m, k=k, n=n, kp=kp, same_bits_twice=True,
+            differs_from_plain_share=(got != staircase2
+                                      .basis_project_reference(
+                                          a16, b16)).float().mean().item(),
+            pad_equals_plain=True,
+            pad_ms=cuda_ms(lambda: staircase2.launch_pad_bf16(plib, a16, b16),
+                           20),
+            pad_device_ms=dev.get("bf16_pad_kernel"),
+            pad_plain_ms=cuda_ms(lambda: staircase2.bf16_pad_reference(
+                a16, b16, kp), 20),
+            pad_bound_ms=least_time(2 * (m * k + k * n + (m + n) * kp),
+                                    0)["bound_ms"],
+            product_ms=cuda_ms(lambda: staircase2.launch_product_bf16(
+                plib, xp, wt), 20),
+            product_device_ms=dev.get("project_bf16_kernel"),
+            registers=plib.basis_project_bf16_registers(),
+            stages=plib.basis_project_bf16_stages(),
+            card=nvidia_smi_line())
         emit_row(row)
 
     for graph_name, graph in graphs.items():
@@ -3284,7 +3649,23 @@ def bf16_kernels_line(kb, runs) -> list:
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
          "library": fwd["library"], "twin_ms": proj["twin"]["ms"],
          "twin_library_ms": proj["twin"]["library_ms"],
-         "odd_shape_ms": proj["odd"]["ms"]},
+         "odd_shape_ms": proj["odd"]["ms"],
+         "product_ms": fwd["product_ms"],
+         "product_device_ms": fwd["product_device_ms"],
+         "pad_ms": fwd["pad_ms"], "pad_device_ms": fwd["pad_device_ms"],
+         "registers": fwd["registers"], "stages": fwd["stages"],
+         "bound_share": fwd["bound_ms"] / fwd["ms"],
+         "card": fwd["card"]},
+        {"name": "bf16_pad", "route": "cuda", "source": PROJECT_SOURCE,
+         "replaces": REPLACES_BASIS,
+         "launches": sum(launches("pad_launches",
+                                  "basis_direction").values()),
+         "launches_by_path": launches("pad_launches", "basis_direction"),
+         "max_abs_err": 0.0, "equals_plain_bitwise": True,
+         "ms": fwd["pad_ms"], "device_ms": fwd["pad_device_ms"],
+         "plain_ms": fwd["pad_plain_ms"], "bound_ms": fwd["pad_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "twin_ms": proj["twin"]["pad_ms"], "card": fwd["card"]},
         timed("basis_combine_bf16", BASIS_SOURCE, REPLACES_BASIS,
               "basis_combine_bf16", combine,
               replaces_twin=REPLACES_BASIS_TWIN,
@@ -3380,10 +3761,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
-    # The resume phase runs under torch.use_deterministic_algorithms, which
-    # needs cuBLAS's fixed workspace; cuBLAS reads it when it starts, so it
-    # is set for the whole run before the first GEMM.
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_phase = time.perf_counter()
     exact_float32()
     device = torch.device("cuda:0")
@@ -3446,6 +3823,7 @@ def main() -> int:
     phase_prefetch(cfg, ds, device)
     phase_prefetch(basis_cfg, ds, device, "prefetch_basis")
     phase_resume(cfg, ds, device)
+    phase_determinism()
 
     # distmult.exp and complex.exp: the embedding table, no graph, all
     # 272,115 positives a step; no aggregation kernel runs.
@@ -3519,11 +3897,16 @@ def main() -> int:
         phase="train_split_bf16", steps=BF16_STEPS, negative_mode="split"),
         "op": "block_direction"}
 
+    train_runs = {"train": train, "train_basis": train_b, "fit": fit,
+                  **{k: r for k, r in {**paths, **basis_paths, **runs,
+                                       **bf16_runs}.items()
+                     if k.startswith("train")}}
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
                                               paths)
                       + basis_kernels_line(kb, serve_b, train_b,
                                            basis_paths)
                       + staircase_kernels_line(ks, runs)
+                      + sum_by_csr_line(grads, train_runs)
                       + bf16_kernels_line(kb16, bf16_runs)}),
           flush=True)
     print(smi, flush=True)
@@ -3534,4 +3917,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(determinism_child() if sys.argv[1:] == ["--determinism-child"]
+             else main())

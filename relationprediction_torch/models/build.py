@@ -30,6 +30,7 @@ import torch
 from ..config import RunConfig
 from ..device import exact_float32
 from ..graph import GraphBatch, build_graph_batch
+from ..ops.gather import take_rows
 from ..ops.neg_energy import (factored_negative_energies,
                               single_factor_negative_energies)
 from ..params import map_tree
@@ -448,11 +449,12 @@ class RGCNModel:
     @staticmethod
     def gather_codes(encoded: EncodeResult, triples: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(e1, r, e2) code gather (``build.py:434-440``)."""
+        """(e1, r, e2) code gather (``build.py:434-440``), each by
+        ``take_rows`` (a gradient summed by id in a fixed order)."""
         t = triples.long()
-        return (encoded.entity_codes[t[:, 0]],
-                encoded.relation_codes[t[:, 1]],
-                encoded.entity_codes[t[:, 2]])
+        return (take_rows(encoded.entity_codes, t[:, 0]),
+                take_rows(encoded.relation_codes, t[:, 1]),
+                take_rows(encoded.entity_codes, t[:, 2]))
 
     def stream_cast(self, encoded: EncodeResult) -> EncodeResult:
         """The codes in the decoder stream's dtype, for the training losses
@@ -589,7 +591,7 @@ class RGCNModel:
             self._factorizable_codes(params, graph, positives, "shared",
                                      deterministic, keep_masks, noise)
         exact_float32()
-        pool = encoded.entity_codes[neg_pool.long()]            # [P, d]
+        pool = take_rows(encoded.entity_codes, neg_pool)       # [P, d]
         p = pool.shape[0]
         # Pool codes count once per real positive and side.
         pool_sq = (pool ** 2).sum() * pos_mask.sum().clamp(min=1.0)

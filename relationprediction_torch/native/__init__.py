@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -25,6 +26,10 @@ from ..ops.nvcc import BUILD_DIR
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "sampler.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+# The batch producer threads reach get_lib together on a fresh checkout;
+# one of them builds while the others wait (they would share one temporary
+# file name, which is per process).
+_BUILD_LOCK = threading.Lock()
 
 
 def library_path() -> str:
@@ -51,8 +56,9 @@ def _build(path: str) -> bool:
 def get_lib() -> Optional[ctypes.CDLL]:
     """Load (building if needed) the library; None without a g++."""
     path = library_path()
-    if not os.path.exists(path) and not _build(path):
-        return None
+    with _BUILD_LOCK:
+        if not os.path.exists(path) and not _build(path):
+            return None
     lib = ctypes.CDLL(path)
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")

@@ -62,20 +62,35 @@
 // split reads X and W and writes twice their size (~0.1 GB), the product
 // reads the parts and writes P (0.15 GB): ~0.08 ms at 3.35 TB/s.
 //
-// A third kernel, a third entry point: project_bf16_kernel
-// (basis_project_bf16), the product of the bf16 message precision, X and
-// W in bf16, P = X @ W accumulated in f32 and stored in bf16, rounded to
-// nearest even, as the TPU kernel's bf16 t_ref holds it
-// (relationprediction_tpu/ops/staircase2.py:508-510). It needs no split:
-// bf16 x bf16 products are exact in f32. Each block takes a 128 x 128
-// tile of P; 8 warps of 64 x 32 issue mma.sync m16n8k16 bf16 from shared
-// memory, whose A tile is stored as X's rows and whose B tile as W's
-// columns (K-contiguous, as the instruction takes both), loaded through
-// registers a k-tile of 32 ahead of the one in use (two buffers). Loads
-// are 8 bytes where K and N are multiples of 4 (K = 500, N = 2,500), else
-// 2 bytes; rows and columns past M, N and K are zero-filled. Its bound on
-// an H100 is operations: 2 * M * K * N at 989 TFLOP/s dense bf16, 0.037
-// ms at 14,541 x 500 x 2,500; bytes (X, W and P in bf16, 88 MB) 0.026 ms.
+// Two more kernels for the bf16 message precision, X and W in bf16, P =
+// X @ W summed in f32 and stored in bf16, rounded to nearest even, as the
+// TPU kernel's bf16 t_ref holds it (relationprediction_tpu/ops/
+// staircase2.py:505-518, _make_basis_kernel, :508-510). bf16 x bf16
+// products are exact in f32, so no split is needed. Bound on an H100:
+// operations, 2 * M * K * N at 989 TFLOP/s dense bf16, 0.037 ms at
+// 14,541 x 500 x 2,500; bytes (X, W and P in bf16, 88 MB) 0.026 ms. What
+// stands in the way of TMA and wgmma is the layout: rows of K = 500 bf16
+// (1,000 bytes) and N = 2,500 (5,000 bytes) are not 16-byte aligned, and
+// wgmma takes a bf16 B K-major.
+// * bf16_pad_kernel (bf16_pad): one launch copies X into xp [M, K_pad]
+//   and W transposed into wt [N, K_pad], K_pad = K rounded up to 8 (504:
+//   1,008-byte rows), columns K .. K_pad - 1 zero. Bytes: ~35 MB, ~0.01 ms.
+// * project_bf16_kernel (basis_project_bf16): persistent blocks, one an
+//   SM, walk 128 x 256 tiles of P (1,140 at the main shape). One producer
+//   thread keeps TMA loads of 64-wide k-tiles of xp and wt (128-byte
+//   swizzle) in a ring of 3 stages of 48 KB, running on into the next
+//   tile while the consumers finish this one; two consumer warpgroups of
+//   64 rows issue wgmma.mma_async m64n256k16 bf16 with f32 accumulators
+//   (128 a thread), keep one k-tile's group in flight (wait_group 1) and
+//   free a stage when the group that read it completes. At a tile's end
+//   they round to bf16 into a shared tile, which three storer warps copy
+//   into P (8 bytes a thread where N % 4 == 0, else 2; P's 5,000-byte rows
+//   forbid a TMA store) while the consumers run the next tile. Tiles of
+//   256 columns read each row of xp from L2 10 times at N = 2,500 and wt
+//   114 times: ~434 MB, against ~580 MB for 128 x 128 tiles. That feed
+//   (~0.09 ms of loads alone on an H100) is what holds the product at
+//   ~3x its bound (bf16_product_variants.py).
+// Every sum runs in a fixed order, so two launches give the same bits.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -225,9 +240,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Keeps the compiler from moving accumulator reads and writes across the
 // asynchronous wgmma.
-__device__ __forceinline__ void fence_operands(float (&d)[kAccum]) {
+template <int kN>
+__device__ __forceinline__ void fence_operands(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < kAccum; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 128] = A[64 x 8] B[8 x 128] + (accumulate ? d : 0) in TF32, both
@@ -399,22 +415,10 @@ project_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// ---- the bf16 product ---------------------------------------------------
+// ---- the bf16 pad pass ---------------------------------------------------
 
-constexpr int kMmaBM = 128;         // rows of P a block
-constexpr int kMmaBN = 128;         // columns of P a block
-constexpr int kMmaBK = 32;          // k-tile
-constexpr int kMmaPitch = kMmaBK + 8;  // bf16 a shared row of X (80 bytes)
-// bf16 a shared column of W (68 bytes: 17 words, so the 32 lanes of a
-// transposing store fall on 8 banks, not 2, and 32-bit fragment loads stay
-// aligned)
-constexpr int kMmaPitchB = kMmaBK + 2;
-constexpr int kMmaThreads = 256;    // 8 warps: 2 (64 rows) x 4 (32 cols)
-// Elements a thread loads of each tile, as kVec-wide pieces.
-template <int kVec>
-struct BfLoads {
-  static constexpr int kPieces = kMmaBM * kMmaBK / (kVec * kMmaThreads);
-};
+constexpr int kPadK = 8;            // K_pad: K rounded up to 8 (16 bytes)
+constexpr int kPadThreads = 256;
 
 // The bits of one bf16 element, or of four.
 template <int kVec>
@@ -423,156 +427,268 @@ template <>
 struct BfPiece<4> {
   using T = uint2;
   static __device__ __forceinline__ T zero() { return make_uint2(0u, 0u); }
-  static __device__ __forceinline__ uint16_t at(T v, int i) {
-    const uint32_t w = i < 2 ? v.x : v.y;
-    return static_cast<uint16_t>(i % 2 ? w >> 16 : w & 0xFFFFu);
-  }
 };
 template <>
 struct BfPiece<1> {
   using T = uint16_t;
   static __device__ __forceinline__ T zero() { return 0; }
-  static __device__ __forceinline__ uint16_t at(T v, int) { return v; }
 };
 
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c[4] += A[16 x 16] B[16 x 8], bf16 in, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Block (x, y): columns kMmaBN x .. and rows kMmaBM y .. of P [m, n] from
-// X [m, k] and W [k, n], all bf16 row-major. as[buf][r][kk] holds X[m0 +
-// r, k0 + kk]; bs[buf][c][kk] holds W[k0 + kk, n0 + c]. Warp w owns rows
-// 64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31 of the tile: 4 x 4
-// fragments of 16 x 8.
+// One launch, two parts. Blocks [0, x_blocks) copy X [m, k] into xp [m,
+// kp], kVec elements a thread, columns k .. kp - 1 zero (a piece lies
+// wholly below k or wholly past it: kVec = 4 needs k % 4 == 0). The other
+// blocks transpose W [k, n] into wt [n, kp] through a shared 32 x 32 tile,
+// reading W's rows and writing wt's rows with consecutive threads on
+// consecutive addresses, zeros past k.
 template <int kVec>
-__global__ void __launch_bounds__(kMmaThreads)
-project_bf16_kernel(const uint16_t* __restrict__ x,
-                    const uint16_t* __restrict__ w, uint16_t* __restrict__ p,
-                    int m, int k, int n) {
+__global__ void __launch_bounds__(kPadThreads)
+bf16_pad_kernel(const uint16_t* __restrict__ x,
+                const uint16_t* __restrict__ w, uint16_t* __restrict__ xp,
+                uint16_t* __restrict__ wt, int m, int k, int n, int kp,
+                int x_blocks) {
   using Piece = BfPiece<kVec>;
   using PieceT = typename Piece::T;
-  constexpr int kPieces = BfLoads<kVec>::kPieces;
-  __shared__ __align__(16) uint16_t as[2][kMmaBM][kMmaPitch];
-  __shared__ __align__(16) uint16_t bs[2][kMmaBN][kMmaPitchB];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
-  const int n_k = (k + kMmaBK - 1) / kMmaBK;
-
-  PieceT ra[kPieces], rb[kPieces];
-  // Piece i of X's tile: row v / (kMmaBK / kVec), k (v % ...) * kVec; of
-  // W's tile: k v / (kMmaBN / kVec), column (v % ...) * kVec.
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      const int v = tid + i * kMmaThreads;
-      const int r = v / (kMmaBK / kVec), kk = (v % (kMmaBK / kVec)) * kVec;
-      const int gr = m0 + r, gk = k0 + kk;
-      ra[i] = (gr < m && gk < k)
-                  ? __ldg(reinterpret_cast<const PieceT*>(
-                        x + static_cast<int64_t>(gr) * k + gk))
-                  : Piece::zero();
-      const int kr = v / (kMmaBN / kVec), c = (v % (kMmaBN / kVec)) * kVec;
-      const int hk = k0 + kr, gc = n0 + c;
-      rb[i] = (hk < k && gc < n)
-                  ? __ldg(reinterpret_cast<const PieceT*>(
-                        w + static_cast<int64_t>(hk) * n + gc))
-                  : Piece::zero();
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      const int v = tid + i * kMmaThreads;
-      const int r = v / (kMmaBK / kVec), kk = (v % (kMmaBK / kVec)) * kVec;
-      *reinterpret_cast<PieceT*>(&as[buf][r][kk]) = ra[i];
-      const int kr = v / (kMmaBN / kVec), c = (v % (kMmaBN / kVec)) * kVec;
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) bs[buf][c + j][kr] = Piece::at(rb[i], j);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-    }
+  __shared__ uint16_t tile[32][33];
+  if (static_cast<int>(blockIdx.x) < x_blocks) {
+    const int64_t pieces = kp / kVec;
+    const int64_t i =
+        static_cast<int64_t>(blockIdx.x) * kPadThreads + threadIdx.x;
+    if (i >= static_cast<int64_t>(m) * pieces) return;
+    const int64_t r = i / pieces;
+    const int c = static_cast<int>(i % pieces) * kVec;
+    *reinterpret_cast<PieceT*>(xp + r * kp + c) =
+        c < k ? __ldg(reinterpret_cast<const PieceT*>(x + r * k + c))
+              : Piece::zero();
+    return;
   }
-
-  load(0);
-  store(0);
+  const int b = static_cast<int>(blockIdx.x) - x_blocks;
+  const int k_tiles = (kp + 31) / 32;
+  const int r0 = (b / k_tiles) * 32;  // rows of wt: columns of W
+  const int c0 = (b % k_tiles) * 32;  // columns of wt: rows of W
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += kPadThreads / 32) {
+    const int kk = c0 + i, col = r0 + tx;
+    tile[i][tx] = (kk < k && col < n)
+                      ? __ldg(w + static_cast<int64_t>(kk) * n + col)
+                      : uint16_t{0};
+  }
   __syncthreads();
-  for (int it = 0; it < n_k; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_k) load((it + 1) * kMmaBK);
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK; kk += 16) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint16_t* col = &bs[buf][wn + ni * 8 + g][kk + 2 * t4];
-        bf[ni][0] = lds32(col);
-        bf[ni][1] = lds32(col + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const uint16_t* row = &as[buf][wm + mi * 16 + g][kk + 2 * t4];
-        const uint32_t a0 = lds32(row), a2 = lds32(row + 8);
-        const uint32_t a1 = lds32(row + 8 * kMmaPitch);
-        const uint32_t a3 = lds32(row + 8 * kMmaPitch + 8);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_bf16(acc[mi][ni], a0, a1, a2, a3, bf[ni][0], bf[ni][1]);
+  for (int i = ty; i < 32; i += kPadThreads / 32) {
+    const int row = r0 + i, c = c0 + tx;
+    if (row < n && c < kp) {
+      wt[static_cast<int64_t>(row) * kp + c] = tile[tx][i];
+    }
+  }
+}
+
+// ---- the bf16 product ----------------------------------------------------
+
+constexpr int kBfBN = 256;          // output columns a tile (one wgmma n256)
+constexpr int kBfBK = 64;           // k-tile: 64 bf16 = one 128-byte row
+constexpr int kBfStages = 3;
+constexpr int kBfTileA = kBM * kBfBK * 2;             // 16 KB
+constexpr int kBfTileB = kBfBN * kBfBK * 2;           // 32 KB
+constexpr int kBfStageBytes = kBfTileA + kBfTileB;    // 48 KB
+// The rounded tile in shared memory for the storer warps: rows of 256
+// bf16 padded by 16 bytes (132 words), so that the 8 rows x 4 column
+// pairs of a consumer warp's 4-byte stores fall on 32 banks.
+constexpr int kBfOutPitch = kBfBN + 8;
+constexpr int kBfOutBytes = kBM * kBfOutPitch * 2;    // 66 KB
+constexpr int kBfBarriers = 2 * kBfStages + 2;
+constexpr int kBfSmemBytes =
+    kBfStages * kBfStageBytes + kBfOutBytes + 1024 + 8 * kBfBarriers;
+constexpr int kBfAccum = kBfBN / 2;  // f32 accumulators a thread
+// Two consumer warpgroups, then one warpgroup whose first warp issues the
+// TMA loads and whose other three store P.
+constexpr int kBfThreads = kConsumers * 128 + 128;
+constexpr int kBfStorers = 96;
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+#define ACC8(i)                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x 256] = A[64 x 16] B[16 x 256] + (accumulate ? d : 0), bf16 in,
+// f32 sums, both operands K-major from shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16_bf16(
+    float (&d)[kBfAccum], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88), ACC8(96),
+        ACC8(104), ACC8(112), ACC8(120)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef ACC8
+
+// Persistent: block b takes the tiles b, b + gridDim.x, ... of P, each
+// kBM x kBfBN, columns fastest (tile t: rows kBM (t / tiles_n) .., columns
+// kBfBN (t % tiles_n) ..). xp [m, kp] and wt [n, kp] are K-major bf16
+// (the pad pass's output); stage s holds a k-tile of xp (kBM x kBfBK) and
+// one of wt (kBfBN x kBfBK), TMA's 128-byte swizzle, with a "full" and an
+// "empty" mbarrier. The producer thread runs ahead across tiles, so the
+// next tile's loads overlap this one's epilogue. Each consumer warpgroup
+// keeps one k-tile's wgmma group in flight and frees a stage once the
+// group that read it has completed; at a tile's end it rounds its
+// accumulators to bf16 into the shared tile `out` (once the storers have
+// emptied it: "out_empty") and goes on to the next tile ("out_full").
+// The three storer warps copy `out` into P row by row, 8 bytes a thread
+// where n % 4 == 0 (P's rows are then 8-byte aligned; 2 bytes else),
+// while the consumers run the next tile. Rows and columns past m and n
+// come from TMA's zero fill, k past kp too, and the storers' guards.
+__global__ void __launch_bounds__(kBfThreads, 1)
+project_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    uint16_t* __restrict__ p, int m, int n, int kp) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint16_t* out =
+      reinterpret_cast<uint16_t*>(smem + kBfStages * kBfStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + kBfStages * kBfStageBytes + kBfOutBytes);
+  uint64_t* empty = full + kBfStages;
+  uint64_t* out_full = empty + kBfStages;
+  uint64_t* out_empty = out_full + 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tiles_n = (n + kBfBN - 1) / kBfBN;
+  const int tiles = ((m + kBM - 1) / kBM) * tiles_n;
+  const int n_k = (kp + kBfBK - 1) / kBfBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBfStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    mbar_init(out_full, kConsumers * 128);
+    mbar_init(out_empty, kBfStorers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {  // the producer warp: one thread
+    if (lane == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * kBM, n0 = (t % tiles_n) * kBfBN;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int s = it % kBfStages;
+          if (it >= kBfStages) {
+            mbar_wait(&empty[s], ((it / kBfStages) - 1) & 1);
+          }
+          mbar_expect_tx(&full[s], kBfStageBytes);
+          unsigned char* st = smem + s * kBfStageBytes;
+          tma_load_2d(st, &map_x, &full[s], kt * kBfBK, m0);
+          tma_load_2d(st + kBfTileA, &map_w, &full[s], kt * kBfBK, n0);
         }
       }
     }
-    if (it + 1 < n_k) store(buf ^ 1);
-    __syncthreads();
+    return;
   }
 
-  // Accumulator c of fragment (mi, ni): row g + 8 (c / 2), column 2 t4 +
-  // c % 2 of its 16 x 8.
-  const bool pairs = n % 2 == 0;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + g + 8 * half;
-      if (row >= m) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * t4;
-        const uint16_t v0 = __bfloat16_as_ushort(
-            __float2bfloat16_rn(acc[mi][ni][2 * half]));
-        const uint16_t v1 = __bfloat16_as_ushort(
-            __float2bfloat16_rn(acc[mi][ni][2 * half + 1]));
-        uint16_t* dst = p + static_cast<int64_t>(row) * n + col;
-        if (pairs && col + 1 < n) {
-          *reinterpret_cast<uint32_t*>(dst) =
-              static_cast<uint32_t>(v0) | (static_cast<uint32_t>(v1) << 16);
+  if (warp > kConsumers * 4) {  // the storer warps
+    const int tid = threadIdx.x - (kConsumers * 4 + 1) * 32;
+    const bool wide = n % 4 == 0;
+    int j = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+      const int m0 = (t / tiles_n) * kBM, n0 = (t % tiles_n) * kBfBN;
+      mbar_wait(out_full, j & 1);
+      for (int c = tid; c < kBM * kBfBN / 4; c += kBfStorers) {
+        const int r = c / (kBfBN / 4), col = (c % (kBfBN / 4)) * 4;
+        const int row = m0 + r, gc = n0 + col;
+        if (row >= m || gc >= n) continue;
+        const uint16_t* src = out + r * kBfOutPitch + col;
+        uint16_t* dst = p + static_cast<int64_t>(row) * n + gc;
+        if (wide) {
+          *reinterpret_cast<uint2*>(dst) =
+              *reinterpret_cast<const uint2*>(src);
         } else {
-          if (col < n) dst[0] = v0;
-          if (col + 1 < n) dst[1] = v1;
+          for (int e = 0; e < 4 && gc + e < n; ++e) dst[e] = src[e];
         }
       }
+      mbar_arrive(out_empty);
     }
+    return;
+  }
+
+  const int wg = warp / 4;  // consumer warpgroup: rows 64 wg .. 64 wg + 63
+  const int w_in = warp % 4;
+  float acc[kBfAccum];
+#pragma unroll
+  for (int i = 0; i < kBfAccum; ++i) acc[i] = 0.f;
+  int it = 0, j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const int s = it % kBfStages;
+      mbar_wait(&full[s], (it / kBfStages) & 1);
+      const unsigned char* a = smem + s * kBfStageBytes + wg * 64 * 128;
+      const unsigned char* b = smem + s * kBfStageBytes + kBfTileA;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBfBK / 16; ++kk) {
+        wgmma_m64n256k16_bf16(acc, sw128_desc(a + kk * 32),
+                              sw128_desc(b + kk * 32), kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      // This k-tile's group stays in flight; the one before it has
+      // completed, so its stage is free.
+      wgmma_wait_one();
+      fence_operands(acc);
+      if (kt > 0) mbar_arrive(&empty[(it - 1) % kBfStages]);
+    }
+    wgmma_wait_all();
+    fence_operands(acc);
+    mbar_arrive(&empty[(it - 1) % kBfStages]);
+
+    // Accumulator i of a thread: row 16 w + lane / 4 + 8 ((i / 2) % 2) of
+    // the warpgroup's 64, column 8 (i / 4) + 2 (lane % 4) + i % 2 of the
+    // tile's 256; rounded to bf16 (to nearest even) as column pairs.
+    if (j > 0) mbar_wait(out_empty, (j - 1) & 1);
+#pragma unroll
+    for (int i = 0; i < kBfAccum; i += 2) {
+      const int r = wg * 64 + w_in * 16 + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      const uint32_t v0 = __bfloat16_as_ushort(__float2bfloat16_rn(acc[i]));
+      const uint32_t v1 =
+          __bfloat16_as_ushort(__float2bfloat16_rn(acc[i + 1]));
+      *reinterpret_cast<uint32_t*>(out + r * kBfOutPitch + col) =
+          v0 | (v1 << 16);
+    }
+    mbar_arrive(out_full);
   }
 }
 
@@ -652,6 +768,52 @@ int launch_product(const float* xs, const float* ws, float* p, int m, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A 2-D map over [rows, kp] bf16 (K-major, 16-byte row pitch) with boxes
+// of box_rows x kBfBK.
+bool make_map_bf16(CUtensorMap* map, const void* base, int rows, int kp,
+                   int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kp),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kp) * 2};
+  const cuuint32_t box[2] = {kBfBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_product_bf16(const void* xp, const void* wt, uint16_t* p, int m,
+                        int n, int kp, int device, cudaStream_t s) {
+  const int64_t tiles = ((static_cast<int64_t>(m) + kBM - 1) / kBM) *
+                        ((static_cast<int64_t>(n) + kBfBN - 1) / kBfBN);
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  if (!make_map_bf16(&map_x, xp, m, kp, kBM) ||
+      !make_map_bf16(&map_w, wt, n, kp, kBfBN)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    err = cudaFuncSetAttribute(project_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBfSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_set = true;
+  }
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  project_bf16_kernel<<<grid, kBfThreads, kBfSmemBytes, s>>>(map_x, map_w,
+                                                             p, m, n, kp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -715,39 +877,82 @@ int basis_project_f32(const float* xs, const float* ws, float* p, int m,
              : launch_product<2>(xs, ws, p, m, n, kp, s);
 }
 
-// p [m, n] bf16 = x [m, k] bf16 @ w [k, n] bf16 with f32 accumulation,
-// rounded to nearest even, on `stream` of `device`; one launch. Returns
-// cudaGetLastError() after it (0 on success), cudaErrorInvalidValue for a
-// negative size or a grid beyond the card's limits.
-int basis_project_bf16(const void* x, const void* w, void* p, int m, int k,
-                       int n, int device, void* stream) {
+// The multiple that the pad pass rounds K up to (K_pad), and the stages
+// and registers a thread of the bf16 product (0 where the attributes
+// cannot be read).
+int basis_project_bf16_k_pad() { return kPadK; }
+int basis_project_bf16_stages() { return kBfStages; }
+int basis_project_bf16_registers() {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, project_bf16_kernel) == cudaSuccess
+             ? attr.numRegs
+             : 0;
+}
+
+// The pad pass: xp [m, kp] from x [m, k] and wt [n, kp] from w [k, n]
+// transposed, all bf16 row-major, columns k .. kp - 1 zero, on `stream` of
+// `device`; kp a multiple of basis_project_bf16_k_pad() with kp >= k; one
+// launch. Returns cudaGetLastError() after it (0 on success),
+// cudaErrorInvalidValue for a negative size, a bad kp or a grid beyond the
+// card's limits.
+int bf16_pad(const void* x, const void* w, void* xp, void* wt, int m, int k,
+             int n, int kp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (m < 0 || k < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 0 || k < 0 || n < 0 || kp < k || kp % kPadK != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kp == 0 || (m == 0 && n == 0)) return 0;
+  const uintptr_t bases =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xp);
+  const bool wide = k % 4 == 0 && (bases & 7u) == 0;
+  const int vec = wide ? 4 : 1;
+  const int64_t x_blocks =
+      (static_cast<int64_t>(m) * (kp / vec) + kPadThreads - 1) / kPadThreads;
+  const int64_t w_blocks = ((static_cast<int64_t>(n) + 31) / 32) *
+                           ((kp + 31) / 32);
+  if (x_blocks + w_blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = static_cast<int>(x_blocks + w_blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const uint16_t*>(x);
+  const auto* wb = static_cast<const uint16_t*>(w);
+  auto* xpb = static_cast<uint16_t*>(xp);
+  auto* wtb = static_cast<uint16_t*>(wt);
+  if (wide) {
+    bf16_pad_kernel<4><<<grid, kPadThreads, 0, s>>>(
+        xb, wb, xpb, wtb, m, k, n, kp, static_cast<int>(x_blocks));
+  } else {
+    bf16_pad_kernel<1><<<grid, kPadThreads, 0, s>>>(
+        xb, wb, xpb, wtb, m, k, n, kp, static_cast<int>(x_blocks));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p [m, n] bf16 = xp [m, kp] @ wt [n, kp]^T (the pad pass's K-major
+// operands, bf16, 16-byte aligned) with f32 sums, rounded to nearest even,
+// on `stream` of `device`; one launch. Returns cudaGetLastError() after it
+// (0 on success), cudaErrorInvalidValue for a negative size, a kp that is
+// not a multiple of basis_project_bf16_k_pad() or a misaligned operand,
+// cudaErrorNotSupported where a TMA map cannot be made.
+int basis_project_bf16(const void* xp, const void* wt, void* p, int m,
+                       int kp, int n, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uintptr_t bases =
+      reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(wt);
+  if (m < 0 || kp < 0 || n < 0 || kp % kPadK != 0 || (bases & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (m == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 0) {
+  if (kp == 0) {
     return static_cast<int>(cudaMemsetAsync(
         p, 0, sizeof(uint16_t) * static_cast<size_t>(m) * n, s));
   }
-  const int64_t grid_m = (static_cast<int64_t>(m) + kMmaBM - 1) / kMmaBM;
-  const int64_t grid_n = (static_cast<int64_t>(n) + kMmaBN - 1) / kMmaBN;
-  if (grid_m > 65535 || grid_n > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>(grid_n),
-                  static_cast<unsigned>(grid_m));
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
-                          reinterpret_cast<uintptr_t>(w);
-  const auto* xb = static_cast<const uint16_t*>(x);
-  const auto* wb = static_cast<const uint16_t*>(w);
-  auto* pb = static_cast<uint16_t*>(p);
-  if (k % 4 == 0 && n % 4 == 0 && (bases & 7u) == 0) {
-    project_bf16_kernel<4><<<grid, kMmaThreads, 0, s>>>(xb, wb, pb, m, k, n);
-  } else {
-    project_bf16_kernel<1><<<grid, kMmaThreads, 0, s>>>(xb, wb, pb, m, k, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_product_bf16(xp, wt, static_cast<uint16_t*>(p), m, n, kp,
+                             device, s);
 }
 
 const char* basis_project_error_string(int code) {

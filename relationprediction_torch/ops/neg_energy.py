@@ -11,9 +11,10 @@ The JAX package's dispatch rule (``neg_energy.py:60-65``, ``:224-229``;
 
 * ``_direct`` (float32 streams, small shapes, few entities): gather the
   [n, k, d] rows, reduce against both factors, select by the coin.
-  Autograd gives the backward, a scatter-add of the rows' cotangents into
-  the code table; in the JAX package ``_take_rows_sorted_bwd`` sorts the
-  ids first to spare XLA a slow scatter compile, with the same sums.
+  The gather is ``gather.take_rows``, whose backward sums the rows'
+  cotangents into the code table by id in a fixed order; in the JAX
+  package ``_take_rows_sorted_bwd`` sorts the ids first to spare XLA a
+  slow scatter compile, with the same sums.
 * ``_fused`` (bf16 codes, n·k >= 8192 and V >= 1024): the same forward,
   products in bf16 and sums in f32, and a backward built on the rank
   structure of the code table's cotangent (``neg_energy.py:114-207``):
@@ -22,18 +23,20 @@ The JAX package's dispatch rule (``neg_energy.py:60-65``, ``:224-229``;
                    + codes[v] * sum_{j: neg_j = v} 2 dS_j
 
   with qcat = [q_subj; q_obj] and fsel_j the factor row of entry j. The
-  ids are sorted on the device, a CSR by id is formed (its row_ptr a
-  ``torch.searchsorted`` over 0..V, no host sync), and the first term is
-  TPU kernel 3's bf16 entry point (``staircase.aggregate``: messages the
-  bf16 qcat, perm the sorted fsel, weights dE in f32); the second is a
-  per-id scalar segment sum (a float64 prefix sum of the sorted 2 dS,
-  differenced at row_ptr) times codes. Where the JAX package accumulates
+  ids are sorted on the device into a CSR by id (``gather.id_csr``: its
+  row_ptr a ``torch.searchsorted`` over 0..V, no host sync), and the
+  first term is TPU kernel 3's bf16 entry point (``staircase.aggregate``:
+  messages the bf16 qcat, perm the sorted fsel, weights dE in f32); the
+  second is a per-id scalar sum of the 2 dS in f32 on the same CSR
+  (``gather.add_by_id``, kernel 3's f32 entry point) times codes. Where
+  the JAX package accumulates
   a bf16 payload through its windowed one-hot loop
   (``scatter_accum.accumulate_sorted_payload``), kernel 3 sums in f32:
   no [n, k, d] payload, deterministic, and no sort-based ``index_put_``.
   The code-table gradient is rounded to the codes' bf16, as in the JAX
   package. On a CPU tensor kernel 3's plain version runs: an f32
-  ``index_add_`` of the same terms.
+  ``index_add_`` of the same terms. No sum adds with atomics, so two
+  backwards on one input give the same bits.
 
 The split loss's ``single_factor_negative_energies`` is the same with one
 factor a positive (``_single_fused``: fsel = j // k).
@@ -47,6 +50,7 @@ import torch
 from ..device import exact_float32
 from ..graph import CsrLayout
 from . import staircase
+from .gather import add_by_id, id_csr, take_rows
 
 # The JAX package's _CHUNK and _WINDOW: the fused backward takes n·k >=
 # 4 * _CHUNK entries over V >= 2 * _WINDOW entities.
@@ -83,7 +87,7 @@ def factored_negative_energies(codes: torch.Tensor, q_subj: torch.Tensor,
         return _bf16_forward(codes, neg_values, q_subj, q_obj,
                              coin=corrupt_object)[:2]
     exact_float32()
-    ev = codes[neg_values.long()]                            # [n, k, d]
+    ev = take_rows(codes, neg_values)                        # [n, k, d]
     es = torch.einsum("nkd,nd->nk", ev, q_subj)
     eo = torch.einsum("nkd,nd->nk", ev, q_obj)
     energy = es + corrupt_object.to(torch.float32) * (eo - es)
@@ -107,7 +111,7 @@ def single_factor_negative_energies(codes: torch.Tensor, q: torch.Tensor,
     if codes.dtype == torch.bfloat16:
         return _bf16_forward(codes, neg_values, q)[:2]
     exact_float32()
-    ev = codes[neg_values.long()]                            # [n, k, d]
+    ev = take_rows(codes, neg_values)                        # [n, k, d]
     return torch.einsum("nkd,nd->nk", ev, q), (ev * ev).sum(-1)
 
 
@@ -129,7 +133,7 @@ def _row_squares(codes: torch.Tensor, neg_values: torch.Tensor
                  ) -> torch.Tensor:
     """ev_sq [n, k]: each gathered row's f32 sum of squares, computed once
     per entity and gathered (no [n, k, d] f32 copy)."""
-    return (codes.float() ** 2).sum(-1)[neg_values.long()]
+    return take_rows((codes.float() ** 2).sum(-1), neg_values)
 
 
 def _bf16_forward(codes: torch.Tensor, neg_values: torch.Tensor,
@@ -138,7 +142,7 @@ def _bf16_forward(codes: torch.Tensor, neg_values: torch.Tensor,
     stream, for both forms: the gathered rows reduced against each factor
     in f32 (``_reduce``), the two selected by ``coin`` (True: the second)
     where two are given, ev_sq by ``_row_squares``."""
-    ev = codes[neg_values.long()]                            # [n, k, d]
+    ev = take_rows(codes, neg_values)                        # [n, k, d]
     energy = _reduce(ev, factors[0])
     if coin is not None:
         energy = energy + coin.to(torch.float32) * (
@@ -151,27 +155,21 @@ def _code_grads(codes: torch.Tensor, qcat: torch.Tensor,
                 fsel: torch.Tensor, counter) -> torch.Tensor:
     """d codes [V, d] in the codes' dtype: sum_{j: rows_j = v} w_e[j] *
     qcat[fsel[j]] + codes[v] * sum_{j: rows_j = v} w_s[j]. The entries are
-    sorted by id (stable, on the device) into a CSR whose row_ptr comes
-    from ``torch.searchsorted``; kernel 3 sums the first term (a launch
-    counted on ``counter``), a float64 prefix sum of the sorted w_s gives
-    the per-id scalars."""
+    sorted by id into a CSR (``id_csr``); kernel 3 sums the first term (a
+    launch counted on ``counter``), ``add_by_id`` the per-id scalars in
+    f32 on the same CSR."""
     v = codes.shape[0]
-    rows = rows.long()
-    order = torch.argsort(rows, stable=True)
-    ids = rows[order]
-    row_ptr = torch.searchsorted(
-        ids, torch.arange(v + 1, device=ids.device)).to(torch.int32)
+    row_ptr, order = id_csr(rows, v)
     perm = fsel[order].to(torch.int32)
     layout = CsrLayout(row_ptr=row_ptr, src=perm, rel=perm,
                        w=w_e[order].to(torch.float32).contiguous())
     first = staircase.aggregate(qcat.contiguous(), layout, v, perm,
                                 counter=counter)
-    prefix = torch.cat([torch.zeros(1, dtype=torch.float64,
-                                    device=ids.device),
-                        torch.cumsum(w_s[order].double(), 0)])
-    row_ptr = row_ptr.long()
-    scale = (prefix[row_ptr[1:]] - prefix[row_ptr[:-1]]).float()
-    return (first + codes.float() * scale[:, None]).to(codes.dtype)
+    scale = add_by_id(torch.zeros(v, 1, dtype=torch.float32,
+                                  device=codes.device),
+                      rows, w_s.to(torch.float32)[:, None],
+                      csr=(row_ptr, order))
+    return (first + codes.float() * scale).to(codes.dtype)
 
 
 class _Fused(torch.autograd.Function):

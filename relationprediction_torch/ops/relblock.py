@@ -4,7 +4,9 @@
 
 Messages are built for the edges of one direction's CSR, in its entry
 order (``edge_vertices`` = the layout's ``src``, ``edge_relations`` its
-``rel``), so the aggregation needs no permutation.
+``rel``), so the aggregation needs no permutation. Every gather of a table
+by those ids is ``gather.take_rows``, whose gradient sums by id in a fixed
+order.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..device import exact_float32
+from .gather import take_rows
 
 _EDGE_CHUNK = 16384
 
@@ -55,8 +58,8 @@ def basis_messages(proj: torch.Tensor, coefficients: torch.Tensor,
     for start in range(0, n_edges, edge_chunk):
         sl = slice(start, start + edge_chunk)
         out[sl] = torch.einsum("eb,ebd->ed",
-                               coefficients[edge_relations[sl].long()],
-                               proj[edge_vertices[sl].long()])
+                               take_rows(coefficients, edge_relations[sl]),
+                               take_rows(proj, edge_vertices[sl]))
     return out
 
 
@@ -74,8 +77,8 @@ def basis_messages_scaled(proj: torch.Tensor, coefficients: torch.Tensor,
     out = proj.new_empty(n_edges, proj.shape[2])
     for start in range(0, n_edges, edge_chunk):
         sl = slice(start, start + edge_chunk)
-        out[sl] = (proj[edge_vertices[sl].long()]
-                   * scale[edge_relations[sl].long()]).sum(1)
+        out[sl] = (take_rows(proj, edge_vertices[sl])
+                   * take_rows(scale, edge_relations[sl])).sum(1)
     return out
 
 
@@ -83,7 +86,7 @@ def relation_bias_messages(biases: torch.Tensor,
                            edge_relations: torch.Tensor) -> torch.Tensor:
     """Messages that are the relation's bias vector alone, b[r_e]
     (``relblock.py:170-173``, OnlyBiasGcn)."""
-    return biases[edge_relations.long()]
+    return take_rows(biases, edge_relations)
 
 
 def diag_messages(features: torch.Tensor, diags: torch.Tensor,
@@ -91,4 +94,5 @@ def diag_messages(features: torch.Tensor, diags: torch.Tensor,
                   edge_relations: torch.Tensor) -> torch.Tensor:
     """Per-relation diagonal scaling m_e = x[v_e] * D[r_e]
     (``relblock.py:164-167``)."""
-    return features[edge_vertices.long()] * diags[edge_relations.long()]
+    return take_rows(features, edge_vertices) \
+        * take_rows(diags, edge_relations)

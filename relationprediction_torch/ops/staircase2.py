@@ -59,8 +59,9 @@ bf16 message precision (the JAX ops' ``compute_dtype``): with
 ``compute_dtype=torch.bfloat16`` each op sends its gathered table and its
 weights operand to the bf16 entry point of its kernel
 (``block_direction_bf16`` and ``block_direction_twin_bf16``: features or
-g and the blocks; ``basis_project_bf16``: x or g and W_flat or w_t, P
-written in bf16; ``basis_combine_bf16``: P), which widens them to f32:
+g and the blocks; ``basis_project_bf16``, after a pad pass that lays them
+out K-major for TMA: x or g and W_flat or w_t, P written in bf16;
+``basis_combine_bf16``: P), which widens them to f32:
 edge weights and C stay f32, products and sums are f32, outputs f32 but
 P. The JAX kernels round more (the weighted rows, the per-edge products,
 the sum over the bases in bf16). d blocks, d W_flat and d C stay f32
@@ -82,6 +83,7 @@ import torch
 from ..device import exact_float32
 from ..graph import CsrLayout
 from . import nvcc, staircase
+from .gather import add_by_id
 from .staircase import check_tensors, input_dtype, upcast_bf16
 
 _SOURCE = "block_direction.cu"
@@ -141,10 +143,11 @@ def block_direction_dblocks(features: torch.Tensor, g: torch.Tensor,
                             edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
     """d blocks [R, B, dr, dr] of one direction for the cotangent ``g`` of
     its output: per chunk of edges, the weighted outer products
-    g[tgt] x[src]^T of each block, added into their relation with
-    ``index_add_``. Chunks bound the [chunk, B, dr, dr] products (164 MB
-    at 16,384 edges, B=100, dr=5; all 272,115 edges at once would be
-    2.7 GB)."""
+    g[tgt] x[src]^T of each block, added into their relation by
+    ``gather.add_by_id`` (``index_add_`` on the CPU; on the card kernel 3
+    over the chunk's CSR by relation, no atomics), chunk after chunk.
+    Chunks bound the [chunk, B, dr, dr] products (164 MB at 16,384 edges,
+    B=100, dr=5; all 272,115 edges at once would be 2.7 GB)."""
     exact_float32()
     n_rel, n_blocks, dr, _ = blocks_shape
     targets = staircase.row_of_entry(layout)
@@ -154,8 +157,7 @@ def block_direction_dblocks(features: torch.Tensor, g: torch.Tensor,
         sl = slice(start, start + edge_chunk)
         gw = (g[targets[sl]] * layout.w[sl, None]).view(-1, n_blocks, dr)
         x = features[layout.src[sl].long()].view(-1, n_blocks, dr)
-        dw.index_add_(0, layout.rel[sl].long(),
-                      torch.einsum("ebi,ebj->ebij", gw, x))
+        add_by_id(dw, layout.rel[sl], torch.einsum("ebi,ebj->ebij", gw, x))
     return dw
 
 
@@ -363,6 +365,12 @@ def bind_project_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.basis_project_f32.restype = i
     lib.basis_project_bf16.argtypes = [p, p, p, i, i, i, i, p]
     lib.basis_project_bf16.restype = i
+    lib.bf16_pad.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.bf16_pad.restype = i
+    for fn in (lib.basis_project_bf16_k_pad, lib.basis_project_bf16_stages,
+               lib.basis_project_bf16_registers):
+        fn.argtypes = []
+        fn.restype = i
     lib.basis_project_k_tile.argtypes = []
     lib.basis_project_k_tile.restype = i
     lib.basis_project_parts.argtypes = [i]
@@ -395,6 +403,17 @@ def basis_project_reference(x: torch.Tensor, w: torch.Tensor
     if x.dtype == torch.bfloat16:
         return torch.matmul(x.float(), w.float()).to(torch.bfloat16)
     return torch.matmul(x, w)
+
+
+def bf16_pad_reference(x: torch.Tensor, w: torch.Tensor, kp: int) -> tuple:
+    """Plain version of the bf16 pad pass: (xp [m, kp], wt [n, kp]), x
+    [m, k] and w [k, n] transposed, K-major, columns k .. kp - 1 zero."""
+    (m, k), n = x.shape, w.shape[1]
+    xp = x.new_zeros(m, kp)
+    xp[:, :k] = x
+    wt = w.new_zeros(n, kp)
+    wt[:, :k] = w.t()
+    return xp, wt
 
 
 def tf32_rna_reference(a: torch.Tensor) -> torch.Tensor:
@@ -471,7 +490,8 @@ def basis_direction_dweights(features: torch.Tensor, proj: torch.Tensor,
     direction for the cotangent ``g`` of its output, from the forward's
     projection ``proj`` = features @ W_flat. Per chunk of edges: d W_flat
     += features[src]^T @ (w_e C[r_e, b] g[tgt_e]) [e, B*d_out], one GEMM;
-    d C gets <P[src_e, b, :], w_e g[tgt_e]> added into its relation. Chunks
+    d C gets <P[src_e, b, :], w_e g[tgt_e]> added into its relation by
+    ``gather.add_by_id``, chunk after chunk, as d blocks' sums. Chunks
     bound the [chunk, B*d_out] operands (164 MB each at 16,384 edges,
     B=5, d=500; all 272,115 edges at once would be 2.7 GB)."""
     exact_float32()
@@ -493,7 +513,7 @@ def basis_direction_dweights(features: torch.Tensor, proj: torch.Tensor,
         if need_c:
             dots = torch.bmm(proj[src].view(-1, n_bases, d_out),
                              gw[:, :, None]).squeeze(-1)
-            dc.index_add_(0, rel, dots)
+            add_by_id(dc, rel, dots)
     return dw, dc
 
 
@@ -521,7 +541,8 @@ def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
 # count), f32 and bf16 apart: basis_combine in forward passes and in twin
 # passes, the carry fix-up after each of them (both precisions), and
 # basis_project in both (one before each combine), each f32 launch after
-# one launch of its split pass (the bf16 product has none).
+# one launch of its split pass, each bf16 launch after one launch of its
+# pad pass.
 basis_direction.launches = 0
 basis_direction.twin_launches = 0
 basis_direction.fixup_launches = 0
@@ -530,6 +551,7 @@ basis_direction.split_launches = 0
 basis_direction.bf16_launches = 0
 basis_direction.bf16_twin_launches = 0
 basis_direction.bf16_project_launches = 0
+basis_direction.bf16_pad_launches = 0
 
 
 def launch_counts() -> tuple:
@@ -593,15 +615,16 @@ class _BasisDirection(torch.autograd.Function):
 
 
 def _project(x, w):
-    """x @ w: the split pass and the basis_project kernel (f32), or
-    basis_project_bf16 (bf16 x and w, a bf16 P), or the plain version for
-    a CPU tensor."""
+    """x @ w: the split pass and the basis_project kernel (f32), or the
+    pad pass and basis_project_bf16 (bf16 x and w, a bf16 P), or the plain
+    version for a CPU tensor."""
     if x.device.type == "cpu":
         return basis_project_reference(x, w)
     _check_project(x, w)
     lib = project_kernel_library()[0]
     if x.dtype == torch.bfloat16:
         out = launch_project_bf16(lib, x, w)
+        basis_direction.bf16_pad_launches += 1
         basis_direction.bf16_project_launches += 1
         return out
     out = launch_project(lib, x, w)
@@ -675,18 +698,45 @@ def launch_project(lib: ctypes.CDLL, x: torch.Tensor,
     return launch_product(lib, *launch_split(lib, x, w))
 
 
+def launch_pad_bf16(lib: ctypes.CDLL, x: torch.Tensor,
+                    w: torch.Tensor) -> tuple:
+    """One launch of bf16_pad on the current stream, on bf16 inputs
+    already checked: (xp [m, kp], wt [n, kp]), x and w transposed, K-major,
+    K zero-padded to kp, a multiple of the kernel's
+    ``basis_project_bf16_k_pad`` (``bf16_pad_reference``). Raises if the
+    launch is refused."""
+    (m, k), n = x.shape, w.shape[1]
+    pad = lib.basis_project_bf16_k_pad()
+    kp = -(-k // pad) * pad
+    xp = torch.empty(m, kp, dtype=torch.bfloat16, device=x.device)
+    wt = torch.empty(n, kp, dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib, lib.bf16_pad(
+        x.data_ptr(), w.data_ptr(), xp.data_ptr(), wt.data_ptr(), m, k, n,
+        kp, x.device.index, stream), "bf16_pad")
+    return xp, wt
+
+
+def launch_product_bf16(lib: ctypes.CDLL, xp: torch.Tensor,
+                        wt: torch.Tensor) -> torch.Tensor:
+    """One launch of basis_project_bf16 on the pad pass's output: P [m, n]
+    bf16 = xp @ wt^T, f32 sums rounded to nearest even. Raises if the
+    launch is refused."""
+    (m, kp), n = xp.shape, wt.shape[0]
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=xp.device)
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    _raise_on(lib, lib.basis_project_bf16(
+        xp.data_ptr(), wt.data_ptr(), out.data_ptr(), m, kp, n,
+        xp.device.index, stream), "basis_project_bf16")
+    return out
+
+
 def launch_project_bf16(lib: ctypes.CDLL, x: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
     """x @ w for bf16 x and w on the current stream, on inputs already
-    checked: one launch of basis_project_bf16, P [m, n] bf16 (f32 sums
-    rounded to nearest even); raises if it is refused."""
-    (m, k), n = x.shape, w.shape[1]
-    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on(lib, lib.basis_project_bf16(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-        x.device.index, stream), "basis_project_bf16")
-    return out
+    checked: the pad pass, then basis_project_bf16 (two launches), P [m, n]
+    bf16; raises if one is refused."""
+    return launch_product_bf16(lib, *launch_pad_bf16(lib, x, w))
 
 
 def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,

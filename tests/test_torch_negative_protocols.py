@@ -386,21 +386,17 @@ def test_fit_checks_saves_and_resumes_bit_for_bit(tmp_path, mode):
         loop.train_step = train_step
         return loop, seen, scores
 
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        loop, straight, scores = recording_loop(tmp_path / "a")
-        params, opt_state = loop.init_state(0)
-        whole = loop.fit(params, opt_state, max_iterations=8,
-                         checkpoint_path=str(tmp_path / "a"))
-        loop, _, _ = recording_loop(tmp_path / "b")
-        params, opt_state = loop.init_state(0)
-        loop.fit(params, opt_state, max_iterations=4,
-                 checkpoint_path=str(tmp_path / "b"))
-        loop, resumed, tail_scores = recording_loop(tmp_path / "b")
-        tail = loop.resume(str(tmp_path / "b"), max_iterations=8)
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
+    loop, straight, scores = recording_loop(tmp_path / "a")
+    params, opt_state = loop.init_state(0)
+    whole = loop.fit(params, opt_state, max_iterations=8,
+                     checkpoint_path=str(tmp_path / "a"))
+    loop, _, _ = recording_loop(tmp_path / "b")
+    params, opt_state = loop.init_state(0)
+    loop.fit(params, opt_state, max_iterations=4,
+             checkpoint_path=str(tmp_path / "b"))
+    loop, resumed, tail_scores = recording_loop(tmp_path / "b")
+    tail = loop.resume(str(tmp_path / "b"), max_iterations=8)
+    assert not torch.are_deterministic_algorithms_enabled()
     assert whole.iterations == tail.iterations == 8
     assert len(scores) == 4 and tail_scores == scores[2:]
     assert len(resumed) == 4

@@ -164,9 +164,9 @@ def test_port_resumes_a_jax_checkpoint(tmp_path):
 def test_resume_is_bit_exact_on_cpu(tmp_path):
     """gcn_block (d=20) on the synthetic graph, 600-edge batches, 2
     prefetch threads, saves every 10 steps: 20 steps straight against 10
-    steps and a resume to 20 in a new loop. Steps 11-20 consume the same
-    batches and give the same losses, and the params end equal bit for
-    bit."""
+    steps and a resume to 20 in a new loop, at PyTorch's default settings
+    (no deterministic algorithms). Steps 11-20 consume the same batches
+    and give the same losses, and the params end equal bit for bit."""
     ds, _, (tcfg, model) = case("synthetic", 600)
     tcfg = with_optimizer(tcfg, early_stopping_check_every=10)
 
@@ -180,21 +180,17 @@ def test_resume_is_bit_exact_on_cpu(tmp_path):
         loop.train_step = train_step
         return loop, seen
 
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        loop, straight = recording_loop()
-        params, opt_state = loop.init_state(0)
-        whole = loop.fit(params, opt_state, max_iterations=20,
-                         checkpoint_path=str(tmp_path / "a"))
-        loop, _ = recording_loop()
-        params, opt_state = loop.init_state(0)
-        loop.fit(params, opt_state, max_iterations=10,
-                 checkpoint_path=str(tmp_path / "b"))
-        loop, resumed = recording_loop()
-        tail = loop.resume(str(tmp_path / "b"), max_iterations=20)
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
+    loop, straight = recording_loop()
+    params, opt_state = loop.init_state(0)
+    whole = loop.fit(params, opt_state, max_iterations=20,
+                     checkpoint_path=str(tmp_path / "a"))
+    loop, _ = recording_loop()
+    params, opt_state = loop.init_state(0)
+    loop.fit(params, opt_state, max_iterations=10,
+             checkpoint_path=str(tmp_path / "b"))
+    loop, resumed = recording_loop()
+    tail = loop.resume(str(tmp_path / "b"), max_iterations=20)
+    assert not torch.are_deterministic_algorithms_enabled()
     assert tail.iterations == 20 and len(resumed) == 10
     for (t, e), (t2, e2) in zip(straight[10:], resumed):
         np.testing.assert_array_equal(t, t2)
