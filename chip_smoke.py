@@ -129,7 +129,30 @@ Then the rest of TrainLoop on gcn_block.exp:
           fits from seed 0 as train.py runs them, at default settings, of
           gcn_block, gcn_basis bf16 and distmult bf16 (d blocks', d C's
           and the fused energies' sums by id, the gathers' backward):
-          params and Adam state equal bit for bit, each fit's step time.
+          params and Adam state equal bit for bit, each fit's step time;
+  quality  the learning-quality gate on synthetic.learnable(2000, 40,
+          60000, 5000, 5000, latent_dim=16, temperature=0.4, seed=0), the
+          JAX capstone's mid-size graph (its draw time printed): the
+          teacher's own scores through the Scorer in float64 (0.4742 /
+          0.6018 filtered MRR / H@10 within 1e-4, docs/QUALITY.md); then
+          gcn_block.exp in f32 and in bf16 (message and stream precision)
+          for 2,000 steps and distmult.exp for 500 (all 60,000 positives
+          a step), each through TrainLoop.fit with serial batches and the
+          filtered MRR of the first 2,000 validation triples as the early
+          stopper's score, CheckEvery 500 and BurninPhaseDuration 1,000
+          (cut from 2,000 / 6,000): the untrained and trained test
+          filtered MRR and H@10, the fraction of the ceiling, the
+          validation curve, steps/s and the launches (4 + 4 block_direction
+          a step, 4 more a validation encode); gates: gcn_block >= 0.13
+          (half the capstone's 0.257 at 2,000 steps, a TPU quality
+          reference) and DistMult >= 18x chance, each >= 3x untrained;
+          gcn_block f32's first 5 steps inside observability.trace, whose
+          file must name the block kernel; the score and degree dumps of
+          gcn_block f32 and DistMult over the first 200 test triples
+          (cut to bound the text) under build/chip_smoke/quality, and
+          the R-GCN+ ensemble of tools/ensemble.py over them (weights 1,
+          0 and 0.5, the cutoff at 1,000): weights 1 and 0 give the two
+          models' filtered MRR over those triples within 1e-3.
 
 Then distmult.exp and complex.exp (the embedding table, no graph, all
 272,115 positives a step):
@@ -246,7 +269,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from relationprediction_torch import config
+from relationprediction_torch import config, observability
 from relationprediction_torch import train as train_cli
 from relationprediction_torch.data import synthetic
 from relationprediction_torch.device import exact_float32
@@ -256,6 +279,7 @@ from relationprediction_torch.graph import CsrLayout, build_graph_batch
 from relationprediction_torch.models import build, decoders
 from relationprediction_torch.ops import neg_energy, staircase, staircase2
 from relationprediction_torch.params import map_tree, tree_leaves
+from relationprediction_torch.tools import ensemble
 from relationprediction_torch.training import (checkpoint, device_sampling,
                                                engine, optimizers)
 
@@ -2961,6 +2985,298 @@ def phase_determinism():
     return row
 
 
+# The quality phase: the JAX capstone's mid-size learnable graph
+# (benchmarks/e2e_quality_run.py:89-94 at 2,000 entities; 3.3 s of host
+# time to draw, where FB15k-237's counts take 118 s) and its teacher's
+# ceiling from docs/QUALITY.md, a quality reference.
+QUALITY_GRAPH = (2000, 40, 60000, 5000, 5000)
+QUALITY_DRAW = dict(latent_dim=16, temperature=0.4, seed=0)
+TEACHER_MRR, TEACHER_H10, TEACHER_TOL = 0.4742, 0.6018, 1e-4
+# The shipped cadence (2,000 / 6,000) cut to fit the phase's time.
+QUALITY_CUTS = {"early_stopping_check_every": 500,
+                "early_stopping_burnin": 1000}
+QUALITY_VALID = 2000
+QUALITY_BLOCK_STEPS = 2000
+QUALITY_DISTMULT_STEPS = 500
+QUALITY_TRACE_STEPS = 5
+# The first 200 test triples bound the dumps' text.
+QUALITY_DUMP_TRIPLES = 200
+ENSEMBLE_WEIGHTS = (1.0, 0.0, 0.5)
+ENSEMBLE_CUTOFF = 1000  # tools/ensemble.py's default
+# The dumps hold sigmoids and the ensemble counts ties against the gold,
+# so a weight of 1 or 0 may rank a near-tie one lower than the Scorer.
+ENSEMBLE_TOL = 1e-3
+# Gates, set before the first run: gcn_block at half the JAX capstone's
+# validation MRR at 2,000 steps (0.257, docs/QUALITY.md, a TPU quality
+# reference), 260x chance; DistMult at tests/test_learning_quality.py's
+# ratios; every model at 3x its untrained MRR.
+BLOCK_MRR_GATE = 0.13
+DISTMULT_CHANCE_GATE = 18.0
+UNTRAINED_GATE = 3.0
+# The block kernel's symbol, as the profiler's trace names its launches.
+TRACE_KERNEL = "block_direction_kernel"
+
+
+class TeacherView:
+    """The generator's own DistMult, <e_s * w_r, e_o>, as a Scorer model
+    (``benchmarks/e2e_quality_run.py:142-175``): float64 scores of every
+    candidate on the card; the temperature scales them monotonically."""
+
+    def __init__(self, ds, device):
+        ent, rel = synthetic.teacher_factors(
+            ds.n_entities, ds.n_relations,
+            latent_dim=QUALITY_DRAW["latent_dim"], seed=QUALITY_DRAW["seed"])
+        self.ent = torch.from_numpy(ent).to(device)
+        self.rel = torch.from_numpy(rel).to(device)
+
+    def _rows(self, chunk):
+        return torch.from_numpy(chunk).to(self.ent.device).long()
+
+    def score_all_subjects(self, params, graph, chunk, apply_sigmoid=False):
+        t = self._rows(chunk)
+        return (self.rel[t[:, 1]] * self.ent[t[:, 2]]) @ self.ent.T
+
+    def score_all_objects(self, params, graph, chunk, apply_sigmoid=False):
+        t = self._rows(chunk)
+        return (self.ent[t[:, 0]] * self.rel[t[:, 1]]) @ self.ent.T
+
+    def invalidate(self):
+        pass
+
+
+def quality_teacher(ds, device) -> dict:
+    """The teacher's filtered test metrics through the port's Scorer, held
+    to docs/QUALITY.md's ceiling within TEACHER_TOL: ``learnable``,
+    ``teacher_factors`` and the Scorer together."""
+    scorer = Scorer(metric="MRR")
+    for t in (ds.train, ds.valid, ds.test):
+        scorer.register_data(t)
+    scorer.register_model(TeacherView(ds, device), None, None,
+                          n_entities=ds.n_entities)
+    got = scorer.compute_scores(ds.test).results["Filtered"]
+    if abs(got["MRR"] - TEACHER_MRR) > TEACHER_TOL \
+            or abs(got["H@10"] - TEACHER_H10) > TEACHER_TOL:
+        raise AssertionError(f"teacher ceiling {got}, expected MRR "
+                             f"{TEACHER_MRR} and H@10 {TEACHER_H10}")
+    return got
+
+
+def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
+    """train.py's main path on the learnable graph from seed 0: the
+    untrained test filtered MRR, then ``steps`` steps of TrainLoop.fit
+    (serial batches) with the filtered MRR of the first QUALITY_VALID
+    validation triples as the early stopper's score at the cut cadence;
+    the trained test metrics against the ceiling and the gates, and the
+    launches of the run's aggregation entry points (4 + 4 a step, 4 more
+    forward a validation encode, each with its fix-up; d blocks' sums by
+    relation and the bf16 energies' backward on kernel 3). With
+    ``trace_dir`` the first QUALITY_TRACE_STEPS steps run inside
+    observability.trace, whose file must name the block kernel. Returns
+    (row, scorer, trained params)."""
+    t_cell = time.perf_counter()
+    cfg = with_optimizer(cfg, **QUALITY_CUTS)
+    model = build.build_model(cfg, device)
+    op = staircase2.block_direction if model.is_gcn else None
+    pre = "bf16_" if model.agg_dtype is not None else ""
+    scorer = train_cli.build_scorer(model, ds, "MRR")
+    valid = ds.valid[:QUALITY_VALID]
+    curve = []
+
+    def score_validation(params) -> float:
+        scorer.set_params(params)
+        mrr = scorer.compute_scores(valid).results["Filtered"]["MRR"]
+        curve.append(mrr)
+        return mrr
+
+    logged = []
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, log=logged.append,
+                            scoring_function=score_validation,
+                            prefetch=False)
+    params, opt_state = loop.init_state(0)
+    scorer.set_params(params)
+    untrained = scorer.compute_scores(ds.test).results["Filtered"]["MRR"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    records, traced = [], None
+    start = 0
+    if trace_dir is not None:
+        with observability.trace(str(trace_dir)) as traced:
+            first = loop.fit(params, opt_state,
+                             max_iterations=QUALITY_TRACE_STEPS)
+            torch.cuda.synchronize()
+        params, opt_state, start = first.params, first.opt_state, \
+            first.iterations
+        records += first.steps
+    result = loop.fit(params, opt_state, start_iteration=start,
+                      max_iterations=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    records += result.steps
+    launches = getattr(op, pre + "launches") if op else 0
+    twin = getattr(op, pre + "twin_launches") if op else 0
+    energies = energy_launches()
+    id_sums = sum_by_csr_op().launches
+    check_helper_launches(op, launches, twin,
+                          staircase2.basis_direction.project_launches,
+                          staircase2.basis_direction.split_launches,
+                          fixup_counts(), energies)
+    check_other_precision_idle(pre == "bf16_")
+    n = result.iterations
+    per_layer = 2 * cfg.encoder.n_layers if op else 0
+    chunks = -(-loop.pipeline.split_size // staircase2._EDGE_CHUNK)
+    want_energies = n * fused_energy_launches(
+        model, loop.loss_kind, loop.pipeline.positives_pad,
+        cfg.training.negative_sample_rate)
+    if (launches, twin) != (per_layer * (n + len(curve)), per_layer * n) \
+            or staircase2.launch_counts() != (launches, twin) \
+            or energies != want_energies \
+            or id_sums != per_layer * chunks * n + energies:
+        raise AssertionError(
+            f"{label}: {launches} forward, {twin} twin, {energies} energies' "
+            f"and {id_sums} sum_by_csr launches in {n} steps and "
+            f"{len(curve)} checks; all ops {staircase2.launch_counts()}")
+    trace = {}
+    if traced is not None:
+        text = Path(traced).read_text()
+        trace = {"trace_file": str(Path(traced).relative_to(ROOT)),
+                 "trace_bytes": len(text),
+                 "trace_names_block_kernel": TRACE_KERNEL in text}
+        if not trace["trace_names_block_kernel"]:
+            raise AssertionError(f"{label}: the trace {traced} names no "
+                                 f"{TRACE_KERNEL}")
+    scorer.set_params(result.params)
+    test = scorer.compute_scores(ds.test).results["Filtered"]
+    every = cfg.optimizer.early_stopping_check_every
+    mrr_gate = BLOCK_MRR_GATE if op else DISTMULT_CHANCE_GATE / ds.n_entities
+    row = {"cell": label, "model": model_label(cfg),
+           "precision": {"message": "bfloat16" if pre else "float32",
+                         "stream": "float32" if model.stream_dtype is None
+                         else "bfloat16"},
+           "loss_kind": loop.loss_kind, "steps": n,
+           "stopped_early": result.stopped_early,
+           "positives": loop.pipeline.n_positives,
+           "message_edges": loop.pipeline.split_size,
+           "untrained_test_mrr": untrained,
+           "validation_curve": [{"iteration": every * (i + 1), "mrr": v}
+                                for i, v in enumerate(curve)],
+           "test_mrr": test["MRR"], "test_h10": test["H@10"],
+           "test_h1": test["H@1"], "test_h3": test["H@3"],
+           "fraction_of_ceiling": test["MRR"] / ceiling,
+           "chance": 1.0 / ds.n_entities,
+           "gates": {"test_mrr_min": mrr_gate,
+                     "untrained_ratio_min": UNTRAINED_GATE},
+           "loss_first": records[0]["loss"], "loss_last": result.last_loss,
+           "wall_s": wall_s, "steps_per_s_incl_checks": n / wall_s,
+           "steps_per_s": loop.timer.summary()["steps_per_sec"],
+           "step_ms_median": statistics.median(s["step_ms"]
+                                               for s in records),
+           "batch_ms_median": statistics.median(s["batch_ms"]
+                                                for s in records),
+           "launches": launches, "twin_launches": twin,
+           "energy_launches": energies, "sum_by_csr_launches": id_sums,
+           "fixup_launches": sum(fixup_counts().values()),
+           "op": op.__name__ if op else None, **trace,
+           "card": nvidia_smi_line(),
+           "cell_s": time.perf_counter() - t_cell}
+    row["passed"] = test["MRR"] >= mrr_gate \
+        and test["MRR"] >= UNTRAINED_GATE * untrained
+    emit("quality_cell", **row)
+    if not row["passed"]:
+        raise AssertionError(f"{label}: test filtered MRR {test['MRR']} "
+                             f"under its gate ({mrr_gate}, or "
+                             f"{UNTRAINED_GATE}x the untrained {untrained})")
+    return row, scorer, result.params
+
+
+def quality_dumps(label, scorer, params, triples) -> tuple:
+    """The score dumps (``subjects.test``, ``objects.test``) and the
+    degree dumps under the names tools/ensemble.CutoffEnsemble reads
+    (``degrees.in``, ``degrees.out``) of ``triples`` in
+    build/chip_smoke/quality/<label>; (the folder, the filtered MRR the
+    Scorer gives them)."""
+    out = fresh_dir(f"quality/{label}")
+    scorer.set_params(params)
+    summary = scorer.compute_scores(triples)
+    summary.dump_degrees(str(out / "degrees.in"), str(out / "degrees.out"))
+    scorer.dump_all_scores(triples, str(out / "subjects.test"),
+                           str(out / "objects.test"))
+    return str(out), summary.results["Filtered"]
+
+
+def quality_ensemble(rgcn, distmult) -> dict:
+    """The R-GCN+ ensemble of the two dumps (``tools/ensemble.py``):
+    WeightEnsemble at ENSEMBLE_WEIGHTS and CutoffEnsemble at its default
+    cutoff; weight 1 must give the R-GCN's filtered MRR over the dumped
+    triples and weight 0 DistMult's, each within ENSEMBLE_TOL."""
+    (rgcn_dir, rgcn_mrr), (dm_dir, dm_mrr) = rgcn, distmult
+    runs = {f"weight_{w}": ensemble.WeightEnsemble(w, rgcn_dir, dm_dir)
+            for w in ENSEMBLE_WEIGHTS}
+    runs["cutoff"] = ensemble.CutoffEnsemble(ENSEMBLE_CUTOFF, rgcn_dir,
+                                             dm_dir)
+    out = {}
+    for name, e in runs.items():
+        e.compute_ranks()
+        out[name] = {"mrr": e.combined_mrr(),
+                     **{f"h{k}": e.hits_at(k) for k in (1, 3, 10)}}
+    out["weight_1.0_minus_rgcn"] = out["weight_1.0"]["mrr"] - rgcn_mrr["MRR"]
+    out["weight_0.0_minus_distmult"] = out["weight_0.0"]["mrr"] \
+        - dm_mrr["MRR"]
+    if abs(out["weight_1.0_minus_rgcn"]) > ENSEMBLE_TOL \
+            or abs(out["weight_0.0_minus_distmult"]) > ENSEMBLE_TOL:
+        raise AssertionError(f"ensemble at weights 1 / 0 {out}, Scorer "
+                             f"{rgcn_mrr['MRR']} / {dm_mrr['MRR']}")
+    return out
+
+
+def phase_quality(device) -> dict:
+    """The learning-quality gate on the card (module docstring): the
+    learnable graph, the teacher's ceiling, gcn_block in f32 (its first
+    steps traced) and bf16, DistMult, their dumps and the R-GCN+
+    ensemble. Returns the cells' rows by path name."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ds = synthetic.learnable(*QUALITY_GRAPH, **QUALITY_DRAW)
+    emit("quality_graph", entities=ds.n_entities, relations=ds.n_relations,
+         train=len(ds.train), valid=len(ds.valid), test=len(ds.test),
+         **QUALITY_DRAW, generation_s=time.perf_counter() - t0,
+         phase_s=time.perf_counter() - t_phase)
+    teacher = quality_teacher(ds, device)
+    emit("quality_teacher", **teacher, phase_s=time.perf_counter() - t_phase)
+    ceiling = teacher["MRR"]
+
+    def counted(settings):
+        return config.load(str(settings)).with_counts(
+            ds.n_entities, ds.n_relations, len(ds.train))
+
+    rows, dumps = {}, {}
+    triples = ds.test[:QUALITY_DUMP_TRIPLES]
+    for label, cfg, steps, trace in (
+            ("gcn_block", counted(SETTINGS), QUALITY_BLOCK_STEPS, True),
+            ("gcn_block_bf16", bf16_config(ds, "quality_bf16", SETTINGS,
+                                           [BF16_LINE]),
+             QUALITY_BLOCK_STEPS, False),
+            ("distmult", counted(ROOT / "settings" / "distmult.exp"),
+             QUALITY_DISTMULT_STEPS, False)):
+        row, scorer, params = quality_cell(
+            label, cfg, ds, device, steps, ceiling,
+            SMOKE_DIR / "quality" / "trace" if trace else None)
+        rows[f"quality_{label}"] = row
+        if label != "gcn_block_bf16":
+            dumps[label] = quality_dumps(label, scorer, params, triples)
+        del scorer, params
+    dumped = {k: v[1] for k, v in dumps.items()}
+    ens = quality_ensemble(dumps["gcn_block"], dumps["distmult"])
+    emit("quality", teacher=teacher, dump_triples=len(triples),
+         dumped_filtered=dumped, ensemble=ens,
+         cells={k: {key: r[key] for key in (
+             "test_mrr", "test_h10", "fraction_of_ceiling",
+             "untrained_test_mrr", "validation_curve", "steps_per_s",
+             "launches", "twin_launches")} for k, r in rows.items()},
+         card=nvidia_smi_line(), phase_s=time.perf_counter() - t_phase)
+    return rows
+
+
 def mean_of(items, key, sub=None) -> float:
     """The mean of ``key`` (of its entry ``sub``) over phase rows."""
     pick = (lambda r: r[key]) if sub is None else (lambda r: r[key][sub])
@@ -2997,9 +3313,9 @@ def kernels_line(rows, serve, grads, train, fit, paths) -> list:
     on the training batch (its path) and on the full train graph. Times and
     bounds are means over the two directions; launches are the training
     run's, and beside them the serving run's, the fit run's (train.py's
-    main path: steps and validation encodes) and those of the paths of
-    the negative protocols and the MLP decoder (``paths``: phase rows by
-    phase)."""
+    main path: steps and validation encodes) and those of the other paths
+    (the quality phase's gcn_block run, the negative protocols, the MLP
+    decoder and the encoder variants; ``paths``: phase rows by phase)."""
     full = [r for r in rows if r.get("graph") == "full_train"]
     batch = [r for r in rows if r.get("graph") == "train_batch"]
     layouts = [r for r in rows if "layout" in r]
@@ -3824,6 +4140,7 @@ def main() -> int:
     phase_prefetch(basis_cfg, ds, device, "prefetch_basis")
     phase_resume(cfg, ds, device)
     phase_determinism()
+    quality = phase_quality(device)
 
     # distmult.exp and complex.exp: the embedding table, no graph, all
     # 272,115 positives a step; no aggregation kernel runs.
@@ -3852,6 +4169,7 @@ def main() -> int:
                                         phase="train_host_tiled",
                                         steps=HOST_TILED_STEPS,
                                         device_negatives=False)}
+    paths["quality_gcn_block"] = quality["quality_gcn_block"]
     mlp_cfg = mlp_config(ds)
     paths["serve_mlp"] = phase_serve(ds, device, mlp_cfg, phase="serve_mlp")
     paths["train_mlp"] = phase_train(mlp_cfg, ds, device, phase="train_mlp")
@@ -3897,10 +4215,11 @@ def main() -> int:
         phase="train_split_bf16", steps=BF16_STEPS, negative_mode="split"),
         "op": "block_direction"}
 
+    bf16_runs["quality_gcn_block_bf16"] = quality["quality_gcn_block_bf16"]
     train_runs = {"train": train, "train_basis": train_b, "fit": fit,
                   **{k: r for k, r in {**paths, **basis_paths, **runs,
                                        **bf16_runs}.items()
-                     if k.startswith("train")}}
+                     if k.startswith(("train", "quality"))}}
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
                                               paths)
                       + basis_kernels_line(kb, serve_b, train_b,

@@ -70,3 +70,24 @@ def load(path: str, metric: str = "MRR") -> KGDataset:
         valid=valid,
         test=test,
     )
+
+
+def from_arrays(train: np.ndarray, valid: np.ndarray, test: np.ndarray,
+                n_entities: Optional[int] = None,
+                n_relations: Optional[int] = None,
+                name: str = "arrays") -> KGDataset:
+    """A dataset from id-triple arrays (``data/dataset.py:75-91`` of the
+    JAX package); the counts default to one past the largest id seen."""
+    allt = np.concatenate([train, valid, test], axis=0)
+    if n_entities is None:
+        n_entities = int(max(allt[:, 0].max(), allt[:, 2].max())) + 1
+    if n_relations is None:
+        n_relations = int(allt[:, 1].max()) + 1
+    return KGDataset(
+        name=name,
+        entities={i: f"e{i}" for i in range(n_entities)},
+        relations={i: f"r{i}" for i in range(n_relations)},
+        train=train.astype(np.int32),
+        valid=valid.astype(np.int32),
+        test=test.astype(np.int32),
+    )

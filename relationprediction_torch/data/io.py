@@ -1,4 +1,4 @@
-"""Knowledge-graph triplet and dictionary readers.
+"""Knowledge-graph triplet and dictionary readers and writers.
 
 Format-compatible with the reference readers (``code/common/io.py``):
 ``entities.dict``/``relations.dict`` are ``id\tname`` TSV, triple files are
@@ -7,6 +7,7 @@ Format-compatible with the reference readers (``code/common/io.py``):
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -46,3 +47,21 @@ def read_triplets_as_array(filename: str, entities_path: str,
     for s, r, o in read_triplets(filename):
         rows.append((entity_dict[s], relation_dict[r], entity_dict[o]))
     return np.asarray(rows, dtype=np.int32).reshape(-1, 3)
+
+
+def write_triplets(filename: str, triples: np.ndarray,
+                   entities: Dict[int, str], relations: Dict[int, str]) -> None:
+    """Inverse of read_triplets_as_array: write id triples as name TSV."""
+    os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+    with open(filename, "w") as f:
+        for s, r, o in triples:
+            f.write(f"{entities[int(s)]}\t{relations[int(r)]}\t"
+                    f"{entities[int(o)]}\n")
+
+
+def write_dictionary(filename: str, d: Dict[int, str]) -> None:
+    """Write an ``id\tname`` TSV mapping, ids in ascending order."""
+    os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+    with open(filename, "w") as f:
+        for i in sorted(d):
+            f.write(f"{i}\t{d[i]}\n")

@@ -6,13 +6,20 @@
 
 Reads the newest checkpoint written by training (the settings'
 ExperimentName prefix; ``--checkpoint`` overrides) and prints the same
-metrics table as ``relationprediction_tpu/evaluate.py``. Runs on the CUDA
-card unless ``--cpu`` is given; without a card it fails rather than fall
-back. ``--dataset synth:FB15k-237`` evaluates on the seeded synthetic graph.
+metrics table as ``relationprediction_tpu/evaluate.py``, and writes its
+files: ``--dump-scores DIR`` the all-entity score dumps
+``DIR/subjects.<split>`` and ``DIR/objects.<split>`` (the ensemble tool's
+``--p1`` / ``--p2``), ``--dump-degrees PREFIX`` ``PREFIX_in.tsv`` /
+``_out.tsv`` and ``--dump-frequencies PREFIX`` ``PREFIX_vertex.tsv`` /
+``_relation.tsv``, from filtered ranks or, with ``--raw``, raw ones. Runs
+on the CUDA card unless ``--cpu`` is given; without a card it fails rather
+than fall back. ``--dataset synth:FB15k-237`` evaluates on the seeded
+synthetic graph.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> None:
@@ -28,6 +35,19 @@ def main(argv=None) -> None:
                         choices=["train", "valid", "test"])
     parser.add_argument("--limit", type=int, default=None,
                         help="Evaluate only the first N triples.")
+    parser.add_argument("--dump-scores", default=None, metavar="DIR",
+                        help="Write <DIR>/subjects.<split> and "
+                             "<DIR>/objects.<split> full-entity score "
+                             "dumps (tools/ensemble.py --p1/--p2 take "
+                             "DIR).")
+    parser.add_argument("--dump-degrees", default=None, metavar="PREFIX",
+                        help="Write <PREFIX>_in.tsv / _out.tsv per-degree "
+                             "MRR TSVs.")
+    parser.add_argument("--dump-frequencies", default=None, metavar="PREFIX",
+                        help="Write <PREFIX>_vertex.tsv / _relation.tsv "
+                             "per-frequency MRR TSVs.")
+    parser.add_argument("--raw", action="store_true",
+                        help="Dump breakdowns from raw (unfiltered) ranks.")
     parser.add_argument("--cpu", action="store_true",
                         help="Run on the CPU instead of the CUDA card.")
     args = parser.parse_args(argv)
@@ -73,7 +93,29 @@ def main(argv=None) -> None:
         triples = triples[:args.limit]
     print(f"evaluating {len(triples)} {args.split} triples "
           f"on {ds.name} ({device})")
-    scorer.compute_scores(triples).pretty_print()
+    summary = scorer.compute_scores(triples)
+    summary.pretty_print()
+
+    kind = "Raw" if args.raw else "Filtered"
+    for prefix in (args.dump_degrees, args.dump_frequencies):
+        if prefix and os.path.dirname(prefix):
+            os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    if args.dump_degrees:
+        fi = f"{args.dump_degrees}_in.tsv"
+        fo = f"{args.dump_degrees}_out.tsv"
+        summary.dump_degrees(fi, fo, filter=kind)
+        print(f"wrote {fi} {fo}")
+    if args.dump_frequencies:
+        vf = f"{args.dump_frequencies}_vertex.tsv"
+        rf = f"{args.dump_frequencies}_relation.tsv"
+        summary.dump_frequencies(vf, rf, filter=kind)
+        print(f"wrote {vf} {rf}")
+    if args.dump_scores:
+        os.makedirs(args.dump_scores, exist_ok=True)
+        sf = os.path.join(args.dump_scores, f"subjects.{args.split}")
+        of = os.path.join(args.dump_scores, f"objects.{args.split}")
+        scorer.dump_all_scores(triples, sf, of)
+        print(f"wrote {sf} {of}")
 
 
 if __name__ == "__main__":

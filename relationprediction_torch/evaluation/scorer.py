@@ -1,10 +1,11 @@
-"""Evaluation scorer: raw/filtered MRR and Hits@k.
+"""Evaluation scorer: raw/filtered MRR and Hits@k, pairwise Accuracy, and
+the score and degree/frequency dumps.
 
 Counterpart of ``relationprediction_tpu/evaluation/scorer.py``: known-triple
 indexes built from all registered splits, full-entity scoring in chunks and
 the reference's rank formulas (``code/common/evaluation.py``), with the
-ranks taken on the scores' device (ranking.py). The score and breakdown
-dumps and the Accuracy metric are not ported yet.
+ranks taken on the scores' device (ranking.py); the dumps write the JAX
+package's files line for line.
 """
 from __future__ import annotations
 
@@ -38,12 +39,71 @@ class MrrSummary:
             for h in self.calculate_hits_at:
                 self.results[kind][f"H@{h}"] = float(np.mean(ranks <= h))
 
+    def mrr_string(self) -> str:
+        return "MRR"
+
+    def accuracy_string(self) -> str:
+        return "Accuracy"
+
     def pretty_print(self) -> str:
         lines = ["\tRaw\tFiltered"]
         for item in ["MRR"] + [f"H@{h}" for h in self.calculate_hits_at]:
             lines.append(f"{item}\t{round(self.results['Raw'][item], 3)}"
                          f"\t{round(self.results['Filtered'][item], 3)}")
         out = "\n".join(lines)
+        print(out)
+        return out
+
+    # -- dump utilities (``evaluation.py:99-127``) --------------------------
+    def dump_degrees(self, in_filename: str, out_filename: str,
+                     filter: str = "Filtered") -> None:
+        """``degree + 1\tper-triple MRR`` lines, one a prediction row, by
+        the in- and the out-degree (``tools/ensemble.CutoffEnsemble``
+        reads them)."""
+        ranks = (self.filtered_ranks if filter == "Filtered"
+                 else self.raw_ranks)
+        mrrs = 1.0 / ranks
+        with open(in_filename, "w") as f:
+            for deg, mrr in zip(self.in_degrees, mrrs):
+                f.write(f"{int(deg) + 1}\t{mrr}\n")
+        with open(out_filename, "w") as f:
+            for deg, mrr in zip(self.out_degrees, mrrs):
+                f.write(f"{int(deg) + 1}\t{mrr}\n")
+
+    def dump_frequencies(self, vertex_filename: str, relation_filename: str,
+                         filter: str = "Filtered") -> None:
+        """``per-triple MRR\tfrequency`` lines, by the vertex's mean
+        relation frequency and by the relation's frequency."""
+        ranks = (self.filtered_ranks if filter == "Filtered"
+                 else self.raw_ranks)
+        mrrs = 1.0 / ranks
+        with open(vertex_filename, "w") as f:
+            for mrr, vf in zip(mrrs, self.vertex_freqs):
+                f.write(f"{mrr}\t{vf}\n")
+        with open(relation_filename, "w") as f:
+            for mrr, rf in zip(mrrs, self.relation_freqs):
+                f.write(f"{mrr}\t{rf}\n")
+
+
+@dataclass
+class AccuracySummary:
+    """Pairwise accuracy, under ``results["Filtered"]["Accuracy"]`` as the
+    early stopper reads it (``scorer.py:88-105`` of the JAX package)."""
+
+    accuracy: float
+    results: Dict[str, Dict[str, float]] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.results = {"Raw": {}, "Filtered": {"Accuracy": self.accuracy}}
+
+    def accuracy_string(self) -> str:
+        return "Accuracy"
+
+    def mrr_string(self) -> str:
+        return "MRR"
+
+    def pretty_print(self) -> str:
+        out = f"Accuracy\t{round(self.accuracy, 3)}"
         print(out)
         return out
 
@@ -145,11 +205,19 @@ class Scorer:
         if hasattr(self.model, "invalidate"):
             self.model.invalidate()
 
-    def compute_scores(self, triples: np.ndarray) -> MrrSummary:
-        if self.metric != "MRR":
-            raise NotImplementedError(f"metric {self.metric!r} is not ported "
-                                      f"yet (ROADMAP.md Queue 1 item 3)")
+    def compute_scores(self, triples: np.ndarray):
+        if self.metric == "Accuracy":
+            return self.compute_accuracy_scores(triples)
         return self.compute_mrr_scores(triples)
+
+    def compute_accuracy_scores(self, triples: np.ndarray) -> AccuracySummary:
+        """Pairwise pos/neg accuracy (``evaluation.py:311-325``): even rows
+        are positives, odd rows their negatives."""
+        scores = self.model.score(self.params, self.graph,
+                                  np.asarray(triples)).cpu().numpy()
+        positives = scores[::2]
+        negatives = scores[1::2]
+        return AccuracySummary(float(np.mean(positives > negatives)))
 
     def compute_mrr_scores(self, triples: np.ndarray) -> MrrSummary:
         triples = np.asarray(triples, dtype=np.int32)
@@ -188,3 +256,29 @@ class Scorer:
             filtered_ranks=np.concatenate([filt_s, filt_o]).astype(np.float64),
             in_degrees=in_deg, out_degrees=out_deg,
             vertex_freqs=v_freq, relation_freqs=r_freq)
+
+    # -- score dumping for ensembles (``evaluation.py:391-408``) -----------
+    def dump_all_scores(self, triples: np.ndarray, subject_file: str,
+                        object_file: str) -> None:
+        """One line a triple and side, ``target | s1\ts2...``: the gold
+        entity's sigmoid score, then every other candidate's in id order
+        with the known answers of its (entity, relation) key and ids past
+        ``n_entities`` removed (``tools/ensemble.WeightEnsemble`` reads
+        them). Scored in the scorer's chunks."""
+        triples = np.asarray(triples, dtype=np.int32)
+        for filename, score, gold, known, key_cols in (
+                (subject_file, self.model.score_all_subjects, 0,
+                 self.known_subjects, (2, 1)),
+                (object_file, self.model.score_all_objects, 2,
+                 self.known_objects, (0, 1))):
+            with open(filename, "w") as f:
+                for start in range(0, len(triples), self.chunk_size):
+                    chunk = triples[start:start + self.chunk_size]
+                    scores = score(self.params, self.graph,
+                                   chunk).cpu().numpy()
+                    for prediction, t in zip(scores, chunk):
+                        k = known[(int(t[key_cols[0]]), int(t[key_cols[1]]))]
+                        target = prediction[int(t[gold])]
+                        others = np.delete(prediction[:self.n_entities], k)
+                        f.write(str(target) + " | "
+                                + "\t".join(str(s) for s in others) + "\n")

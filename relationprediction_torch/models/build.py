@@ -639,6 +639,15 @@ class RGCNModel:
         return torch.as_tensor(np.asarray(triples), dtype=torch.long,
                                device=self.device).reshape(-1, 3)
 
+    def score_encoded(self, params: Dict, encoded: EncodeResult, triples
+                      ) -> torch.Tensor:
+        """[N] sigmoid(energies) of given triples from encoded codes
+        (``bilinear_diag.py:46-49``)."""
+        t = self._triples(triples)
+        return torch.sigmoid(self.decoder.energies(
+            params["decoder"], encoded.entity_codes[t[:, 0]],
+            encoded.relation_codes[t[:, 1]], encoded.entity_codes[t[:, 2]]))
+
     def score_all_subjects_encoded(self, params: Dict, encoded: EncodeResult,
                                    triples, apply_sigmoid: bool = True
                                    ) -> torch.Tensor:
@@ -660,6 +669,13 @@ class RGCNModel:
         energies = self.decoder.all_object_energies(
             params["decoder"], encoded.entity_codes, e1, r)
         return torch.sigmoid(energies) if apply_sigmoid else energies
+
+    def score(self, params: Dict, graph: GraphBatch, triples
+              ) -> torch.Tensor:
+        """sigmoid(energies) for given triples, test mode
+        (``build.py:691-699``)."""
+        encoded = self.encode(params, graph, deterministic=True)
+        return self.score_encoded(params, encoded, triples)
 
     def score_all_subjects(self, params: Dict, graph: GraphBatch, triples,
                            apply_sigmoid: bool = True) -> torch.Tensor:
@@ -707,6 +723,11 @@ class ModelView:
                                                   noise=self.noise)
             self._key = (params, graph)
         return self._encoded
+
+    def score(self, params, graph, triples) -> torch.Tensor:
+        with torch.no_grad():
+            return self.model.score_encoded(
+                params, self.encoded(params, graph), triples)
 
     def score_all_subjects(self, params, graph, triples,
                            apply_sigmoid: bool = True) -> torch.Tensor:

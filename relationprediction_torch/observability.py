@@ -1,16 +1,18 @@
-"""Metric records and step timing (``relationprediction_tpu/
-observability.py:22-101``).
+"""Metric records, step timing and profiler traces
+(``relationprediction_tpu/observability.py``).
 
 ``MetricLogger`` appends one JSON object a record to a file and may echo
 it. ``StepTimer`` counts steps/s and edges/s over a run, and the mean of
 the last ``window_size`` steps. Host clock: a step timed here ends when
 the host has queued it, and PyTorch waits for the card at the next read
-of a loss or the next synchronize."""
+of a loss or the next synchronize. ``trace`` records a ``torch.profiler``
+trace of the enclosed block."""
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, Optional
@@ -96,3 +98,24 @@ class StepTimer:
             "steps_per_sec": round(s.steps_per_sec, 3),
             "recent_step_ms": round(recent * 1e3, 2),
         }
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None) -> Iterator[str]:
+    """Record a ``torch.profiler`` trace of the enclosed block, host
+    operators and (where a card is present) its kernels and copies, and
+    write it as a Chrome trace into ``log_dir`` (default ``torch-trace``
+    under the temporary directory); yields the file's path
+    (``observability.py:104-112`` of the JAX package)."""
+    import torch
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "torch-trace")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)

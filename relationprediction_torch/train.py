@@ -11,14 +11,16 @@ for a seeded synthetic graph with a real dataset's counts), trains with
 device-drawn negatives of ``--negative-mode`` (binomial, the reference's
 coin-flip corruption, by default; split or shared with a factorizable
 decoder; the MLP decoder takes the tiled binomial loss in every mode, as
-in the JAX package), printing the loss on the reference's cadence, scores the validation split's filtered MRR every ``CheckEvery``
-iterations (printing the test metrics there too) until the early stopper
-fires or a cap is reached, saves a checkpoint under the settings'
-``ExperimentName`` at each check that did not stop, and prints the test
-metrics of the trained weights. ``--resume`` continues from the newest
-checkpoint. Runs on the CUDA card unless ``--cpu`` is given; without a card
-it fails rather than fall back. ``--mesh``, ``--vertex-sharded`` and the
-multi-host flags are not ported yet (ROADMAP.md Queue 1 item 5).
+in the JAX package), printing the loss on the reference's cadence, scores
+the validation split's filtered MRR (its pairwise Accuracy under
+``Metric=Accuracy``) every ``CheckEvery`` iterations (printing the test
+metrics there too) until the early stopper fires or a cap is reached,
+saves a checkpoint under the settings' ``ExperimentName`` at each check
+that did not stop, and prints the test metrics of the trained weights.
+``--resume`` continues from the newest checkpoint. Runs on the CUDA card
+unless ``--cpu`` is given; without a card it fails rather than fall back.
+``--mesh``, ``--vertex-sharded`` and the multi-host flags are not ported
+yet (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -43,13 +45,16 @@ def build_scorer(model, ds, metric: str):
 
 
 def validation_scoring(scorer, ds):
-    """The early stopper's score (``cli.py:175-186``): the validation
-    split's filtered MRR; prints the test metrics at each check
-    (``train.py:110-126`` of the reference)."""
+    """The early stopper's score (``cli.py:173-186``): the validation
+    split's filtered MRR, or its pairwise Accuracy under that metric;
+    prints the test metrics at each check (``train.py:110-126`` of the
+    reference)."""
+    metric_key = "MRR" if scorer.metric == "MRR" else "Accuracy"
+
     def score_validation_data(params) -> float:
         scorer.set_params(params)
         early_stopping = scorer.compute_scores(
-            ds.valid).results["Filtered"]["MRR"]
+            ds.valid).results["Filtered"][metric_key]
         scorer.compute_scores(ds.test).pretty_print()
         return early_stopping
     return score_validation_data
@@ -91,9 +96,6 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.cpu)
     cfg = config_lib.load(args.settings)
-    if cfg.training.metric != "MRR":
-        parser.error(f"metric {cfg.training.metric!r} is not ported yet "
-                     f"(ROADMAP.md Queue 1 item 3)")
     if args.dataset.startswith("synth:"):
         profile = args.dataset.split(":", 1)[1]
         if profile not in synthetic.PROFILES:
