@@ -243,6 +243,41 @@ key has it), at published widths:
   train_split_bf16  gcn_block.exp bf16 with --negative-mode split, 10
           steps: two single-factor fused backwards a step.
 
+Then the edge-partitioned mesh (relationprediction_torch/parallel/), its
+ranks spawned processes on cuda:0 (distributed.launch; a rank that fails
+fails the phase):
+
+  mesh_step  gcn_block.exp f32, the factored loss, on 1 rank over NCCL
+          and on 2 and 4 gloo ranks that share the card: one step on each
+          rank's shard of 30,000 positives and 15,000 message edges, with
+          global draws (each rank its rows' negatives, the keep-masks
+          shared), against the one-device step on the same batch and draws
+          (loss within 1e-5 relative, each leaf within 1e-4 relative L2;
+          at world size 1 equal bit for bit); an SGD step at lr 1 against
+          the one-device SGD step (each leaf's update within 1e-4), with a
+          control that sums the ranks' gradients in place of their mean
+          and must miss by N-1; 5 Adam steps of TrainLoop(mesh=) whose
+          params and Adam state are equal bit for bit on every rank; each
+          rank's launches a step (4 forward, 4 twin block_direction, their
+          fix-ups, 4 sums by relation) and all-reduces a step (calls,
+          bytes). At 2 ranks also gcn_basis (kernel 2), gcn_diag (kernel
+          3), gcn_block with bf16 message precision (BF16_STEP_TOL), with
+          bf16 message and stream precision (BF16_STEP_TOL against the
+          one-device steps on each rank's block of rows,
+          bf16_stream_rule, with two controls that must miss) and with
+          the split protocol, each one step as above; and a 20-step fit of
+          TrainLoop(mesh=) through the library (finite, falling loss;
+          checkpoints from rank 0 only; its steps/s beside the one-device
+          train phase's, ranks that share one card, not a scale-out
+          number);
+  mesh_eval  ModelView(mesh=) on 2 ranks against the one-device view:
+          codes within 1e-4, filtered MRR of 2,000 test triples within
+          1e-3, 4 forward launches an encode on each rank;
+  mesh_fit  train.py --mesh 1 (NCCL) on synth:FB15k-237 at the fit
+          phase's cadence for 40 steps, then a 10-step run and its
+          --resume to 20: its checkpoints at 10 and 20 equal the first
+          run's bit for bit.
+
 Then a line listing every ported kernel with its numbers (each kernel's
 launches on each of these paths beside them), nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero;
@@ -257,6 +292,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -278,7 +314,11 @@ from relationprediction_torch.evaluation.scorer import Scorer
 from relationprediction_torch.graph import CsrLayout, build_graph_batch
 from relationprediction_torch.models import build, decoders
 from relationprediction_torch.ops import neg_energy, staircase, staircase2
-from relationprediction_torch.params import map_tree, tree_leaves
+from relationprediction_torch.parallel import distributed
+from relationprediction_torch.parallel import collectives
+from relationprediction_torch.parallel import mesh as mesh_mod
+from relationprediction_torch.params import (map_tree, tree_leaves,
+                                             tree_unflatten)
 from relationprediction_torch.tools import ensemble
 from relationprediction_torch.training import (checkpoint, device_sampling,
                                                engine, optimizers)
@@ -4057,6 +4097,583 @@ VARIANT_STEPS = 6
 NONFINITE_OK = ("vgcn",)
 
 
+# ---------------------------------------------------------------------------
+# The edge-partitioned mesh: mesh_step, mesh_eval, mesh_fit
+# ---------------------------------------------------------------------------
+
+# (world size, backend) of the gcn_block step: NCCL on the card's one rank
+# (NCCL takes one rank a card), gloo for ranks that share cuda:0.
+MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+MESH_ADAM_STEPS = 5
+MESH_FIT_STEPS = 20
+MESH_DRAW_SEED = 11
+MESH_TIMEOUT = 600
+MESH_OPS = {"block": staircase2.block_direction,
+            "basis": staircase2.basis_direction,
+            "staircase": staircase.staircase_aggregate}
+
+
+def digest(*trees) -> str:
+    h = hashlib.sha256()
+    for tree in trees:
+        for t in tree_leaves(tree):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_batches(mesh, model, cfg, ds, whole: bool):
+    """(this rank's batch, the global batch with the whole graph or None)
+    of one pipeline seed, on the rank's device."""
+    kw = dict(shard_multiple=mesh.world_size)
+    mine = engine.BatchPipeline(model, cfg, ds, np.random.default_rng(0),
+                                shard_rank=mesh.rank, **kw).next()
+    glob = engine.BatchPipeline(model, cfg, ds, np.random.default_rng(0),
+                                **kw).next() if whole else None
+    return (mine.to(mesh.device),
+            None if glob is None else glob.to(mesh.device))
+
+
+def mesh_draws(mesh, model, cfg, kind, n_rows):
+    """(global draws, this rank's draws): every positive's negatives of
+    ``kind`` (factored or split) and the keep-masks from one seeded
+    generator on the card, the same on every rank; the rank's rows of the
+    negatives."""
+    gen = torch.Generator(device=mesh.device).manual_seed(MESH_DRAW_SEED)
+    rate, v = cfg.training.negative_sample_rate, cfg.entity_count
+    shape = torch.empty(n_rows, 3, device="meta")
+    if kind == "factored":
+        neg = device_sampling.device_negative_parts(shape, rate, v, gen)
+    elif kind == "split":
+        neg = device_sampling.device_negative_entities_split(shape, rate, v,
+                                                             gen)
+    else:
+        raise ValueError(f"no mesh draws for {kind!r}")
+    draws = engine.Draws(tuple(neg), model.draw_keep_masks(gen))
+    rows = mesh_mod.shard_rows(n_rows, mesh.shard)
+    return draws, draws._replace(
+        negatives=tuple(x[rows] for x in draws.negatives))
+
+
+def mesh_launches(model, cfg, op, kind, steps, graph, rows) -> dict:
+    """The kernels launched since reset_launch_counts by ``steps`` steps
+    on this rank's shard, held as phase_train holds a fit's: ``op``'s
+    forward and twin launches (none for staircase_aggregate) once a layer
+    and direction a step, in the model's precision only, with their
+    split, pad and fix-up passes; d blocks' and d C's sums by relation
+    once a layer and direction and chunk of the shard's edges; the bf16
+    energies' kernel 3 launches for ``rows`` positives."""
+    pre = "bf16_" if model.agg_dtype is not None else ""
+    launches = getattr(op, pre + "launches")
+    twin = getattr(op, pre + "twin_launches", 0)
+    energies = energy_launches()
+    check_helper_launches(op, launches, twin,
+                          staircase2.basis_direction.project_launches,
+                          staircase2.basis_direction.split_launches,
+                          fixup_counts(), energies)
+    check_other_precision_idle(
+        bool(pre), launches if pre and op is staircase2.basis_direction
+        else 0)
+    per_layer = 2 * cfg.encoder.n_layers
+    twin_per_layer = 0 if op is staircase.staircase_aggregate else per_layer
+    chunks = -(-graph.fwd.n_edges // staircase2._EDGE_CHUNK)
+    by_relation = 0 if op is staircase.staircase_aggregate \
+        else per_layer * chunks
+    want_energies = steps * fused_energy_launches(
+        model, kind, rows, cfg.training.negative_sample_rate)
+    got = {"launches": launches, "twin_launches": twin,
+           "sum_by_csr_launches": sum_by_csr_op().launches,
+           "energy_launches": energies}
+    want = {"launches": per_layer * steps,
+            "twin_launches": twin_per_layer * steps,
+            "sum_by_csr_launches": steps * by_relation + want_energies,
+            "energy_launches": want_energies}
+    if got != want:
+        raise AssertionError(f"rank's launches {got}, expected {want}")
+    return {**got, "project_launches": getattr(
+                staircase2.basis_direction, pre + "project_launches"),
+            "split_launches": staircase2.basis_direction.split_launches,
+            "pad_launches": staircase2.basis_direction.bf16_pad_launches,
+            "fixup_launches": sum(fixup_counts().values()),
+            "dc_project_launches": launches if pre and op is
+            staircase2.basis_direction else 0,
+            "per_step": {k: v // steps for k, v in got.items()}}
+
+
+def sgd_vs_one_device(mesh, model, cfg, params, mine, draws, mine_draws,
+                      ref_grads) -> dict:
+    """One SGD step at lr 1 without clipping, sharded, against the
+    one-device step from the same params and draws: each leaf's update
+    within 1e-4 in relative L2 norm; the control sums the ranks' gradients
+    (each N times its share) in place of their mean and must miss by N-1
+    (at world size 1 a sum is the mean: no control)."""
+    sgd = with_optimizer(cfg, algorithm="GradientDescent",
+                         max_gradient_norm=None, learning_rate=1.0)
+    opt = optimizers.build_optimizer(sgd.optimizer)
+    sharded = map_tree(torch.clone, params)
+    engine.make_sharded_train_step(model, opt, mesh, "factored")(
+        sharded, opt.init(sharded), mine, mine_draws)
+    _, local = engine.step_loss_and_grads(model, "factored", params, mine,
+                                          mine_draws, group=mesh.group)
+    summed = map_tree(lambda g: g * mesh.world_size,
+                      collectives.pmean(local, mesh.group))
+    if mesh.rank:
+        return {}
+    out = {}
+    for name, grads in (("one_device", ref_grads), ("summed", summed)):
+        p = map_tree(torch.clone, params)
+        updates, _ = opt.update(grads, opt.init(p))
+        optimizers.apply_updates(p, updates)
+        out[name] = p
+
+    def worst(got):
+        """The largest relative L2 difference of a leaf's update from the
+        one-device update (absolute where that update is 0: the unused
+        bias)."""
+        diffs = []
+        for a, b, p0 in zip(tree_leaves(got), tree_leaves(out["one_device"]),
+                            tree_leaves(params)):
+            diff = (a - b).double().norm().item()
+            norm = (b - p0).double().norm().item()
+            diffs.append(diff / norm if norm else diff)
+        return max(diffs)
+    row = {"sgd_lr": 1.0, "sgd_worst_update_rel_l2": worst(sharded)}
+    if not row["sgd_worst_update_rel_l2"] <= 1e-4:
+        raise AssertionError(f"the sharded SGD step misses the one-device "
+                             f"step: {row}")
+    if mesh.world_size > 1:
+        row["sgd_summed_control_rel_l2"] = worst(out["summed"])
+        if not row["sgd_summed_control_rel_l2"] > 0.5:
+            raise AssertionError(f"the control that sums the gradients "
+                                 f"passed the SGD check: {row}")
+    return row
+
+
+def per_block_step(model, kind, params, whole, draws, n) -> tuple:
+    """(loss, gradient tree): the mean over n equal blocks of the global
+    batch's rows of the one-device step on each block with the whole
+    graph and the block's negatives. Each block's means divide by its own
+    count, n times smaller than the batch's (every row real), so its
+    gradient is n times its rows' share, as on a rank: the mesh's step
+    without a collective."""
+    n_rows = whole.triples.shape[0]
+    losses, trees = [], []
+    for r in range(n):
+        rows = mesh_mod.shard_rows(n_rows, (r, n))
+        if whole.mask[rows].sum().item() * n != whole.mask.sum().item():
+            raise AssertionError("the blocks' real rows differ")
+        loss, grads = engine.step_loss_and_grads(
+            model, kind, params,
+            whole._replace(triples=whole.triples[rows],
+                           mask=whole.mask[rows]),
+            draws._replace(negatives=tuple(x[rows]
+                                           for x in draws.negatives)))
+        losses.append(loss)
+        trees.append(tree_leaves(grads))
+    return sum(losses) / n, tree_unflatten(
+        grads, [sum(leaves) / n for leaves in zip(*trees)])
+
+
+def bf16_stream_rule(loss, grads, ref_loss, ref_grads, f32_grads, block,
+                     controls) -> dict:
+    """A step on bf16 streams. The positives' gathers sum their backward
+    serially in bf16 (the reference's arithmetic, kept: ROADMAP Queue 3
+    item 3), so a rank's half of a hub entity's rows rounds otherwise than
+    the whole: against the one-device step on the global batch
+    (``ref_loss``, ``ref_grads``) the leaves move by up to the bf16 error
+    itself, and so does the one-device step against the f32 step
+    (``f32_grads``); both reported, the loss held within BF16_STEP_TOL.
+    The step is held to BF16_STEP_TOL against ``block`` (loss, gradient
+    tree), the mean of the one-device steps on each rank's block of rows
+    (``per_block_step``), which sum in bf16 as the ranks do; each of
+    ``controls`` (name: gradient tree of a faulty sharded step) must miss
+    it."""
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    if not loss_rel <= BF16_STEP_TOL["loss_rtol"]:
+        raise AssertionError(f"bf16 mesh loss differs from the one-device "
+                             f"step by {loss_rel}")
+    row = same_step(loss, grads, *block, "the one-device steps on the "
+                    "ranks' blocks of rows", **BF16_STEP_TOL)
+    caught = {}
+    for name, tree in controls.items():
+        caught[name] = max(rel_l2(g, c) for g, c in zip(
+            tree_leaves(tree), tree_leaves(block[1])) if c.norm().item())
+        if not caught[name] > BF16_STEP_TOL["leaf_rtol"]:
+            raise AssertionError(f"the control {name} passed the bf16 "
+                                 f"streams' rule: {caught}")
+    leaves = [{"shape": list(g.shape), "vs_one_device": rel_l2(g, r),
+               "vs_f32": rel_l2(g, f), "one_device_vs_f32": rel_l2(r, f)}
+              for g, r, f in zip(tree_leaves(grads), tree_leaves(ref_grads),
+                                 tree_leaves(f32_grads)) if f.norm().item()]
+    return {"loss": loss.item(), "ref_loss": ref_loss.item(),
+            "loss_rel_diff": loss_rel, "blocks_loss": row["ref_loss"],
+            "vs_blocks_loss_rel_diff": row["loss_rel_diff"],
+            "vs_blocks_worst_leaf_rel_l2_diff":
+                row["worst_leaf_rel_l2_diff"],
+            "bf16_stream_rule": True,
+            "worst_leaf_rel_l2_diff": max(x["vs_one_device"] for x in leaves),
+            "worst_leaf_vs_f32": max(x["vs_f32"] for x in leaves),
+            "worst_one_device_leaf_vs_f32": max(x["one_device_vs_f32"]
+                                                for x in leaves),
+            "controls_vs_blocks": caught, "leaves": leaves}
+
+
+def mesh_step_cell(mesh, ds, cfg, kind, op_name, tol, full) -> dict:
+    """One step of ``kind`` on this rank's shard against the one-device
+    step on the global batch and draws (rank 0), within ``tol`` (on bf16
+    streams ``bf16_stream_rule``: against the one-device steps on the
+    ranks' blocks of rows); at world size 1 they must be
+    equal bit for bit. The step's launches on the rank
+    (``mesh_launches``) and its all-reduces. With ``full`` (the f32
+    gcn_block cell) also sgd_vs_one_device and MESH_ADAM_STEPS steps of
+    TrainLoop(mesh=) whose params and Adam state must be equal bit for
+    bit on every rank (digests compared by the parent)."""
+    exact_float32()
+    op = MESH_OPS[op_name]
+    model = build.build_model(cfg, mesh.device)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    mine, whole = mesh_batches(mesh, model, cfg, ds, mesh.rank == 0)
+    draws, mine_draws = mesh_draws(mesh, model, cfg, kind,
+                                   mine.triples.shape[0] * mesh.world_size)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    calls0, bytes0 = collectives.all_reduce_sum.calls, \
+        collectives.all_reduce_sum.bytes
+    loss, grads = engine.sharded_loss_and_grads(model, kind, params, mine,
+                                                mine_draws, mesh)
+    torch.cuda.synchronize()
+    row = {"model": model_label(cfg), "loss_kind": kind,
+           "op": op.__name__, "bf16": model.agg_dtype is not None,
+           "world_size": mesh.world_size, "backend": mesh.backend,
+           "rank_rows": int(mine.triples.shape[0]),
+           "rank_real_rows": int(mine.mask.sum().item()),
+           "rank_message_edges": mine.graph.fwd.n_edges,
+           "all_reduce_calls": collectives.all_reduce_sum.calls - calls0,
+           "all_reduce_bytes": collectives.all_reduce_sum.bytes - bytes0,
+           **mesh_launches(model, cfg, op, kind, 1, mine.graph,
+                           mine.triples.shape[0])}
+    controls = {}
+    if model.stream_dtype is not None:
+        # bf16_stream_rule's controls: the ranks' gradients summed in place
+        # of their mean, and rank 0's alone (N times its rows' share: the
+        # other ranks' rows lost). Every rank joins the collectives.
+        _, alone = engine.step_loss_and_grads(model, kind, params, mine,
+                                              mine_draws, group=mesh.group)
+        controls = {"summed": map_tree(lambda g: g * mesh.world_size,
+                                       grads), "rank0_alone": alone}
+    ref_grads = None
+    if mesh.rank == 0:
+        ref_loss, ref_grads = engine.step_loss_and_grads(model, kind, params,
+                                                         whole, draws)
+        if model.stream_dtype is None:
+            row.update(same_step(loss, grads, ref_loss, ref_grads,
+                                 "the one-device step", **tol))
+            del row["grads"]
+        else:
+            _, f32_grads = engine.step_loss_and_grads(
+                build.build_model(float32_config(cfg), mesh.device), kind,
+                params, whole, draws)
+            block = per_block_step(model, kind, params, whole, draws,
+                                   mesh.world_size)
+            row.update(bf16_stream_rule(loss, grads, ref_loss, ref_grads,
+                                        f32_grads, block, controls))
+            del f32_grads, block
+        row["bitwise_equal"] = loss.item() == ref_loss.item() and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(grads),
+                                              tree_leaves(ref_grads)))
+        if mesh.world_size == 1 and not row["bitwise_equal"]:
+            raise AssertionError("at world size 1 the mesh step differs "
+                                 "from the one-device step")
+    del grads, controls
+    if full:
+        row.update(sgd_vs_one_device(mesh, model, cfg, params, mine, draws,
+                                     mine_draws, ref_grads))
+        del ref_grads
+        loop = engine.TrainLoop(model, cfg, ds, seed=0, prefetch=False,
+                                log=lambda line: None, mesh=mesh)
+        p0, s0 = loop.init_state(0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        calls0, bytes0 = collectives.all_reduce_sum.calls, \
+            collectives.all_reduce_sum.bytes
+        result = loop.fit(p0, s0, max_iterations=MESH_ADAM_STEPS)
+        torch.cuda.synchronize()
+        row["adam"] = {
+            "steps": MESH_ADAM_STEPS,
+            "digest": digest(result.params, result.opt_state),
+            "count": int(result.opt_state["count"]),
+            "losses": [s["loss"] for s in result.steps],
+            "all_reduce_calls_per_step": (collectives.all_reduce_sum.calls
+                                          - calls0) / MESH_ADAM_STEPS,
+            "all_reduce_bytes_per_step": (collectives.all_reduce_sum.bytes
+                                          - bytes0) / MESH_ADAM_STEPS,
+            **mesh_launches(model, cfg, op, kind, MESH_ADAM_STEPS,
+                            mine.graph, mine.triples.shape[0])}
+    return row
+
+
+def mesh_eval_cell(mesh, ds, cfg) -> dict:
+    """ModelView(mesh=) on this rank's shard of the train graph against
+    the one-device view (rank 0): codes within rtol 1e-4 / atol 1e-4, and
+    the filtered MRR of SERVE_TRIPLES test triples within 1e-3 (the serve
+    rule); 4 forward launches an encode on each rank."""
+    exact_float32()
+    model = build.build_model(cfg, mesh.device)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    graph = model.make_graph(ds.train, shard=mesh.shard)
+    view = build.ModelView(model, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    codes = view.encoded(params, graph).entity_codes
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    launches = staircase2.block_direction.launches
+    if launches != 2 * cfg.encoder.n_layers \
+            or staircase2.launch_counts() != (launches, 0):
+        raise AssertionError(f"a sharded encode launched "
+                             f"{staircase2.launch_counts()}")
+    scorer = Scorer(metric=cfg.training.metric)
+    for t in (ds.train, ds.valid, ds.test):
+        scorer.register_data(t)
+    scorer.register_degrees(ds.train)
+    scorer.finalize_frequency_computation(ds.all_triples())
+    triples = ds.test[:SERVE_TRIPLES]
+    scorer.register_model(view, params, graph, n_entities=ds.n_entities)
+    t0 = time.perf_counter()
+    got = scorer.compute_scores(triples).results["Filtered"]
+    score_s = time.perf_counter() - t0
+    row = {"world_size": mesh.world_size, "backend": mesh.backend,
+           "op": "block_direction", "bf16": False,
+           "launches": launches, "twin_launches": 0,
+           "fixup_launches": sum(fixup_counts().values()),
+           "encode_ms": encode_ms, "score_s": score_s,
+           "shard_edges": graph.fwd.n_edges, "mrr_filtered": got["MRR"],
+           "hits10_filtered": got["H@10"], "triples": len(triples)}
+    if mesh.rank == 0:
+        one = build.ModelView(model)
+        whole = model.make_graph(ds.train)
+        ref = one.encoded(params, whole).entity_codes
+        torch.testing.assert_close(codes, ref, rtol=1e-4, atol=1e-4)
+        scorer.register_model(one, params, whole, n_entities=ds.n_entities)
+        want = scorer.compute_scores(triples).results["Filtered"]
+        row.update(codes_max_abs_diff=(codes - ref).abs().max().item(),
+                   codes_rel_l2=rel_l2(codes, ref),
+                   mrr_filtered_one_device=want["MRR"],
+                   mrr_diff=abs(got["MRR"] - want["MRR"]))
+        if row["mrr_diff"] > 1e-3:
+            raise AssertionError(f"sharded filtered MRR {got['MRR']} "
+                                 f"against {want['MRR']}")
+    return row
+
+
+def mesh_fit_cell(mesh, ds, cfg, out_dir) -> dict:
+    """MESH_FIT_STEPS steps of TrainLoop(mesh=) through the library, serial
+    batches, saving every 10 under a directory of each rank's: only rank
+    0's holds checkpoints; the loss finite at every step and lower at the
+    last than at the first; steps/s of ranks that share one card."""
+    exact_float32()
+    cfg = with_optimizer(cfg, save_every_n=10)
+    model = build.build_model(cfg, mesh.device)
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, prefetch=False,
+                            log=lambda line: None, mesh=mesh)
+    rank_dir = Path(out_dir) / f"rank{mesh.rank}"
+    rank_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = loop.fit(max_iterations=MESH_FIT_STEPS,
+                      checkpoint_path=str(rank_dir / "m"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = [s["loss"] for s in result.steps]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"mesh fit losses {losses}")
+    return {"world_size": mesh.world_size, "steps": result.iterations,
+            "op": "block_direction", "bf16": False,
+            **mesh_launches(model, cfg, staircase2.block_direction,
+                            "factored", MESH_FIT_STEPS,
+                            loop.pipeline.next().graph,
+                            loop.pipeline.positives_pad
+                            // mesh.world_size),
+            "losses": losses, "wall_s": wall_s,
+            "steps_per_s": loop.timer.summary()["steps_per_sec"],
+            "step_ms_median": statistics.median(s["step_ms"]
+                                                for s in result.steps),
+            "checkpoints": sorted(p.name for p in rank_dir.glob("*.ckpt")),
+            "digest": digest(result.params, result.opt_state)}
+
+
+def mesh_rank(mesh, cells) -> dict:
+    """One rank of a mesh phase (a process started by
+    distributed.launch): each cell (label, kind, arguments) in turn on the
+    seeded synth:FB15k-237 graph."""
+    ds = synthetic.like("FB15k-237", seed=0)
+    out = {}
+    for label, kind, args in cells:
+        t0 = time.perf_counter()
+        if kind == "step":
+            out[label] = mesh_step_cell(mesh, ds, *args)
+        elif kind == "eval":
+            out[label] = mesh_eval_cell(mesh, ds, *args)
+        else:
+            out[label] = mesh_fit_cell(mesh, ds, *args)
+        out[label]["cell_s"] = time.perf_counter() - t0
+    return out
+
+
+def launch_mesh(world, backend, cells) -> list:
+    """mesh_rank on ``world`` spawned ranks on cuda:0 (one rank over NCCL,
+    or gloo ranks sharing the card)."""
+    return distributed.launch(mesh_rank, world, (cells,), backend=backend,
+                              devices=["cuda:0"] * world,
+                              timeout=MESH_TIMEOUT)
+
+
+def phase_mesh_step(ds, cfg, basis_cfg, train_steps_per_s) -> dict:
+    """mesh_step and mesh_eval: the gcn_block f32 step (factored) on 1
+    (NCCL), 2 and 4 (gloo) ranks on cuda:0, each with its SGD control and
+    MESH_ADAM_STEPS Adam steps equal bit for bit on every rank; at 2 ranks
+    also gcn_basis (kernel 2), gcn_diag (kernel 3), gcn_block with bf16
+    message precision (the bf16 kernels, BF16_STEP_TOL) and with both
+    precisions bf16 (bf16_stream_rule: BF16_STEP_TOL against the
+    one-device steps on the ranks' blocks of rows), the split protocol,
+    the sharded ModelView and a MESH_FIT_STEPS-step fit (its steps/s
+    beside the one-device train phase's ``train_steps_per_s``: ranks that
+    share one card, not a scale-out number). Returns each path's launch row by phase name."""
+    t_phase = time.perf_counter()
+    diag_cfg = dataclasses.replace(basis_cfg, encoder=dataclasses.replace(
+        basis_cfg.encoder, name="gcn_diag"))
+    bf16_cfg = bf16_config(ds, "mesh_bf16", SETTINGS, [BF16_LINE])
+    message_cfg = variant_config(ds, "mesh_bf16_message", SETTINGS,
+                                 [BF16_LINE])
+    block = ("block", "step", (cfg, "factored", "block", {}, True))
+    extra = [("basis", "step", (basis_cfg, "factored", "basis", {}, False)),
+             ("diag", "step", (diag_cfg, "factored", "staircase", {},
+                               False)),
+             ("bf16_message", "step", (message_cfg, "factored", "block",
+                                       BF16_STEP_TOL, False)),
+             ("bf16", "step", (bf16_cfg, "factored", "block",
+                               BF16_STEP_TOL, False)),
+             ("split", "step", (cfg, "split", "block", {}, False)),
+             ("eval", "eval", (cfg,)),
+             ("fit", "fit", (cfg, str(fresh_dir("mesh_fit_library"))))]
+    paths = {}
+    for world, backend in MESH_WORLDS:
+        results = launch_mesh(world, backend,
+                              [block] + (extra if world == 2 else []))
+        digests = {r["block"]["adam"]["digest"] for r in results}
+        if len(digests) != 1:
+            raise AssertionError(f"params and Adam state differ between "
+                                 f"the {world} ranks after "
+                                 f"{MESH_ADAM_STEPS} steps")
+        head = results[0]
+        for label, row in head.items():
+            if label == "eval":
+                emit("mesh_eval", phase_s=time.perf_counter() - t_phase,
+                     card=nvidia_smi_line(), **row)
+            elif label == "fit":
+                ckpts = [r["fit"]["checkpoints"] for r in results]
+                if ckpts[0] != ["m-10.ckpt", "m-20.ckpt"] \
+                        or any(ckpts[1:]) \
+                        or len({r["fit"]["digest"] for r in results}) != 1:
+                    raise AssertionError(f"mesh fit checkpoints {ckpts}, "
+                                         f"or the ranks' params differ")
+                emit("mesh_step_fit", phase_s=time.perf_counter() - t_phase,
+                     card=nvidia_smi_line(),
+                     one_device_steps_per_s=train_steps_per_s,
+                     note="ranks that share one card, not a scale-out "
+                          "number", **row)
+            else:
+                emit("mesh_step", cell=label,
+                     phase_s=time.perf_counter() - t_phase,
+                     replicas_bitwise_equal=True, card=nvidia_smi_line(),
+                     **row)
+            launch_row = {**row, **row.get("adam", {})}
+            paths[f"mesh_{label}_{world}"] = launch_row
+    return paths
+
+
+MESH_CLI_CUTS = ("CheckEvery=2000", "CheckEvery=10"), \
+    ("BurninPhaseDuration=6000", "BurninPhaseDuration=20"), \
+    ("ReportTrainLossEvery=100", "ReportTrainLossEvery=10")
+# The resume runs save every 10 steps and check nothing before step 1,000.
+MESH_CLI_SAVES = ("CheckEvery=2000", "CheckEvery=1000"), \
+    ("ReportTrainLossEvery=100", "ReportTrainLossEvery=10\n\tSaveEveryN=10")
+
+
+def mesh_cli(name, lines, *flags) -> tuple:
+    """``python -m relationprediction_torch.train`` on gcn_block.exp with
+    ``lines`` changed and ExperimentName under build/chip_smoke/mesh_fit,
+    on synth:FB15k-237 with --mesh 1 (one rank, NCCL); (stdout, the
+    checkpoint path, seconds)."""
+    out = fresh_dir(f"mesh_fit/{name}")
+    text = SETTINGS.read_text()
+    for old, new in lines + (("ExperimentName=models/BlockGCN",
+                              f"ExperimentName={out / 'm'}"),):
+        if old not in text:
+            raise AssertionError(f"gcn_block.exp has no line {old!r}")
+        text = text.replace(old, new)
+    (out / "gcn_block.exp").write_text(text)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "relationprediction_torch.train",
+         "--settings", str(out / "gcn_block.exp"), "--dataset",
+         "synth:FB15k-237", "--mesh", "1", *flags], cwd=ROOT,
+        capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"train.py --mesh 1 failed: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc.stdout, str(out / "m"), time.perf_counter() - t0
+
+
+def same_checkpoints(a: str, b: str, step: int) -> None:
+    """The two runs' checkpoints at ``step``: params, Adam state and the
+    pipelines' states equal bit for bit."""
+    x = checkpoint.restore(f"{a}-{step}.ckpt")
+    y = checkpoint.restore(f"{b}-{step}.ckpt")
+    for part in ("params", "opt_state"):
+        for u, v in zip(tree_leaves(x[part]), tree_leaves(y[part])):
+            if not np.array_equal(np.asarray(u), np.asarray(v)):
+                raise AssertionError(f"{part} differ at step {step}")
+    if x["extra"]["pipeline_states"] != y["extra"]["pipeline_states"]:
+        raise AssertionError(f"pipeline states differ at step {step}")
+
+
+def phase_mesh_fit() -> dict:
+    """mesh_fit: train.py's main path with --mesh 1 (NCCL) for FIT_STEPS
+    steps at the fit phase's cadence, then a 10-step run and its --resume
+    to 20 (saving every 10, no check): the checkpoints at 10 (two runs from
+    one seed) and 20 (the resumed run) equal the first run's bit for
+    bit."""
+    t_phase = time.perf_counter()
+    out_a, a, a_s = mesh_cli("a", MESH_CLI_CUTS, "--max-iterations",
+                             str(FIT_STEPS))
+    _, b, b_s = mesh_cli("b", MESH_CLI_SAVES, "--max-iterations", "10")
+    proc = subprocess.run(
+        [sys.executable, "-m", "relationprediction_torch.train",
+         "--settings", str(Path(b).parent / "gcn_block.exp"), "--dataset",
+         "synth:FB15k-237", "--mesh", "1", "--resume",
+         "--max-iterations", "20"], cwd=ROOT, capture_output=True,
+        text=True, timeout=MESH_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the resumed run failed: {proc.stderr[-4000:]}")
+    same_checkpoints(a, b, 10)
+    same_checkpoints(a, b, 20)
+    done = re.search(r"Training done: (\d+) iterations .* last loss (\S+) "
+                     r"\((\S+) steps/s", out_a)
+    checks = re.findall(r"Tested validation score at iteration (\d+)", out_a)
+    if not done or "Mesh: 1 ranks over nccl" not in out_a \
+            or not np.isfinite(float(done.group(2))) or not checks:
+        raise AssertionError(f"train.py --mesh 1 printed {out_a[-2000:]}")
+    row = {"steps": int(done.group(1)), "last_loss": float(done.group(2)),
+           "steps_per_s_incl_checks": float(done.group(3)),
+           "checks": [int(c) for c in checks], "run_s": a_s,
+           "short_run_s": b_s, "checkpoints_10_and_20_bitwise": True,
+           "backend": "nccl", "card": nvidia_smi_line()}
+    emit("mesh_fit", phase_s=time.perf_counter() - t_phase, **row)
+    return row
+
+
 def build_all() -> None:
     """Build every kernel source at once, one nvcc each."""
     t_phase = time.perf_counter()
@@ -4216,10 +4833,22 @@ def main() -> int:
         "op": "block_direction"}
 
     bf16_runs["quality_gcn_block_bf16"] = quality["quality_gcn_block_bf16"]
+
+    # The edge-partitioned mesh: the gcn_block step on 1 (NCCL), 2 and 4
+    # (gloo) ranks on cuda:0, and at 2 ranks gcn_basis, gcn_diag, bf16, the
+    # split protocol, the sharded ModelView and a 20-step fit; then
+    # train.py --mesh 1. Each path's launches join its kernels' rows.
+    by_op = {"block_direction": paths, "basis_direction": basis_paths,
+             "staircase_aggregate": runs}
+    for name, row in phase_mesh_step(ds, cfg, basis_cfg,
+                                     train["steps_per_s"]).items():
+        (bf16_runs if row["bf16"] else by_op[row["op"]])[name] = row
+    phase_mesh_fit()
+
     train_runs = {"train": train, "train_basis": train_b, "fit": fit,
                   **{k: r for k, r in {**paths, **basis_paths, **runs,
                                        **bf16_runs}.items()
-                     if k.startswith(("train", "quality"))}}
+                     if k.startswith(("train", "quality", "mesh"))}}
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
                                               paths)
                       + basis_kernels_line(kb, serve_b, train_b,

@@ -111,6 +111,10 @@ class GraphBatch:
     normalization: the weights' rule ('global', 'local' or 'none'); bf16
       message precision applies to 'global' graphs only, as in the JAX
       package, whose other normalizations take its f32 segment sum.
+    shard: (rank, n): the graph holds the rank-th of n contiguous blocks
+      of the input edges, with the whole input's weights (``shard_edges``);
+      (0, 1) is the whole graph. An edge-partitioned layer sums a shard
+      and all-reduces the partial [V, d] sums (parallel/mesh.py).
     """
 
     fwd: CsrLayout
@@ -122,6 +126,7 @@ class GraphBatch:
     n_vertices: int
     n_relations: int
     normalization: str = "global"
+    shard: tuple = (0, 1)
 
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
         """The same graph on ``device``; the twins keep sharing their
@@ -142,7 +147,7 @@ class GraphBatch:
                           replace(fwd, w=fn(self.bwd_twin.w)),
                           fn(self.fwd_order), fn(self.bwd_order),
                           self.n_vertices, self.n_relations,
-                          self.normalization)
+                          self.normalization, self.shard)
 
     def tensors(self) -> list:
         """Every distinct tensor of the graph (the twins' index arrays are
@@ -155,15 +160,32 @@ class GraphBatch:
 NORMALIZATIONS = ("global", "local", "none")
 
 
+def shard_edges(n_edges: int, shard: tuple) -> slice:
+    """The input edges of shard ``(rank, n)``: the rank-th of n equal
+    contiguous blocks of the edges padded to a multiple of lcm(8, n), as
+    the JAX package pads and splits its edge axis over a mesh
+    (``shard_align``, ``engine.py:141``); the padding holds no edge."""
+    rank, n = shard
+    if not 0 <= rank < n:
+        raise ValueError(f"shard {shard}: rank outside [0, {n})")
+    per = -(-n_edges // int(np.lcm(8, n))) * int(np.lcm(8, n)) // n
+    return slice(min(rank * per, n_edges), min((rank + 1) * per, n_edges))
+
+
 def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
-                      normalization: str = "global") -> GraphBatch:
+                      normalization: str = "global",
+                      shard: tuple = (0, 1)) -> GraphBatch:
     """Host-side construction of a GraphBatch (on the CPU) from an [N, 3]
     (s, r, o) array; ``GraphBatch.to`` moves it to the card.
 
     ``normalization`` sets every layout's weights, per direction (the
     target is the receiver forward, the sender backward): 'global' 1 /
     degree of the target, 'local' 1 / count of the (target, relation)
-    pair, 'none' 1.
+    pair, 'none' 1. They are counted over all of ``triples``; ``shard``
+    (rank, n) then keeps that rank's block of the edges (``shard_edges``)
+    in CSRs over all V rows, so that the shards' sums add up to the whole
+    graph's (a degree counted over a shard would not). The orders index
+    ``triples``.
     """
     if normalization not in NORMALIZATIONS:
         raise ValueError(f"unknown normalization {normalization!r}")
@@ -175,12 +197,15 @@ def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
                        normalization)
     bwd_w = _host_norm(senders, relations, n_vertices, n_relations,
                        normalization)
+    block = shard_edges(len(triples), shard)
     # Every edge is real here (weights > 0, vertices checked), so both
     # CSRs hold the same edges and each order permutes all of them.
-    fwd, fwd_order = build_csr(senders, relations, receivers, fwd_w,
-                               n_vertices)
-    bwd, bwd_order = build_csr(receivers, relations, senders, bwd_w,
-                               n_vertices)
+    fwd, fwd_order = build_csr(senders[block], relations[block],
+                               receivers[block], fwd_w[block], n_vertices)
+    bwd, bwd_order = build_csr(receivers[block], relations[block],
+                               senders[block], bwd_w[block], n_vertices)
+    fwd_order += block.start
+    bwd_order += block.start
     return GraphBatch(
         fwd=fwd, bwd=bwd,
         fwd_twin=replace(bwd, w=torch.from_numpy(fwd_w[bwd_order])),
@@ -189,7 +214,8 @@ def build_graph_batch(triples: np.ndarray, n_vertices: int, n_relations: int,
         bwd_order=torch.from_numpy(bwd_order),
         n_vertices=int(n_vertices),
         n_relations=int(n_relations),
-        normalization=normalization)
+        normalization=normalization,
+        shard=tuple(shard))
 
 
 def _host_norm(targets: np.ndarray, relations: np.ndarray, n_vertices: int,

@@ -33,19 +33,24 @@ from ..graph import GraphBatch, build_graph_batch
 from ..ops.gather import take_rows
 from ..ops.neg_energy import (factored_negative_energies,
                               single_factor_negative_energies)
+from ..parallel.collectives import all_gather_rows, all_reduce_sum
+from ..parallel.mesh import EdgeMesh
 from ..params import map_tree
 from . import decoders as decoders_lib
 from . import encoders as enc
 
 
 def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
-                                e1, r, e2, pos_mask, corrupt_object):
+                                e1, r, e2, pos_mask, corrupt_object,
+                                group=None):
     """CE + regularization of the factored binomial protocol
     (``build.py:30-84``): the exact objective of the reference's tiled
     batch (``auxilliaries.py:13-33`` + ``bilinear_diag.py``).
 
     pos_energy [n]; neg_energy / ev_sq / corrupt_object [n, rate];
-    e1 / r / e2 [n, d] positive codes; pos_mask [n].
+    e1 / r / e2 [n, d] positive codes; pos_mask [n]. With ``group`` (an
+    edge mesh's process group, the rows this rank's) every sum is
+    all-reduced, so the ranks' rows give the global objective.
     """
     rate = neg_energy.shape[1]
     n = pos_energy.shape[0]
@@ -54,7 +59,7 @@ def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
     # neg_energy is positive-major ([n, rate] flattened), so the mask
     # repeats per positive; the CE mean does not depend on the order.
     mask = torch.cat([pos_mask, pos_mask.repeat_interleave(rate)])
-    loss = decoders_lib.weighted_ce_loss(energies, labels, mask)
+    loss = decoders_lib.weighted_ce_loss(energies, labels, mask, group)
 
     # Regularization means over the equivalent tiled rows
     # (``bilinear_diag.py:63-69``): positive i's e1 survives in its
@@ -71,7 +76,13 @@ def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
     e2_sq = ((e2.float() ** 2).sum(-1) * m * (1.0 + n_subj)).sum() \
         + (ev_sq * co).sum()
     r_sq = ((r.float() ** 2).sum(-1) * m).sum() * (rate + 1)
-    count = m.sum().clamp(min=1.0) * (rate + 1) * e1.shape[-1]
+    live = m.sum()
+    if group is not None:
+        e1_sq, e2_sq, r_sq, live = all_reduce_sum(
+            torch.stack([e1_sq, e2_sq, r_sq, live]), group)
+    # Clamped after the sum over ranks: a rank whose rows are all padding
+    # adds nothing (``build.py:79-81``).
+    count = live.clamp(min=1.0) * (rate + 1) * e1.shape[-1]
     reg = (e1_sq + e2_sq + r_sq) / count
     return loss + decoder.regularization_parameter * reg
 
@@ -236,14 +247,18 @@ class RGCNModel:
         (``build.py:195``)."""
         return self.is_gcn
 
-    def make_graph(self, triples: np.ndarray,
-                   to_device: bool = True) -> Optional[GraphBatch]:
+    def make_graph(self, triples: np.ndarray, to_device: bool = True,
+                   shard: tuple = (0, 1)) -> Optional[GraphBatch]:
         """The message graph of ``triples`` with its CSR layouts, on the
         model's device, or left on the host (``to_device`` false); None
-        for a model without a graph (``build.py:280-322``)."""
+        for a model without a graph (``build.py:280-322``). ``shard``
+        (rank, n): that rank's block of the edges, weighted over all of
+        them (``graph.build_graph_batch``), for an edge-partitioned
+        encode."""
         if not self.is_gcn:
             return None
-        graph = build_graph_batch(triples, self.n_entities, self.n_relations)
+        graph = build_graph_batch(triples, self.n_entities, self.n_relations,
+                                  shard=shard)
         return graph.to(self.device) if to_device else graph
 
     # ------------------------------------------------------------------
@@ -253,7 +268,8 @@ class RGCNModel:
                deterministic: bool,
                generator: Optional[torch.Generator] = None,
                keep_masks: Optional[Sequence[torch.Tensor]] = None,
-               noise: Optional[EncoderNoise] = None) -> EncodeResult:
+               noise: Optional[EncoderNoise] = None,
+               group=None) -> EncodeResult:
         """All-entity codes [V, d] and relation codes [R, d]
         (``build.py:335-421``): the input stage (input transform, random
         input, partially random input, or one-hot), the layers, each
@@ -268,6 +284,10 @@ class RGCNModel:
         generator seeded ``TEST_NOISE_SEED`` at every encode, so each
         test-mode encode sees the same noise on every device, as the JAX
         package's does.
+
+        ``group``: an edge mesh's process group, ``graph`` this rank's
+        shard (``make_graph(shard=...)``): each layer all-reduces its
+        partial sums, and every rank gets the whole graph's codes.
         """
         e = self.config.encoder
         if noise is None:
@@ -312,7 +332,8 @@ class RGCNModel:
                 deterministic=deterministic, generator=generator,
                 n_vertices=self.n_entities,
                 keep_mask=None if keep_masks is None
-                else keep_masks[layer_idx], agg_dtype=self.agg_dtype)
+                else keep_masks[layer_idx], agg_dtype=self.agg_dtype,
+                group=group)
             if features is not None and e.skip_connections == "Highway":
                 new = enc.apply_highway(highways[layer_idx], new, features)
             elif features is not None and e.skip_connections == "Residual":
@@ -472,24 +493,29 @@ class RGCNModel:
              mask: Optional[torch.Tensor] = None, *,
              deterministic: bool = False,
              keep_masks: Optional[Sequence] = None,
-             noise: Optional[EncoderNoise] = None) -> torch.Tensor:
+             noise: Optional[EncoderNoise] = None,
+             group=None) -> torch.Tensor:
         """The tiled objective (``build.py:442-466``): mean sigmoid CE over
         the triples plus the decoder's regularization, for any decoder,
         plus the KL term of a variational encoder.
 
         triples [N, 3] (positives and their corruptions, host-tiled or from
-        ``device_negative_sample``); labels / mask [N] float32."""
+        ``device_negative_sample``); labels / mask [N] float32. ``group``:
+        an edge mesh's process group, ``graph`` and the rows this rank's
+        shards; the means are over every rank's rows (``masked_mean``)."""
         encoded = self.encode(params, graph, deterministic=deterministic,
-                              keep_masks=keep_masks, noise=noise)
+                              keep_masks=keep_masks, noise=noise,
+                              group=group)
         e1, r, e2 = self.gather_codes(self.stream_cast(encoded), triples)
         dp = params["decoder"]
         energies = self.decoder.energies(dp, e1, r, e2)
         return self.plus_kl(
-            decoders_lib.weighted_ce_loss(energies, labels, mask)
-            + self.decoder.regularization(dp, e1, r, e2, mask), encoded)
+            decoders_lib.weighted_ce_loss(energies, labels, mask, group)
+            + self.decoder.regularization(dp, e1, r, e2, mask, group),
+            encoded)
 
     def _factorizable_codes(self, params, graph, positives, what,
-                            deterministic, keep_masks, noise):
+                            deterministic, keep_masks, noise, group):
         """(encoded, e1, r, e2, positive energies, q_subj, q_obj) of a loss
         that scores corruptions against one factor a positive; ``encoded``
         in the decoder stream's dtype (its variational statistics f32)."""
@@ -498,7 +524,7 @@ class RGCNModel:
                              f"the {what} loss")
         encoded = self.stream_cast(self.encode(
             params, graph, deterministic=deterministic,
-            keep_masks=keep_masks, noise=noise))
+            keep_masks=keep_masks, noise=noise, group=group))
         e1, r, e2 = self.gather_codes(encoded, positives)
         dp = params["decoder"]
         return (encoded, e1, r, e2,
@@ -507,14 +533,18 @@ class RGCNModel:
                 self.decoder.object_factor(dp, e1, r))
 
     def _grouped_objective(self, pos_energy, groups, e1, r, e2, pos_mask,
-                           e1_extra, e2_extra, rows_e1, rows_e2):
+                           corrupted_sq, pool_sq, rows_e1, rows_e2, group):
         """CE + regularization of a positive and its corruption groups.
 
         groups: [n, k_g] energies of each group (all labelled 0); the CE
         mask repeats each positive's mask over its own k_g entries. The
         regularization means run over the equivalent tiled rows: e1 and e2
         appear ``rows_e1`` / ``rows_e2`` times a positive, r in every row,
-        plus the corrupted codes' squares ``e1_extra`` / ``e2_extra``.
+        plus the corrupted codes' squares: ``corrupted_sq`` summed over
+        this batch's rows, and ``pool_sq`` (the shared pool's, the same on
+        every rank) once a real positive. ``group``: the sums over the
+        rows and the count of real positives are all-reduced
+        (``masked_mean``).
 
         The JAX package tiles the mask over [n, k] energies flattened
         positive-major (``build.py:584-585``, ``:659``), which pairs them
@@ -527,14 +557,18 @@ class RGCNModel:
         labels = torch.cat([m, m.new_zeros(sum(g.numel() for g in groups))])
         mask = torch.cat([m] + [m.repeat_interleave(g.shape[1])
                                 for g in groups])
-        loss = decoders_lib.weighted_ce_loss(energies, labels, mask)
+        loss = decoders_lib.weighted_ce_loss(energies, labels, mask, group)
         rows = 1 + sum(g.shape[1] for g in groups)
 
         def msum(x):
             return ((x ** 2).sum(-1) * m).sum()
-        count = m.sum().clamp(min=1.0) * rows * e1.shape[-1]
-        reg = (msum(e1) * rows_e1 + e1_extra + msum(e2) * rows_e2 + e2_extra
-               + msum(r) * rows) / count
+        total = msum(e1) * rows_e1 + msum(e2) * rows_e2 + msum(r) * rows \
+            + corrupted_sq
+        live = m.sum()
+        if group is not None:
+            total, live = all_reduce_sum(torch.stack([total, live]), group)
+        live = live.clamp(min=1.0)
+        reg = (total + pool_sq * live) / (live * rows * e1.shape[-1])
         return loss + self.decoder.regularization_parameter * reg
 
     def loss_structured(self, params: Dict, graph: Optional[GraphBatch],
@@ -543,8 +577,8 @@ class RGCNModel:
                         neg_objects: torch.Tensor, *,
                         deterministic: bool = False,
                         keep_masks: Optional[Sequence] = None,
-                        noise: Optional[EncoderNoise] = None
-                        ) -> torch.Tensor:
+                        noise: Optional[EncoderNoise] = None,
+                        group=None) -> torch.Tensor:
         """The split protocol's loss (``build.py:530-613``): the tiled
         objective over [positives; subject corruptions; object
         corruptions], each corruption scored against one factor of its
@@ -556,7 +590,7 @@ class RGCNModel:
         decoder that is not factorizable."""
         encoded, e1, r, e2, pos_energy, q_subj, q_obj = \
             self._factorizable_codes(params, graph, positives, "split",
-                                     deterministic, keep_masks, noise)
+                                     deterministic, keep_masks, noise, group)
         codes = encoded.entity_codes
         subj_energy, e1n_sq = single_factor_negative_energies(
             codes, q_subj, neg_subjects)
@@ -567,8 +601,9 @@ class RGCNModel:
         # the positive and the subject corruptions; corrupted codes once.
         return self.plus_kl(self._grouped_objective(
             pos_energy, (subj_energy, obj_energy), e1, r, e2, pos_mask,
-            (e1n_sq * m).sum(), (e2n_sq * m).sum(),
-            1 + obj_energy.shape[1], 1 + subj_energy.shape[1]), encoded)
+            (e1n_sq * m).sum() + (e2n_sq * m).sum(), 0.0,
+            1 + obj_energy.shape[1], 1 + subj_energy.shape[1], group),
+            encoded)
 
     def loss_shared_negatives(self, params: Dict,
                               graph: Optional[GraphBatch],
@@ -577,8 +612,8 @@ class RGCNModel:
                               neg_pool: torch.Tensor, *,
                               deterministic: bool = False,
                               keep_masks: Optional[Sequence] = None,
-                              noise: Optional[EncoderNoise] = None
-                              ) -> torch.Tensor:
+                              noise: Optional[EncoderNoise] = None,
+                              group=None) -> torch.Tensor:
         """The shared pool's loss (``build.py:615-689``): every positive
         scores against one pool of P entities as corrupted subjects and as
         corrupted objects, two [n, d] x [d, P] GEMMs; each positive gives
@@ -589,20 +624,20 @@ class RGCNModel:
         ValueError for a decoder that is not factorizable."""
         encoded, e1, r, e2, pos_energy, q_subj, q_obj = \
             self._factorizable_codes(params, graph, positives, "shared",
-                                     deterministic, keep_masks, noise)
+                                     deterministic, keep_masks, noise, group)
         exact_float32()
         pool = take_rows(encoded.entity_codes, neg_pool)       # [P, d]
         p = pool.shape[0]
-        # Pool codes count once per real positive and side.
-        pool_sq = (pool ** 2).sum() * pos_mask.sum().clamp(min=1.0)
         # JAX's dot of bf16 streams accumulates in f32
         # (``preferred_element_type``, ``build.py:649-652``); torch's bf16
         # matmul would round the product to bf16, so the GEMMs take the
         # streams upcast (exact) and multiply in f32.
         pool_t = pool.float().T
+        # Pool codes count once per real positive and side.
         return self.plus_kl(self._grouped_objective(
             pos_energy, (q_subj.float() @ pool_t, q_obj.float() @ pool_t),
-            e1, r, e2, pos_mask, pool_sq, pool_sq, 1 + p, 1 + p), encoded)
+            e1, r, e2, pos_mask, 0.0, 2 * (pool ** 2).sum(), 1 + p, 1 + p,
+            group), encoded)
 
     def loss_binomial_factored(self, params: Dict, graph: GraphBatch,
                                positives: torch.Tensor,
@@ -611,8 +646,8 @@ class RGCNModel:
                                corrupt_object: torch.Tensor, *,
                                deterministic: bool = False,
                                keep_masks: Optional[Sequence] = None,
-                               noise: Optional[EncoderNoise] = None
-                               ) -> torch.Tensor:
+                               noise: Optional[EncoderNoise] = None,
+                               group=None) -> torch.Tensor:
         """The reference's binomial-corruption objective without the
         (rate+1)-tiled batch (``build.py:468-528``): each negative shares
         two of its three codes with its positive, so the loss gathers the
@@ -628,12 +663,12 @@ class RGCNModel:
         encoded, e1, r, e2, pos_energy, q_subj, q_obj = \
             self._factorizable_codes(params, graph, positives,
                                      "factored binomial", deterministic,
-                                     keep_masks, noise)
+                                     keep_masks, noise, group)
         neg_energy, ev_sq = factored_negative_energies(
             encoded.entity_codes, q_subj, q_obj, neg_values, corrupt_object)
         return self.plus_kl(binomial_factored_objective(
             self.decoder, pos_energy, neg_energy, ev_sq, e1, r, e2,
-            pos_mask, corrupt_object), encoded)
+            pos_mask, corrupt_object, group), encoded)
 
     def _triples(self, triples) -> torch.Tensor:
         return torch.as_tensor(np.asarray(triples), dtype=torch.long,
@@ -692,19 +727,29 @@ class RGCNModel:
 
 class ModelView:
     """Encode-once scoring view, the counterpart of ``JittedModelView``
-    without a mesh (``build.py:720-869``).
+    (``build.py:720-869``).
 
     The test-mode codes are computed once per (params, graph) pair, compared
     by identity, and each chunk is then only the decoder GEMM. Presents the
     (params, graph, triples) surface of RGCNModel, so it can be handed to
     evaluation.Scorer. ``noise``: the encoder's test-mode draws
     (``EncoderNoise``), else the model's own fixed-seed draws.
+
+    ``mesh`` (an ``EdgeMesh``; every rank calls each method in the same
+    order): the encode runs edge-sharded on ``graph``, this rank's shard
+    (``make_graph(shard=mesh.shard)``), with the training step's
+    all-reduce; each rank scores its block of a chunk's rows (padded to a
+    multiple of the mesh by the last row) against the whole entity table,
+    and the blocks are gathered, so every rank returns the whole chunk's
+    scores.
     """
 
     def __init__(self, model: RGCNModel,
-                 noise: Optional[EncoderNoise] = None):
+                 noise: Optional[EncoderNoise] = None,
+                 mesh: Optional[EdgeMesh] = None):
         self.model = model
         self.noise = noise
+        self.mesh = mesh
         self._key = None
         self._encoded: Optional[EncodeResult] = None
 
@@ -718,28 +763,42 @@ class ModelView:
         if (self._key is None or self._key[0] is not params
                 or self._key[1] is not graph):
             with torch.no_grad():
-                self._encoded = self.model.encode(params, graph,
-                                                  deterministic=True,
-                                                  noise=self.noise)
+                self._encoded = self.model.encode(
+                    params, graph, deterministic=True, noise=self.noise,
+                    group=None if self.mesh is None or graph is None
+                    else self.mesh.group)
             self._key = (params, graph)
         return self._encoded
 
-    def score(self, params, graph, triples) -> torch.Tensor:
+    def _scored(self, fn, params, graph, triples, *extra) -> torch.Tensor:
+        """``fn(params, codes, triples, *extra)``, over this rank's block of
+        the rows on a mesh, gathered."""
         with torch.no_grad():
-            return self.model.score_encoded(
-                params, self.encoded(params, graph), triples)
+            encoded = self.encoded(params, graph)
+            if self.mesh is None:
+                return fn(params, encoded, triples, *extra)
+            t = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
+            n, ranks = len(t), self.mesh.world_size
+            pad = -(-n // ranks) * ranks
+            if pad != n:
+                t = np.concatenate([t, np.repeat(t[-1:], pad - n, axis=0)])
+            per = pad // ranks
+            mine = t[self.mesh.rank * per:(self.mesh.rank + 1) * per]
+            return all_gather_rows(fn(params, encoded, mine, *extra),
+                                   self.mesh.group)[:n]
+
+    def score(self, params, graph, triples) -> torch.Tensor:
+        return self._scored(self.model.score_encoded, params, graph, triples)
 
     def score_all_subjects(self, params, graph, triples,
                            apply_sigmoid: bool = True) -> torch.Tensor:
-        with torch.no_grad():
-            return self.model.score_all_subjects_encoded(
-                params, self.encoded(params, graph), triples, apply_sigmoid)
+        return self._scored(self.model.score_all_subjects_encoded, params,
+                            graph, triples, apply_sigmoid)
 
     def score_all_objects(self, params, graph, triples,
                           apply_sigmoid: bool = True) -> torch.Tensor:
-        with torch.no_grad():
-            return self.model.score_all_objects_encoded(
-                params, self.encoded(params, graph), triples, apply_sigmoid)
+        return self._scored(self.model.score_all_objects_encoded, params,
+                            graph, triples, apply_sigmoid)
 
 
 def build_model(config: RunConfig, device: torch.device) -> RGCNModel:

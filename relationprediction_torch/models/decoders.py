@@ -13,31 +13,41 @@ import torch
 
 from ..device import exact_float32
 from ..ops import sddmm
+from ..parallel.collectives import all_reduce_sum
 from . import initializers as init
 
 
-def masked_mean(x: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
+                group=None) -> torch.Tensor:
     """Mean over the entries where ``mask`` is 1 (``decoders.py:23-36``),
     with the count clamped to at least 1. The sum is f32 whatever the
     dtype of ``x`` (a bf16 stream's squares are summed in f32, as in the
-    JAX package)."""
+    JAX package). With ``group`` (an edge mesh's process group, ``x`` this
+    rank's rows) the sum and the count are all-reduced before the
+    division: the mean over every rank's rows."""
     f32 = torch.float32
     if mask is None:
-        return x.sum(dtype=f32) / max(x.numel(), 1)
-    return (x * mask.to(x.dtype)).sum(dtype=f32) \
-        / mask.sum(dtype=f32).clamp(min=1.0)
+        total = x.sum(dtype=f32)
+        count = torch.tensor(float(x.numel()), device=x.device)
+    else:
+        total = (x * mask.to(x.dtype)).sum(dtype=f32)
+        count = mask.sum(dtype=f32)
+    if group is not None:
+        total, count = all_reduce_sum(torch.stack([total, count]), group)
+    return total / count.clamp(min=1.0)
 
 
 def weighted_ce_loss(energies: torch.Tensor, labels: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None,
+                     group=None) -> torch.Tensor:
     """Mean sigmoid cross-entropy with logits (``decoders.py:39-48``), in
     the stable form max(x, 0) - x*y + log1p(exp(-|x|)). The reference
     reads NegativeSampleRate as a positive-class weight and then overrides
-    it to 1 (``bilinear_diag.py:32-33``), so the CE is unweighted."""
+    it to 1 (``bilinear_diag.py:32-33``), so the CE is unweighted.
+    ``group``: see ``masked_mean``."""
     ce = (torch.clamp(energies, min=0.0) - energies * labels
           + torch.log1p(torch.exp(-energies.abs())))
-    return masked_mean(ce, mask)
+    return masked_mean(ce, mask, group)
 
 
 class BilinearDiag:
@@ -74,12 +84,13 @@ class BilinearDiag:
     def object_factor(self, params, e1, r):
         return e1 * r
 
-    def regularization(self, params, e1, r, e2, mask=None):
+    def regularization(self, params, e1, r, e2, mask=None, group=None):
         """reg_param * (mean e1^2 + mean r^2 + mean e2^2) over the batch
-        codes (``bilinear_diag.py:63-69``)."""
+        codes (``bilinear_diag.py:63-69``); ``group``: see
+        ``masked_mean``."""
         m = None if mask is None else mask[:, None] * torch.ones_like(e1)
-        reg = (masked_mean(e1 ** 2, m) + masked_mean(r ** 2, m)
-               + masked_mean(e2 ** 2, m))
+        reg = (masked_mean(e1 ** 2, m, group) + masked_mean(r ** 2, m, group)
+               + masked_mean(e2 ** 2, m, group))
         return self.regularization_parameter * reg
 
 

@@ -22,6 +22,7 @@ import torch
 from ..device import exact_float32
 from ..graph import GraphBatch
 from ..ops import relblock, staircase, staircase2
+from ..parallel.collectives import all_reduce_sum, graph_shard_matches
 from . import initializers as init
 
 
@@ -162,8 +163,8 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
                     generator: Optional[torch.Generator],
                     n_vertices: int,
                     keep_mask: Optional[torch.Tensor] = None,
-                    agg_dtype: Optional[torch.dtype] = None
-                    ) -> torch.Tensor:
+                    agg_dtype: Optional[torch.dtype] = None,
+                    group=None) -> torch.Tensor:
     """One R-GCN layer (``message_gcn.py:49-79``; ``encoders.py:242-354``):
     both directions, then the self-loop, the bias of the variants that add
     it, then an optional ReLU. ``features`` None is one-hot input.
@@ -181,7 +182,16 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
     ops, which then run their bf16 kernels; the 'local' and 'none'
     normalizations (a graph built with them, or basis_stored's unit
     weights) sum in f32 whatever it says, as JAX's segment-sum path does
-    (``encoders.py:328-345``)."""
+    (``encoders.py:328-345``).
+
+    ``group`` (an edge mesh's process group): ``graph`` is this rank's
+    shard of the edges, weighted over the whole graph
+    (``graph.build_graph_batch(shard=...)``); on every route the partial
+    sum of both directions is all-reduced before the self-loop, in the f32
+    the aggregation produces (``encoders.py:297-299``, ``:348-350``), so
+    each rank gets the whole graph's layer. Raises ValueError for a graph
+    that is not the rank's shard, and for a shard without a group."""
+    graph_shard_matches(graph, group)
     if graph.normalization != "global":
         agg_dtype = None
     if variant not in GCN_VARIANTS:
@@ -214,8 +224,11 @@ def apply_gcn_layer(params: Dict[str, torch.Tensor], variant: str,
                 compute_dtype=agg_dtype if weighted else None)
             for layout, sfx in ((graph.fwd, "forward"),
                                 (graph.bwd, "backward")))
+    combined = collected_f + collected_b
+    if group is not None:
+        combined = all_reduce_sum(combined, group)
     return _combine_with_self_loop(
-        params, variant, features, collected_f + collected_b,
+        params, variant, features, combined,
         use_nonlinearity=use_nonlinearity, dropout_keep=dropout_keep,
         deterministic=deterministic, generator=generator,
         keep_mask=keep_mask)

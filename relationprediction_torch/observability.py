@@ -2,10 +2,12 @@
 (``relationprediction_tpu/observability.py``).
 
 ``MetricLogger`` appends one JSON object a record to a file and may echo
-it. ``StepTimer`` counts steps/s and edges/s over a run, and the mean of
-the last ``window_size`` steps. Host clock: a step timed here ends when
-the host has queued it, and PyTorch waits for the card at the next read
-of a loss or the next synchronize. ``trace`` records a ``torch.profiler``
+it; on an edge mesh only rank 0 does either. ``StepTimer`` counts steps/s
+and edges/s over a run (a mesh's loop counts the global batch's edges and
+triples on every rank), and the mean of the last ``window_size`` steps.
+Host clock: a step timed here ends when the host has queued it, and
+PyTorch waits for the card at the next read of a loss or the next
+synchronize. ``trace`` records a ``torch.profiler``
 trace of the enclosed block."""
 from __future__ import annotations
 
@@ -17,11 +19,17 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, Optional
 
+from .parallel.distributed import is_coordinator
+
 
 class MetricLogger:
-    """Append-only JSONL metric log with optional stdout echo."""
+    """Append-only JSONL metric log with optional stdout echo, written and
+    echoed by the coordinator only (rank 0 of a process group, or a
+    process without one)."""
 
     def __init__(self, path: Optional[str] = None, echo: bool = True):
+        if not is_coordinator():
+            path, echo = None, False
         self.path = path
         self.echo = echo
         self._fh = None

@@ -3,9 +3,11 @@
 
     python -m relationprediction_torch.train --settings settings/gcn_block.exp \
         --dataset synth:FB15k-237 [--max-iterations N] [--max-seconds S] \
-        [--negative-mode binomial|split|shared] [--resume] [--seed 0] [--cpu]
+        [--negative-mode binomial|split|shared] [--resume] [--seed 0] [--cpu] \
+        [--mesh N] [--coordinator HOST:PORT --num-processes P \
+         --process-id p --local-devices L]
 
-Counterpart of ``relationprediction_tpu/cli.py:102-215`` on one device:
+Counterpart of ``relationprediction_tpu/cli.py:102-215``:
 loads the settings and the dataset (a directory, or ``synth:<profile>``
 for a seeded synthetic graph with a real dataset's counts), trains with
 device-drawn negatives of ``--negative-mode`` (binomial, the reference's
@@ -19,27 +21,44 @@ saves a checkpoint under the settings' ``ExperimentName`` at each check
 that did not stop, and prints the test metrics of the trained weights.
 ``--resume`` continues from the newest checkpoint. Runs on the CUDA card
 unless ``--cpu`` is given; without a card it fails rather than fall back.
-``--mesh``, ``--vertex-sharded`` and the multi-host flags are not ported
-yet (ROADMAP.md Queue 1 item 5).
+
+``--mesh N`` trains and evaluates edge-partitioned over N ranks, one
+process each (parallel/): on N cards, ``cuda:0`` to ``cuda:N-1``, over
+NCCL, or with ``--cpu`` on N CPU ranks over gloo; N above the devices
+attached is a parser error. NCCL takes one rank a card (several ranks on
+one card run only through ``parallel.distributed.launch`` with gloo and
+a device list that repeats the card). The multi-host flags start
+``--local-devices`` L ranks in this process, ranks p*L to p*L+L-1 of
+P*L, which meet at ``--coordinator`` (the host of process 0, on a free
+port). Only rank 0 prints, writes checkpoints and
+metric records; a failed rank makes the run exit non-zero.
+``--vertex-sharded`` and ``--vs-overlap`` (the vertex-sharded path) are
+parsed and raise NotImplementedError: ROADMAP.md Queue 1 item 5b.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 
-def build_scorer(model, ds, metric: str):
+def build_scorer(model, ds, metric: str, mesh=None):
     """The evaluation scorer over the train, valid and test splits, scoring
     through the encode-once view on the whole train graph (none for a
-    model without one)."""
+    model without one); on ``mesh`` (an ``EdgeMesh``) through the sharded
+    view on this rank's shard of it."""
     from relationprediction_torch.evaluation.scorer import Scorer
     from relationprediction_torch.models.build import ModelView
     scorer = Scorer(metric=metric)
     for t in (ds.train, ds.valid, ds.test):
         scorer.register_data(t)
     scorer.register_degrees(ds.train)
-    scorer.register_model(ModelView(model), None, model.make_graph(ds.train),
-                          n_entities=ds.n_entities)
+    scorer.register_model(
+        ModelView(model, mesh=mesh), None,
+        model.make_graph(ds.train, shard=(0, 1) if mesh is None
+                         else mesh.shard),
+        n_entities=ds.n_entities)
     scorer.finalize_frequency_computation(ds.all_triples())
     return scorer
 
@@ -60,7 +79,7 @@ def validation_scoring(scorer, ds):
     return score_validation_data
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Train a model on a given dataset (PyTorch port).")
     parser.add_argument("--settings", required=True,
@@ -85,36 +104,118 @@ def main(argv=None) -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cpu", action="store_true",
                         help="Run on the CPU instead of the CUDA card.")
+    parser.add_argument("--mesh", type=int, default=None, metavar="N",
+                        help="Edge-partitioned training and evaluation over "
+                             "N ranks, one process each: N cards over NCCL, "
+                             "or N CPU ranks over gloo with --cpu.")
+    parser.add_argument("--vertex-sharded", action="store_true",
+                        help="Shard the vertex axis (not ported: ROADMAP.md "
+                             "Queue 1 item 5b).")
+    parser.add_argument("--vs-overlap", action="store_true",
+                        help="Overlap the vertex-sharded halo exchange (not "
+                             "ported: ROADMAP.md Queue 1 item 5b).")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="Multi-host: the process group's TCP store "
+                             "(process 0's host binds it).")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--local-devices", type=int, default=None,
+                        help="Ranks this process starts (default: the "
+                             "cards attached, or 1 with --cpu).")
     args = parser.parse_args(argv)
-
-    from relationprediction_torch import config as config_lib
-    from relationprediction_torch.data import dataset as dataset_lib
-    from relationprediction_torch.data import synthetic
-    from relationprediction_torch.device import resolve_device
-    from relationprediction_torch.models.build import build_model
-    from relationprediction_torch.training.engine import TrainLoop
-
-    device = resolve_device(args.cpu)
-    cfg = config_lib.load(args.settings)
     if args.dataset.startswith("synth:"):
+        from relationprediction_torch.data import synthetic
         profile = args.dataset.split(":", 1)[1]
         if profile not in synthetic.PROFILES:
             parser.error(f"unknown synthetic profile {profile!r}; choose "
                          f"from {sorted(synthetic.PROFILES)}")
-        ds = synthetic.like(profile, seed=args.seed)
+    args.multihost = args.coordinator is not None \
+        or args.num_processes is not None
+    if args.mesh is not None and args.mesh < 1:
+        parser.error("--mesh takes a positive rank count")
+    if args.multihost and (args.coordinator is None
+                           or args.num_processes is None
+                           or args.process_id is None):
+        parser.error("multi-host runs need --coordinator, --num-processes "
+                     "and --process-id")
+    return parser, args
+
+
+def main(argv=None) -> None:
+    parser, args = parse_args(argv)
+    if args.vertex_sharded or args.vs_overlap:
+        raise NotImplementedError(
+            "--vertex-sharded / --vs-overlap: the vertex-sharded path "
+            "(relationprediction_tpu/parallel/vertex_sharded.py) is not "
+            "ported yet (ROADMAP.md Queue 1 item 5b)")
+
+    import torch
+
+    from relationprediction_torch.device import resolve_device
+    from relationprediction_torch.parallel.distributed import launch
+
+    device = resolve_device(args.cpu)
+    if args.mesh is None and not args.multihost:
+        run(args, device)
+        return
+    attached = os.cpu_count() if args.cpu else torch.cuda.device_count()
+    if args.multihost:
+        local = args.local_devices or (1 if args.cpu else attached)
+        processes, process_id = args.num_processes, args.process_id
+        total = local * processes
+    else:
+        local = total = args.mesh
+        processes, process_id = 1, 0
+    if local > attached:
+        parser.error(f"{local} ranks in this process but only {attached} "
+                     f"{'CPUs' if args.cpu else 'cards'} are attached")
+    if args.mesh is not None and args.mesh > total:
+        parser.error(f"--mesh {args.mesh} but only {total} devices over "
+                     f"{processes} process(es)")
+    launch(_run_rank, local, (args,), cpu=args.cpu, n_devices=args.mesh,
+           coordinator=args.coordinator, num_processes=processes,
+           process_id=process_id)
+
+
+def _run_rank(mesh, args) -> None:
+    """One rank of a ``--mesh`` or multi-host run (the mesh over every
+    process's ranks, held to ``make_global_mesh``'s size rules): ``run``;
+    only rank 0 prints."""
+    from relationprediction_torch.parallel.distributed import is_coordinator
+    with contextlib.ExitStack() as stack:
+        if not is_coordinator():
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        run(args, mesh.device, mesh)
+
+
+def run(args, device, mesh=None) -> None:
+    """train.py's run on ``device``, or as one rank of ``mesh``."""
+    from relationprediction_torch import config as config_lib
+    from relationprediction_torch.data import dataset as dataset_lib
+    from relationprediction_torch.data import synthetic
+    from relationprediction_torch.models.build import build_model
+    from relationprediction_torch.training.engine import TrainLoop
+
+    cfg = config_lib.load(args.settings)
+    if args.dataset.startswith("synth:"):
+        ds = synthetic.like(args.dataset.split(":", 1)[1], seed=args.seed)
     else:
         ds = dataset_lib.load(args.dataset, metric=cfg.training.metric)
     cfg = cfg.with_counts(ds.n_entities, ds.n_relations, len(ds.train))
     print(f"Dataset {ds.name}: {ds.n_entities} entities, "
           f"{ds.n_relations} relations, {len(ds.train)} train triples "
           f"({device})")
+    if mesh is not None:
+        print(f"Mesh: {mesh.world_size} ranks over {mesh.backend}, "
+              f"edge-partitioned")
 
     model = build_model(cfg, device)
-    scorer = build_scorer(model, ds, cfg.training.metric)
+    scorer = build_scorer(model, ds, cfg.training.metric, mesh)
     loop = TrainLoop(model, cfg, ds,
                      scoring_function=validation_scoring(scorer, ds),
                      sampler=args.sampler, seed=args.seed,
-                     negative_mode=args.negative_mode)
+                     negative_mode=args.negative_mode, mesh=mesh)
     checkpoint_path = cfg.training.experiment_name
     t0 = time.time()
     if args.resume:

@@ -38,9 +38,26 @@ Losses are read on the host only at the reporting cadence of the reference
 validation score is taken every ``CheckEvery`` iterations, with early
 stopping after the burn-in, and a checkpoint is written at each check that
 did not stop (``shared/algorithms.py:61-161``); ``resume`` continues one.
-Not carried over from the JAX package: its K-step ``lax.scan`` dispatch (a
-TPU transport device) and the mesh and vertex-sharded modes (ROADMAP.md
-Queue 1 item 5).
+
+With ``mesh`` (an ``EdgeMesh``, ``parallel/mesh.py``; one process a
+rank) every rank runs the same seeded pipelines and keeps its block of
+each batch: its shard of the message graph's edges, weighted over the
+whole graph, and its rows of the padded positives
+(``BatchPipeline(shard_multiple=, shard_rank=)``), and takes the sharded
+step (the loss's all-reduces, backward, the mean of the gradients over
+the ranks: ``sharded_loss_and_grads``; then the optimizer). Each
+step's draws come from two generators seeded from (seed, step): the
+corruptions of the rank's rows from one seeded with its rank too, the
+keep-masks, the other encoder noise and the shared pool from one that is
+the same on every rank (the JAX package's ``fold_in``s,
+``mesh.py:111-117``), so that the ranks' self-loop terms and params
+agree. Only rank 0 writes checkpoints and metric records; a mesh
+checkpoint restores on one device and a one-device checkpoint resumes on
+a mesh. The stored-message variant's step raises on a mesh, as in the
+JAX package (``engine.py:335-337``).
+Not carried over from the JAX package: its K-step ``lax.scan`` dispatch
+(a TPU transport device) and the vertex-sharded mode (ROADMAP.md Queue 1
+item 5b).
 """
 from __future__ import annotations
 
@@ -59,6 +76,9 @@ from ..graph import GraphBatch
 from ..models.build import EncoderNoise, RGCNModel
 from ..observability import MetricLogger, StepTimer
 from ..ops import staircase2
+from ..parallel.collectives import broadcast_value, pmean
+from ..parallel.distributed import is_coordinator
+from ..parallel.mesh import EdgeMesh, replicate, shard_batch
 from ..params import map_tree, params_from_jax, params_to_numpy, \
     tree_leaves, tree_unflatten
 from ..sampling import (AdjacencyIndex, NegativeSampler, graph_split,
@@ -123,7 +143,11 @@ class BatchPipeline:
     (``_positives_batch``, ``engine.py:191-204``); with
     ``device_negatives=False`` ``NegativeSampler`` tiles them (rate+1)
     times with their corruptions, padded to a multiple of 128 with labels
-    and a mask (``engine.py:149-179``).
+    and a mask (``engine.py:149-179``). ``shard_multiple`` n pads them to
+    multiples of lcm(8, n) and lcm(128, n) instead, so that n ranks take
+    equal blocks (``engine.py:102``, ``:197``); ``shard_rank`` then keeps
+    that rank's block of the rows (``mesh.shard_batch``) and builds only
+    its shard of the message graph (``graph.build_graph_batch(shard=)``).
 
     The same ``rng`` state gives the JAX package's graphs, positives and
     host-tiled corruptions. The batch stays on the host, pinned when the
@@ -135,7 +159,8 @@ class BatchPipeline:
     def __init__(self, model: RGCNModel, config: RunConfig,
                  dataset: KGDataset, rng: np.random.Generator,
                  sampler: str = "neighborhood",
-                 device_negatives: bool = True):
+                 device_negatives: bool = True, shard_multiple: int = 1,
+                 shard_rank: Optional[int] = None):
         if sampler not in ("neighborhood", "uniform"):
             raise ValueError(f"unknown sampler {sampler!r}")
         self.model = model
@@ -158,11 +183,13 @@ class BatchPipeline:
             self.split_size = 0
             cap = self.batch_size
         self.n_positives = cap
-        self.positives_pad = _round_up(cap, 8)
+        n = max(1, int(shard_multiple))
+        self.shard = None if shard_rank is None else (int(shard_rank), n)
+        self.positives_pad = _round_up(cap, int(np.lcm(8, n)))
         self.device_negatives = device_negatives and not model.has_state
         rate = t.negative_sample_rate
         # The host-tiled batch's rows, padded as the JAX package pads them.
-        self.triple_pad = _round_up(cap * (rate + 1), 128)
+        self.triple_pad = _round_up(cap * (rate + 1), int(np.lcm(128, n)))
         self.negative_sampler = None if self.device_negatives \
             else NegativeSampler(rate, config.entity_count, rng)
         # 'contiguous' minibatches: in-order wrapping windows instead of
@@ -204,7 +231,8 @@ class BatchPipeline:
         else:
             batch_ids, split_ids = self.sample_ids()
             graph = self.model.make_graph(self.train[split_ids],
-                                          to_device=False)
+                                          to_device=False,
+                                          shard=self.shard or (0, 1))
             positives = self.train[batch_ids]
             edge_ids = split_ids.astype(np.int32)
         if self.device_negatives:
@@ -216,6 +244,8 @@ class BatchPipeline:
         if self.model.has_state:
             batch = batch._replace(message_edge_ids=torch.from_numpy(
                 edge_ids.astype(np.int64)))
+        if self.shard is not None:
+            batch = shard_batch(self.shard, batch)
         return batch.pin_memory() if self.pin else batch
 
     @staticmethod
@@ -414,14 +444,18 @@ class Draws(NamedTuple):
 
 
 def step_loss_and_grads(model: RGCNModel, kind: str, params,
-                        batch: TrainBatch, draws: Draws) -> tuple:
+                        batch: TrainBatch, draws: Draws,
+                        group=None) -> tuple:
     """(loss, gradient tree) of the train-mode loss of ``kind``
     (``loss_kind``) on ``batch`` with ``draws``. A leaf the loss does not
     reach (the GCN layers' unused bias) gets a zero gradient, as under
-    ``jax.grad``."""
+    ``jax.grad``. ``group``: an edge mesh's process group, ``batch`` this
+    rank's shard; the loss is then the global one and each gradient leaf
+    N times this rank's share (``parallel/mesh.py``): see
+    ``sharded_loss_and_grads``."""
     neg = draws.negatives
     common = dict(deterministic=False, keep_masks=draws.keep_masks,
-                  noise=draws.noise)
+                  noise=draws.noise, group=group)
     if kind == "tiled":
         args = (params, batch.graph) + (
             neg or (batch.triples, batch.labels, batch.mask))
@@ -432,6 +466,46 @@ def step_loss_and_grads(model: RGCNModel, kind: str, params,
                    "split": model.loss_structured,
                    "shared": model.loss_shared_negatives}[kind]
     return _value_and_grad(lambda: loss_fn(*args, **common), params)
+
+
+def sharded_loss_and_grads(model: RGCNModel, kind: str, params,
+                           batch: TrainBatch, draws: Draws,
+                           mesh: EdgeMesh) -> tuple:
+    """(global loss, gradient of the global loss) from this rank's
+    ``batch`` shard and ``draws`` (its rows' negatives, the keep-masks and
+    noise every rank shares): ``step_loss_and_grads`` with the mesh's
+    all-reduces, then the gradients' mean over the ranks
+    (``collectives.pmean``). The stored-message variant raises
+    ValueError, as in the JAX package (``engine.py:335-337``)."""
+    if model.has_state:
+        raise ValueError("the stored-message variant does not support "
+                         "mesh execution")
+    loss, grads = step_loss_and_grads(model, kind, params, batch, draws,
+                                      group=mesh.group)
+    return loss, pmean(grads, mesh.group)
+
+
+def make_sharded_train_step(model: RGCNModel, optimizer, mesh: EdgeMesh,
+                            kind: str) -> Callable:
+    """The mesh's train step (``parallel/mesh.py:75-151`` of the JAX
+    package): ``step(params, opt_state, batch, draws) -> (opt_state,
+    loss)`` takes ``sharded_loss_and_grads`` and applies the optimizer's
+    update to ``params`` in place, the same update on every rank."""
+    def step(params, opt_state, batch, draws):
+        loss, grads = sharded_loss_and_grads(model, kind, params, batch,
+                                             draws, mesh)
+        updates, opt_state = optimizer.update(grads, opt_state)
+        apply_updates(params, updates)
+        return opt_state, loss
+    return step
+
+
+def step_seed(*words: int) -> int:
+    """A 64-bit seed from integers (numpy's SeedSequence): a mesh step's
+    generators are seeded from (seed, stream, step[, rank]), as the JAX
+    package folds its step key."""
+    return int(np.random.SeedSequence(list(words)).generate_state(
+        1, np.uint64)[0])
 
 
 def stateful_loss_and_grads(model: RGCNModel, params, cache: list,
@@ -499,11 +573,13 @@ class FitResult:
 
 class TrainLoop:
     """``fit`` with the reference's loss reporter, early stopper and model
-    saver, on one device. ``negative_mode`` and ``device_negatives``
-    choose the objective (``loss_kind``); ``negative_pool_size`` is the
-    shared pool's size. A model with stored-message state takes
-    host-tiled batches and the tiled loss whatever they say, and the loop
-    keeps its caches in ``cache_state``."""
+    saver, on one device or, with ``mesh``, edge-partitioned over its
+    ranks (the module's docstring). ``negative_mode`` and
+    ``device_negatives`` choose the objective (``loss_kind``);
+    ``negative_pool_size`` is the shared pool's size. A model with
+    stored-message state takes host-tiled batches and the tiled loss
+    whatever they say, and the loop keeps its caches in
+    ``cache_state``."""
 
     def __init__(self, model: RGCNModel, config: RunConfig,
                  dataset: KGDataset, *,
@@ -516,13 +592,18 @@ class TrainLoop:
                  metrics_path: Optional[str] = None,
                  device_negatives: bool = True,
                  negative_mode: str = "binomial",
-                 negative_pool_size: int = 512):
+                 negative_pool_size: int = 512,
+                 mesh: Optional[EdgeMesh] = None):
+        if mesh is not None and model.device != mesh.device:
+            raise ValueError(f"the model is on {model.device}, this rank's "
+                             f"device is {mesh.device}")
         self.model = model
         self.config = config
         self.scoring_function = scoring_function
         self.log = log
         self.prefetch = prefetch
         self.seed = seed
+        self.mesh = mesh
         self.metrics = MetricLogger(metrics_path, echo=False)
         self.host_rng = np.random.default_rng(seed)
         device_negatives = device_negatives and not model.has_state
@@ -530,19 +611,25 @@ class TrainLoop:
         # ``negative_pool_size`` entities whatever the rate.
         self.loss_kind = loss_kind(model, negative_mode, device_negatives)
         self.negative_pool_size = negative_pool_size
+        shard = {} if mesh is None else dict(shard_multiple=mesh.world_size,
+                                             shard_rank=mesh.rank)
         self.pipeline = BatchPipeline(model, config, dataset, self.host_rng,
-                                      sampler, device_negatives)
+                                      sampler, device_negatives, **shard)
         # The other producers' pipelines, seeded as the JAX package seeds
         # them (``engine.py:380-385``).
         self._extra_pipelines = [
             BatchPipeline(model, config, dataset,
                           np.random.default_rng(seed + 1000 + w), sampler,
-                          device_negatives)
+                          device_negatives, **shard)
             for w in range(max(0, prefetch_threads - 1))] if prefetch else []
         self._resume_rr = 0
         self.optimizer = build_optimizer(config.optimizer)
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(seed)
+        # On a mesh: the generator of this rank's corruptions; both are
+        # seeded anew every step (``seed_step``).
+        self.rank_generator = None if mesh is None \
+            else torch.Generator(device=model.device)
         self.timer = StepTimer()
         self.cache_state = model.init_cache_state() if model.has_state \
             else None
@@ -552,26 +639,38 @@ class TrainLoop:
             torch.Generator().manual_seed(seed))
         return params, self.optimizer.init(params)
 
+    def seed_step(self, step: int) -> None:
+        """On a mesh, seed the step's generators from (seed, step): the
+        shared one as the JAX package folds 778 into its step key, this
+        rank's as it folds 777 and the rank (``mesh.py:111-117``)."""
+        self.generator.manual_seed(step_seed(self.seed, 778, step))
+        self.rank_generator.manual_seed(
+            step_seed(self.seed, 777, step, self.mesh.rank))
+
     def draw(self, batch: TrainBatch) -> Draws:
         """The step's random draws on the device, from the loop's
         generator: the corruptions of ``loss_kind`` (none for a host-tiled
         batch), then one dropout keep-mask per layer, then the encoder's
         other noise, which only a configuration that uses it draws (so the
-        stream of every other configuration stays as it was)."""
+        stream of every other configuration stays as it was). On a mesh the
+        corruptions of this rank's rows come from its own generator, and
+        the shared pool from the one every rank shares."""
         rate = self.config.training.negative_sample_rate
         n_entities, gen = self.config.entity_count, self.generator
+        rows_gen = gen if self.mesh is None else self.rank_generator
         kind = self.loss_kind
         if kind == "factored":
-            neg = device_negative_parts(batch.triples, rate, n_entities, gen)
+            neg = device_negative_parts(batch.triples, rate, n_entities,
+                                        rows_gen)
         elif kind == "split":
             neg = device_negative_entities_split(batch.triples, rate,
-                                                 n_entities, gen)
+                                                 n_entities, rows_gen)
         elif kind == "shared":
             neg = (device_negative_pool(self.negative_pool_size, n_entities,
                                         gen),)
         elif batch.labels is None:
             neg = device_negative_sample(batch.triples, batch.mask, rate,
-                                         n_entities, gen)
+                                         n_entities, rows_gen)
         else:
             neg = ()
         keep_masks = self.model.draw_keep_masks(gen)
@@ -581,8 +680,14 @@ class TrainLoop:
         """One step (``engine.py:411-483``, the stored variant's
         ``:520-535``); updates ``params`` in place, and ``cache_state``
         for the stored variant. Returns (opt_state, loss as a 0-d tensor
-        on the device)."""
-        if self.model.has_state:
+        on the device). On a mesh, after ``seed_step``, the sharded loss
+        and the gradients' mean over the ranks
+        (``sharded_loss_and_grads``), then the same update."""
+        if self.mesh is not None:
+            loss, grads = sharded_loss_and_grads(
+                self.model, self.loss_kind, params, batch, self.draw(batch),
+                self.mesh)
+        elif self.model.has_state:
             loss, grads, self.cache_state = stateful_loss_and_grads(
                 self.model, params, self.cache_state, batch,
                 self.draw(batch))
@@ -608,10 +713,16 @@ class TrainLoop:
         """Train from ``start_iteration`` until the early stopper fires,
         ``max_iterations`` (the settings' ``MaxIterations`` if not given) or
         ``max_seconds``; save under ``checkpoint_path`` at every
-        ``SaveEveryN`` (default ``CheckEvery``) unless the stopper fired."""
+        ``SaveEveryN`` (default ``CheckEvery``) unless the stopper fired.
+        On a mesh every rank calls this; the params and optimizer state
+        start as rank 0's, every rank takes rank 0's time cap and
+        validation score, and only rank 0 saves."""
         cfg = self.config.optimizer
         if params is None:
             params, opt_state = self.init_state()
+        mesh = self.mesh
+        if mesh is not None:
+            params, opt_state = replicate(mesh, (params, opt_state))
         max_iter = max_iterations if max_iterations is not None \
             else cfg.max_iterations
         check_every = cfg.early_stopping_check_every
@@ -655,10 +766,17 @@ class TrainLoop:
             while True:
                 if max_iter is not None and i >= max_iter:
                     break
-                if max_seconds is not None \
-                        and time.time() - started > max_seconds:
-                    break
+                if max_seconds is not None:
+                    late = time.time() - started > max_seconds
+                    if mesh is not None:
+                        late = bool(broadcast_value(float(late), mesh.group,
+                                                    mesh.device))
+                    if late:
+                        break
                 i += 1
+                if mesh is not None:
+                    self.seed_step(i)
+                # The global batch's edges and positives, on every rank.
                 with self.timer.step(edges=self.pipeline.split_size,
                                      triples=self.pipeline.n_positives):
                     batch, batch_ms, wait_ms = source.next()
@@ -690,6 +808,8 @@ class TrainLoop:
                         and i % check_every == 0:
                     process_pending()
                     score = self.scoring_function(params)
+                    if mesh is not None:
+                        score = broadcast_value(score, mesh.group, mesh.device)
                     self.log(f"Tested validation score at iteration {i}. "
                              f"Result: {score}")
                     self.metrics.log("validation", iteration=i, score=score)
@@ -707,7 +827,8 @@ class TrainLoop:
 
                 # ModelSaver (shared/algorithms.py:61-79); skipped when the
                 # stopper fired, matching the decorator order.
-                if checkpoint_path and save_every and i % save_every == 0:
+                if checkpoint_path and save_every and i % save_every == 0 \
+                        and is_coordinator():
                     process_pending()
                     self.save(checkpoint_path, params, opt_state, i,
                               *source.states())
