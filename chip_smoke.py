@@ -276,7 +276,25 @@ fails the phase):
   mesh_fit  train.py --mesh 1 (NCCL) on synth:FB15k-237 at the fit
           phase's cadence for 40 steps, then a 10-step run and its
           --resume to 20: its checkpoints at 10 and 20 equal the first
-          run's bit for bit.
+          run's bit for bit;
+  vs_step  the vertex-sharded step (parallel/vertex_sharded.py, factored,
+          'full_parity' dropout) of gcn_block on 1 (NCCL), 2 and 4
+          (gloo) ranks on cuda:0, and at 2 ranks gcn_basis, gcn_diag, the
+          overlapped schedule, the all-gather halo, the tiled loss and
+          bf16 messages, each against the one-device step on the same
+          batch and draws (loss 1e-5, leaves 1e-4); its launches a rank
+          (exact), all-to-alls (counted and from shapes), the halo's h
+          and rows shipped; the table's gradient through a mean over the
+          ranks (must miss); in every cell each kernel of its route, in
+          its precision (bf16 entry points in the bf16 cell), on the
+          rank's rectangular layouts against its float64 sum, a wrong
+          layout outside it;
+  vs_eval  VertexShardedModelView on 2 ranks against the one-device
+          view: codes within 1e-4, filtered MRR within 1e-3;
+  vs_fit  20 steps of TrainLoop(vertex_sharded=True) on 2 ranks (steps/s
+          of ranks that share a card), then train.py --mesh 1
+          --vertex-sharded for 20 steps and a 10-step run with its
+          --resume to 20: checkpoints at 10 and 20 bit for bit.
 
 Then a line listing every ported kernel with its numbers (each kernel's
 launches on each of these paths beside them), nvidia-smi's line, and last
@@ -562,8 +580,7 @@ def sum_allowance(exact, abs_sum, n_terms):
 
 def with_weights(layout, w):
     """``layout`` with the edge weights ``w``."""
-    return CsrLayout(row_ptr=layout.row_ptr, src=layout.src, rel=layout.rel,
-                     w=w)
+    return dataclasses.replace(layout, w=w)
 
 
 def twin_sum_allowance(g, blocks, layout, n_vertices):
@@ -4674,6 +4691,535 @@ def phase_mesh_fit() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The vertex-sharded path: vs_step, vs_eval, vs_fit
+# ---------------------------------------------------------------------------
+
+VS_DRAW_SEED = 13
+VS_KERNEL_SEED = 14
+VS_FIT_STEPS = 20
+VS_TIMEOUT = 600
+
+
+def vs_module():
+    """parallel/vertex_sharded.py, imported where it is used, as
+    sum_by_csr_op is."""
+    from relationprediction_torch.parallel import vertex_sharded
+    return vertex_sharded
+
+
+def vs_one_device(model, whole, masks, kind) -> tuple:
+    """(TrainBatch, Draws) of the one-device step on a VSBatch: the
+    message graph of every shard's real forward edges, the padded
+    positives (or the host-tiled rows and labels) with their mask, the
+    corruption parts, the [V, d] keep-masks."""
+    sen, rel, rec, msk = whole.f_arrays[:4]
+    real = msk > 0
+    graph = model.make_graph(np.stack([sen[real], rel[real], rec[real]], 1))
+    dev = model.device
+
+    def flat(a, *shape):
+        return torch.from_numpy(np.ascontiguousarray(a).reshape(
+            -1, *shape)).to(dev)
+    triples, mask = flat(whole.triples, 3), flat(whole.mask)
+    if kind == "factored":
+        k = whole.neg_values.shape[-1]
+        return (engine.TrainBatch(graph, triples, mask),
+                engine.Draws((flat(whole.neg_values, k),
+                              flat(whole.corrupt_object, k)), masks))
+    return (engine.TrainBatch(graph, triples, mask,
+                              labels=flat(whole.labels)),
+            engine.Draws((), masks))
+
+
+def vs_launches(enc, model, op, batch, steps=1) -> dict:
+    """The kernels a rank launched since reset_launch_counts in ``steps``
+    vertex-sharded steps on ``batch`` (its VSRankBatch), held exactly:
+    ``op``'s forward launches (2 a layer) and, on the fused routes, as
+    many twin passes, in the model's message precision (the unfused
+    routes sum in f32, as JAX's segment sum does), each with its split,
+    pad and fix-up passes; the sums by id of kernel 3: d blocks' or d C's
+    by relation (a layer, direction and chunk of the rank's edges) and
+    each halo exchange's backward (2 a layer with the targeted halo, and
+    the decoder's); no energies' launch (f32 streams)."""
+    pre = "bf16_" if model.agg_dtype is not None and enc.fused else ""
+    launches = getattr(op, pre + "launches")
+    twin = getattr(op, pre + "twin_launches", 0)
+    energies = energy_launches()
+    check_helper_launches(op, launches, twin,
+                          staircase2.basis_direction.project_launches,
+                          staircase2.basis_direction.split_launches,
+                          fixup_counts(), energies)
+    check_other_precision_idle(bool(pre))
+    n_layers = model.config.encoder.n_layers
+    chunks = sum(-(-d.csr.n_edges // staircase2._EDGE_CHUNK)
+                 for d in (batch.graph.fwd, batch.graph.bwd))
+    exchanges = 2 * n_layers if enc.halo == "targeted" else 0
+    got = {"launches": launches, "twin_launches": twin,
+           "sum_by_csr_launches": sum_by_csr_op().launches,
+           "energy_launches": energies}
+    want = {"launches": 2 * n_layers * steps,
+            "twin_launches": 2 * n_layers * steps * enc.fused,
+            "sum_by_csr_launches": steps * (
+                n_layers * chunks * enc.fused + exchanges + 1),
+            "energy_launches": 0}
+    if got != want:
+        raise AssertionError(f"rank's vertex-sharded launches {got}, "
+                             f"expected {want}")
+    return {**got, "op": op.__name__, "bf16": bool(pre),
+            "project_launches": getattr(staircase2.basis_direction,
+                                        pre + "project_launches"),
+            "split_launches": staircase2.basis_direction.split_launches,
+            "pad_launches": staircase2.basis_direction.bf16_pad_launches,
+            "fixup_launches": sum(fixup_counts().values()),
+            "per_step": {k: v // steps for k, v in got.items()}}
+
+
+def vs_exchange_bytes(enc, model, batch) -> int:
+    """The bytes a step's all-to-alls send from this rank, from shapes:
+    each exchange ships its [n, h] rows of d f32 columns, once forward and
+    once backward; a layer exchanges each direction with the targeted
+    halo, and the loss exchanges the decoder's."""
+    e = model.config.encoder
+    rows = batch.loss.dec_send.numel() * e.code_dimension
+    if enc.halo == "targeted":
+        rows += e.n_layers * e.internal_dimension * (
+            batch.graph.fwd.send_idx.numel()
+            + batch.graph.bwd.send_idx.numel())
+    return 2 * 4 * rows
+
+
+def vs_kernel_rows(enc, model, batch) -> list:
+    """Each hand kernel of the cell's route, in the cell's message
+    precision (the bf16 entry points where the fused route sums in bf16),
+    on the rank's forward direction's rectangular layouts (rows_per owned
+    rows from its halo buffer, and the twin the reverse) against the
+    float64 sum of its (bf16-valued) inputs within sum_allowance (plus one
+    bf16 ulp for the rounded bf16 product); the same layout with its
+    weights reversed (a wrong layout) must fall outside it. Times of the
+    kernel (CUDA events) and of its plain version beside the bound."""
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(VS_KERNEL_SEED)
+    e = model.config.encoder
+    d, n_rel = e.internal_dimension, model.n_relations
+    csr, twin = batch.graph.fwd.csr, batch.graph.fwd.twin
+    rows_per, h_len = csr.n_rows, csr.source_rows
+    bf16 = model.agg_dtype is not None and enc.fused
+    dtype, elem, sfx = (BF16, 2, "_bf16") if bf16 else (torch.float32, 4, "")
+
+    def randn(*shape):
+        """Random inputs in the kernel's dtype."""
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def wrong(layout):
+        return with_weights(layout, layout.w.flip(0).contiguous())
+    cases = []
+    if enc.fused and enc.variant == "block":
+        n_blocks, dr = e.n_bases, d // e.n_bases
+        blocks = randn(n_rel, n_blocks, dr, dr)
+        lib = staircase2.kernel_library()[0]
+        for kernel, x, layout, n_out, is_twin in (
+                ("block_direction", randn(h_len, d), csr, rows_per, False),
+                ("block_direction_twin", randn(rows_per, d), twin, h_len,
+                 True)):
+            w_eff = blocks.transpose(-1, -2) if is_twin else blocks
+            cases.append((
+                kernel + sfx, layout, n_out,
+                lambda lay, x=x, n=n_out, t=is_twin: staircase2._aggregate(
+                    x, blocks, lay, n, twin=t),
+                lambda lay, x=x, w=w_eff, n=n_out: block_exact(
+                    x.float(), w.float(), lay, n),
+                lambda lay, x=x, w=w_eff, n=n_out:
+                    staircase2.block_direction_reference(x, w, lay, n),
+                lambda lay, x=x, n=n_out, t=is_twin: staircase2.launch(
+                    lib, x, blocks, lay, n, twin=t),
+                block_direction_bound(layout, n_out, n_rel, n_blocks, dr,
+                                      elem=elem)))
+    elif enc.fused:
+        n_bases = e.n_bases
+        coef = torch.randn(n_rel, n_bases, generator=gen, device=dev)
+        lib = staircase2.basis_kernel_library()[0]
+        for kernel, proj, layout, n_out in (
+                ("basis_combine", randn(h_len, n_bases * d), csr, rows_per),
+                ("basis_combine_twin", randn(rows_per, n_bases * d), twin,
+                 h_len)):
+            cases.append((
+                kernel + sfx, layout, n_out,
+                lambda lay, p=proj, n=n_out, t=kernel.endswith("twin"):
+                    staircase2._combine(p, coef, lay, n, twin=t),
+                lambda lay, p=proj, n=n_out: combine_exact(p.float(), coef,
+                                                           lay, n),
+                lambda lay, p=proj, n=n_out:
+                    staircase2.basis_combine_reference(p, coef, lay, n),
+                lambda lay, p=proj, n=n_out: staircase2.launch_combine(
+                    lib, p, coef, lay, n),
+                combine_bound(layout, n_out, n_bases, d, elem=elem)))
+    else:
+        msgs = randn(csr.n_edges, d)
+        lib = staircase.kernel_library()[0]
+        cases.append(("staircase_aggregate", csr, rows_per,
+                      lambda lay: staircase.aggregate(msgs, lay, rows_per),
+                      lambda lay: staircase_exact(msgs, lay, rows_per),
+                      lambda lay: staircase.staircase_aggregate_reference(
+                          msgs, lay, rows_per),
+                      lambda lay: staircase.launch(lib, msgs, lay, rows_per),
+                      staircase_bound(csr, rows_per, d)))
+    rows = []
+    for kernel, layout, n_out, run, exact_of, plain_of, launch_of, bound \
+            in cases:
+        got, bad = run(layout), run(wrong(layout))
+        exact, allowance = exact_of(layout)
+        torch.cuda.synchronize()
+        row = {"kernel": kernel, "rows": layout.n_rows,
+               "source_rows": layout.source_rows, "edges": layout.n_edges,
+               "over_allowance": over_allowance(got, exact, allowance),
+               "wrong_layout_over_allowance": over_allowance(bad, exact,
+                                                             allowance),
+               "max_abs_err": (got.float() - plain_of(layout).float()).abs()
+               .max().item(),
+               "kernel_ms": cuda_ms(lambda: launch_of(layout), 10),
+               "plain_ms": cuda_ms(lambda: plain_of(layout), 3, warmup=1),
+               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        if not (torch.isfinite(got).all() and row["over_allowance"] <= 1
+                < row["wrong_layout_over_allowance"]):
+            raise AssertionError(f"{kernel} on a rectangular layout: {row}")
+        rows.append(row)
+    if enc.fused and enc.variant == "basis":
+        x, w = randn(h_len, d), randn(d, e.n_bases * d)
+        exact, allowance = project_exact(x.float(), w.float())
+        if bf16:  # P is rounded to bf16
+            allowance = allowance + BF16_ULP * exact.abs()
+        got = staircase2._project(x, w)
+        plib = staircase2.project_kernel_library()[0]
+        launch = staircase2.launch_project_bf16 if bf16 \
+            else staircase2.launch_project
+        row = {"kernel": "basis_project" + sfx, "rows": h_len,
+               "over_allowance": over_allowance(got, exact, allowance),
+               "max_abs_err": (got.float() - staircase2
+                               .basis_project_reference(x, w).float())
+               .abs().max().item(),
+               "kernel_ms": cuda_ms(lambda: launch(plib, x, w), 10),
+               "plain_ms": cuda_ms(lambda: staircase2.basis_project_reference(
+                   x, w), 3, warmup=1),
+               **(least_time(2 * (h_len * d + d * e.n_bases * d
+                                  + h_len * e.n_bases * d),
+                             2 * h_len * d * e.n_bases * d, BF16_OPS_PER_S)
+                  if bf16 else project_bound(h_len, d, e.n_bases * d))}
+        if not row["over_allowance"] <= 1:
+            raise AssertionError(f"basis_project on the halo buffer: {row}")
+        rows.append(row)
+    return rows
+
+
+def vs_step_cell(mesh, ds, cfg, kind, options, tol, control) -> dict:
+    """One vertex-sharded step of ``kind`` ('factored' or 'tiled') with
+    'full_parity' dropout and the encoder ``options`` on this rank's shard,
+    against the one-device step on the same batch and draws (rank 0):
+    ``same_step`` within ``tol``, the padded table unpadded; its launches
+    (``vs_launches``), all-to-alls (counted and from shapes) and
+    all-reduces; the kernels of its route on the rank's rectangular
+    layouts (``vs_kernel_rows``); with ``control``, the control that takes
+    the mean over the ranks of the whole gradient tree (the table's rows
+    included), which must miss the leaf rule."""
+    exact_float32()
+    vsm = vs_module()
+    model = build.build_model(cfg, mesh.device)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    enc = vsm.VertexShardedEncoder(model, mesh, dropout_mode="full_parity",
+                                   **options)
+    t0 = time.perf_counter()
+    pipe = vsm.VertexShardedBatchPipeline(enc, cfg, ds,
+                                          np.random.default_rng(0),
+                                          factored=kind == "factored")
+    whole = pipe.next()
+    batch = vsm.VSRankBatch(
+        enc.shard_graph(whole.f_arrays, whole.b_arrays),
+        enc.shard_loss(whole)).to(mesh.device)
+    host_s = time.perf_counter() - t0
+    masks = model.draw_keep_masks(
+        torch.Generator(device=mesh.device).manual_seed(VS_DRAW_SEED))
+    keep = enc.shard_keep_masks(masks)
+    local = enc.place_state(enc.pad_params(params))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    counters = (collectives.halo_exchange.calls,
+                collectives.halo_exchange.bytes,
+                collectives.all_reduce_sum.calls,
+                collectives.all_reduce_sum.bytes)
+    t0 = time.perf_counter()
+    loss, grads = enc.loss_and_grads(local, batch, keep)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    a2a_calls = collectives.halo_exchange.calls - counters[0]
+    a2a_bytes = collectives.halo_exchange.bytes - counters[1]
+    (f_tg, f_ag), (b_tg, b_ag) = enc.traffic
+    row = {"model": model_label(cfg), "loss_kind": kind,
+           "halo": enc.halo, "overlap": enc.overlap, "fused": enc.fused,
+           "world_size": mesh.world_size, "backend": mesh.backend,
+           "rows_per": enc.rows_per, "v_pad": enc.v_pad,
+           "budgets": pipe.budgets,
+           "halo_h": None if batch.graph.fwd.send_idx is None
+           else batch.graph.fwd.send_idx.shape[-1],
+           "decoder_halo_h": batch.loss.dec_send.shape[-1],
+           "rows_shipped_per_exchange": {"forward": f_tg, "backward": b_tg,
+                                         "all_gather": f_ag},
+           "rank_edges": {"forward": batch.graph.fwd.csr.n_edges,
+                          "backward": batch.graph.bwd.csr.n_edges},
+           "rank_loss_rows": int(batch.loss.triples.shape[0]),
+           "host_batch_s": host_s, "step_ms_host_clock": step_ms,
+           "all_to_all_calls": a2a_calls, "all_to_all_bytes": a2a_bytes,
+           "all_to_all_bytes_from_shapes": vs_exchange_bytes(enc, model,
+                                                             batch),
+           "all_reduce_calls": collectives.all_reduce_sum.calls
+           - counters[2],
+           "all_reduce_bytes": collectives.all_reduce_sum.bytes
+           - counters[3],
+           **vs_launches(enc, model, MESH_OPS[
+               "staircase" if not enc.fused
+               else enc.variant], batch)}
+    if row["all_to_all_bytes"] != row["all_to_all_bytes_from_shapes"] \
+            or a2a_calls != 2 * (2 * cfg.encoder.n_layers * (
+                enc.halo == "targeted") + 1):
+        raise AssertionError(f"all-to-alls {a2a_calls} calls, "
+                             f"{a2a_bytes} bytes: {row}")
+    grads = enc.unpad_params(enc.gather_state(grads))
+    bad_table = None
+    if control and mesh.world_size > 1:
+        _, raw = engine._value_and_grad(
+            lambda: enc.loss(local, batch.graph, batch.loss, keep), local)
+        bad_table = enc.gather_state(collectives.pmean(raw, mesh.group))[
+            "input_transform"]["W"][:model.n_entities]
+    if mesh.rank:
+        return row
+    one_batch, draws = vs_one_device(model, whole, masks, kind)
+    ref_loss, ref_grads = engine.step_loss_and_grads(model, kind, params,
+                                                     one_batch, draws)
+    row.update(same_step(loss, grads, ref_loss, ref_grads,
+                         "the one-device step", **tol))
+    del row["grads"]
+    row["bitwise_equal"] = loss.item() == ref_loss.item() and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(grads),
+                                          tree_leaves(ref_grads)))
+    if control and mesh.world_size > 1:  # one rank's mean is its own
+        rule = tol.get("leaf_rtol", 1e-4)
+        row["pmean_control_table_rel_l2"] = rel_l2(
+            bad_table, ref_grads["input_transform"]["W"])
+        if not row["pmean_control_table_rel_l2"] > rule:
+            raise AssertionError(f"the table's gradient through pmean "
+                                 f"passed the leaf rule: {row}")
+    row["rectangular_kernels"] = vs_kernel_rows(enc, model, batch)
+    return row
+
+
+def vs_eval_cell(mesh, ds, cfg) -> dict:
+    """VertexShardedModelView on the whole train graph's layouts against
+    the one-device view (rank 0): codes within rtol 1e-4 / atol 1e-4, the
+    filtered MRR of SERVE_TRIPLES test triples within 1e-3 (the serve
+    rule); 4 forward launches an encode on each rank."""
+    exact_float32()
+    vsm = vs_module()
+    model = build.build_model(cfg, mesh.device)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    enc = vsm.VertexShardedEncoder(model, mesh)
+    view = vsm.VertexShardedModelView(enc, *vsm.eval_arrays(enc, ds.train))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, codes = view.encoded(params)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    launches = staircase2.block_direction.launches
+    if launches != 2 * cfg.encoder.n_layers \
+            or staircase2.launch_counts() != (launches, 0):
+        raise AssertionError(f"a vertex-sharded encode launched "
+                             f"{staircase2.launch_counts()}")
+    codes = collectives.all_gather_rows(codes, mesh.group)[:ds.n_entities]
+    scorer = Scorer(metric=cfg.training.metric)
+    for t in (ds.train, ds.valid, ds.test):
+        scorer.register_data(t)
+    scorer.register_degrees(ds.train)
+    scorer.finalize_frequency_computation(ds.all_triples())
+    triples = ds.test[:SERVE_TRIPLES]
+    scorer.register_model(view, params, None, n_entities=ds.n_entities)
+    t0 = time.perf_counter()
+    got = scorer.compute_scores(triples).results["Filtered"]
+    score_s = time.perf_counter() - t0
+    row = {"world_size": mesh.world_size, "backend": mesh.backend,
+           "op": "block_direction", "bf16": False, "launches": launches,
+           "twin_launches": 0, "fixup_launches": sum(fixup_counts().values()),
+           "sum_by_csr_launches": 0, "project_launches": 0,
+           "split_launches": 0, "encode_ms": encode_ms, "score_s": score_s,
+           "rank_edges": view.graph.fwd.csr.n_edges,
+           "mrr_filtered": got["MRR"], "hits10_filtered": got["H@10"],
+           "triples": len(triples)}
+    if mesh.rank == 0:
+        one = build.ModelView(model)
+        whole = model.make_graph(ds.train)
+        ref = one.encoded(params, whole).entity_codes
+        torch.testing.assert_close(codes, ref, rtol=1e-4, atol=1e-4)
+        scorer.register_model(one, params, whole, n_entities=ds.n_entities)
+        want = scorer.compute_scores(triples).results["Filtered"]
+        row.update(codes_max_abs_diff=(codes - ref).abs().max().item(),
+                   codes_rel_l2=rel_l2(codes, ref),
+                   mrr_filtered_one_device=want["MRR"],
+                   mrr_diff=abs(got["MRR"] - want["MRR"]))
+        if row["mrr_diff"] > 1e-3:
+            raise AssertionError(f"vertex-sharded filtered MRR "
+                                 f"{got['MRR']} against {want['MRR']}")
+    return row
+
+
+def vs_fit_cell(mesh, ds, cfg) -> dict:
+    """VS_FIT_STEPS steps of TrainLoop(vertex_sharded=True) (factored,
+    per-shard dropout, serial batches): the loss finite at every step and
+    lower at the last than at the first, the launches of every step, the
+    ranks' gathered params and Adam state equal; steps/s of ranks that
+    share one card."""
+    exact_float32()
+    model = build.build_model(cfg, mesh.device)
+    loop = engine.TrainLoop(model, cfg, ds, seed=0, prefetch=False,
+                            log=lambda line: None, mesh=mesh,
+                            vertex_sharded=True)
+    params, opt_state = loop.init_state(0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = loop.fit(params, opt_state, max_iterations=VS_FIT_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = [s["loss"] for s in result.steps]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"vertex-sharded fit losses {losses}")
+    batch = loop.pipeline.next()
+    return {"world_size": mesh.world_size, "steps": result.iterations,
+            **vs_launches(loop.vse, model, staircase2.block_direction,
+                          batch, VS_FIT_STEPS),
+            "losses": losses, "wall_s": wall_s,
+            "steps_per_s": loop.timer.summary()["steps_per_sec"],
+            "step_ms_median": statistics.median(s["step_ms"]
+                                                for s in result.steps),
+            "digest": digest(result.params, result.opt_state)}
+
+
+def vs_rank(mesh, cells) -> dict:
+    """One rank of the vertex-sharded phases: each cell (label, kind,
+    arguments) in turn on the seeded synth:FB15k-237 graph."""
+    ds = synthetic.like("FB15k-237", seed=0)
+    out = {}
+    for label, kind, args in cells:
+        t0 = time.perf_counter()
+        fn = {"step": vs_step_cell, "eval": vs_eval_cell,
+              "fit": vs_fit_cell}[kind]
+        out[label] = fn(mesh, ds, *args)
+        out[label]["cell_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_vs(ds, cfg, basis_cfg, train_steps_per_s) -> dict:
+    """vs_step and vs_eval, and vs_fit's library part: the gcn_block f32
+    factored step with 'full_parity' dropout on 1 (NCCL), 2 and 4 (gloo)
+    ranks on cuda:0 against the one-device step, with the pmean control;
+    at 2 ranks also gcn_basis (kernel 2) and gcn_diag (kernel 3) with
+    the control, the overlapped schedule on gcn_block (unfused block
+    messages, kernel 3), the all-gather halo, the tiled loss and bf16
+    message precision (BF16_STEP_TOL); every cell with the kernels of its
+    route on its rectangular layouts (``vs_kernel_rows``); the 2-rank VertexShardedModelView, and
+    VS_FIT_STEPS steps of TrainLoop(vertex_sharded=True) (their steps/s
+    beside the one-device train phase's ``train_steps_per_s``: ranks that
+    share one card, not a scale-out number). Returns each path's launch
+    row by phase name."""
+    t_phase = time.perf_counter()
+    diag_cfg = dataclasses.replace(basis_cfg, encoder=dataclasses.replace(
+        basis_cfg.encoder, name="gcn_diag"))
+    message_cfg = variant_config(ds, "vs_bf16_message", SETTINGS,
+                                 [BF16_LINE])
+    block = ("block", "step", (cfg, "factored", {}, {}, True))
+    extra = [("basis", "step", (basis_cfg, "factored", {}, {}, True)),
+             ("diag", "step", (diag_cfg, "factored", {}, {}, True)),
+             ("overlap", "step", (cfg, "factored", {"overlap": True}, {},
+                                  False)),
+             ("all_gather", "step", (cfg, "factored",
+                                     {"halo": "all_gather"}, {}, False)),
+             ("tiled", "step", (cfg, "tiled", {}, {}, False)),
+             ("bf16_message", "step", (message_cfg, "factored", {},
+                                       BF16_STEP_TOL, False)),
+             ("eval", "eval", (cfg,)),
+             ("fit", "fit", (cfg,))]
+    paths = {}
+    for world, backend in MESH_WORLDS:
+        results = distributed.launch(
+            vs_rank, world, ([block] + (extra if world == 2 else []),),
+            backend=backend, devices=["cuda:0"] * world,
+            timeout=VS_TIMEOUT)
+        head = results[0]
+        for label, row in head.items():
+            if label == "eval":
+                emit("vs_eval", phase_s=time.perf_counter() - t_phase,
+                     card=nvidia_smi_line(), **row)
+            elif label == "fit":
+                if len({r["fit"]["digest"] for r in results}) != 1:
+                    raise AssertionError("the ranks' gathered params "
+                                         "differ after the fit")
+                emit("vs_fit", part="library",
+                     phase_s=time.perf_counter() - t_phase,
+                     card=nvidia_smi_line(),
+                     one_device_steps_per_s=train_steps_per_s,
+                     note="ranks that share one card, not a scale-out "
+                          "number", **row)
+            else:
+                emit("vs_step", cell=label,
+                     phase_s=time.perf_counter() - t_phase,
+                     card=nvidia_smi_line(), **row)
+            paths[f"vs_{label}_{world}"] = row
+    return paths
+
+
+def phase_vs_fit() -> dict:
+    """vs_fit's CLI part: train.py --mesh 1 --vertex-sharded (NCCL) at the
+    fit phase's cadence for 20 steps (checks and saves at 10 and 20), at
+    the same time the same run cut at 10 (two processes on the card),
+    then that run's --resume to 20: the checkpoints at 10 and 20 equal bit
+    for bit."""
+    t_phase = time.perf_counter()
+    flags = ("--vertex-sharded",)
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(mesh_cli, name, MESH_CLI_CUTS, *flags,
+                            "--max-iterations", steps)
+                for name, steps in (("vs_a", "20"), ("vs_b", "10"))]
+    (out_a, a, a_s), (_, b, b_s) = (run.result() for run in runs)
+    proc = subprocess.run(
+        [sys.executable, "-m", "relationprediction_torch.train",
+         "--settings", str(Path(b).parent / "gcn_block.exp"), "--dataset",
+         "synth:FB15k-237", "--mesh", "1", *flags, "--resume",
+         "--max-iterations", "20"], cwd=ROOT, capture_output=True,
+        text=True, timeout=MESH_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the resumed run failed: {proc.stderr[-4000:]}")
+    same_checkpoints(a, b, 10)
+    same_checkpoints(a, b, 20)
+    state = checkpoint.restore(f"{a}-20.ckpt")
+    done = re.search(r"Training done: (\d+) iterations .* last loss (\S+) "
+                     r"\((\S+) steps/s", out_a)
+    checks = re.findall(r"Tested validation score at iteration (\d+)", out_a)
+    if not done or "Mesh: 1 ranks over nccl, vertex-sharded" not in out_a \
+            or not np.isfinite(float(done.group(2))) or checks != ["10",
+                                                                   "20"]:
+        raise AssertionError(f"train.py --vertex-sharded printed "
+                             f"{out_a[-2000:]}")
+    row = {"part": "cli", "steps": int(done.group(1)),
+           "last_loss": float(done.group(2)),
+           "steps_per_s_incl_checks_beside_another_run":
+               float(done.group(3)),
+           "checks": [int(c) for c in checks], "run_s": a_s,
+           "short_run_s": b_s,
+           "table_rows": int(state["params"]["input_transform"]["W"]
+                             .shape[0]),
+           "checkpoints_10_and_20_bitwise": True, "backend": "nccl",
+           "card": nvidia_smi_line()}
+    emit("vs_fit", phase_s=time.perf_counter() - t_phase, **row)
+    return row
+
+
 def build_all() -> None:
     """Build every kernel source at once, one nvcc each."""
     t_phase = time.perf_counter()
@@ -4845,10 +5391,19 @@ def main() -> int:
         (bf16_runs if row["bf16"] else by_op[row["op"]])[name] = row
     phase_mesh_fit()
 
+    # The vertex-sharded path: the gcn_block step on 1 (NCCL), 2 and 4
+    # (gloo) ranks on cuda:0, at 2 ranks every route (gcn_basis, gcn_diag,
+    # overlapped, all-gather, tiled, bf16), the view and a 20-step fit;
+    # then train.py --mesh 1 --vertex-sharded and its resume.
+    for name, row in phase_vs(ds, cfg, basis_cfg,
+                              train["steps_per_s"]).items():
+        (bf16_runs if row["bf16"] else by_op[row["op"]])[name] = row
+    phase_vs_fit()
+
     train_runs = {"train": train, "train_basis": train_b, "fit": fit,
                   **{k: r for k, r in {**paths, **basis_paths, **runs,
                                        **bf16_runs}.items()
-                     if k.startswith(("train", "quality", "mesh"))}}
+                     if k.startswith(("train", "quality", "mesh", "vs"))}}
     print(json.dumps({"kernels": kernels_line(rows, serve, grads, train, fit,
                                               paths)
                       + basis_kernels_line(kb, serve_b, train_b,

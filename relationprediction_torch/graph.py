@@ -23,10 +23,15 @@ and ``rel`` with the opposite CSR and carries only its own ``w``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, replace
+from typing import Optional
 
 import numpy as np
 import torch
+
+
+# The layout's per-entry tensors, in constructor order.
+_CSR_TENSORS = ("row_ptr", "src", "rel", "w")
 
 
 @dataclass(frozen=True)
@@ -34,15 +39,22 @@ class CsrLayout:
     """One direction's edges grouped by target row.
 
     row_ptr: int32 [n_rows + 1]; row v's edges are [row_ptr[v], row_ptr[v+1]).
-    src:     int32 [E] vertex whose features feed each edge.
+    src:     int32 [E] row of the gathered table whose features feed each
+             edge.
     rel:     int32 [E] relation id; ascending within each row.
     w:       float32 [E] aggregation weight.
+    n_sources: rows of the table that ``src`` indexes, where it is not
+             n_rows: a rectangular layout, such as a vertex shard's, which
+             sums into its ``rows_per`` owned rows from a halo buffer of
+             another length (parallel/vertex_sharded.py); None for a
+             square layout (``source_rows`` is then n_rows).
     """
 
     row_ptr: torch.Tensor
     src: torch.Tensor
     rel: torch.Tensor
     w: torch.Tensor
+    n_sources: Optional[int] = None
 
     @property
     def n_rows(self) -> int:
@@ -52,35 +64,49 @@ class CsrLayout:
     def n_edges(self) -> int:
         return self.src.shape[0]
 
+    @property
+    def source_rows(self) -> int:
+        """Rows of the table the layout gathers from."""
+        return self.n_rows if self.n_sources is None else self.n_sources
+
+    def map(self, fn) -> "CsrLayout":
+        """The same layout with ``fn`` applied to each of its tensors."""
+        return replace(self, **{k: fn(getattr(self, k))
+                                for k in _CSR_TENSORS})
+
     def to(self, device) -> "CsrLayout":
-        return CsrLayout(**{f.name: getattr(self, f.name).to(device)
-                            for f in fields(self)})
+        return self.map(lambda t: t.to(device))
 
     def tensors(self) -> list:
-        return [getattr(self, f.name) for f in fields(self)]
+        return [getattr(self, k) for k in _CSR_TENSORS]
 
 
 def build_csr(sources: np.ndarray, relations: np.ndarray,
               targets: np.ndarray, weights: np.ndarray,
-              n_vertices: int) -> tuple:
+              n_vertices: int, n_sources: Optional[int] = None) -> tuple:
     """CSR by target of the real edges (weight != 0 and target < V), and
     the order of its entries: ``(layout, order)``, where CSR entry k is
     input edge ``order[k]`` (int64 numpy).
 
     Edges with weight 0 or a target at or beyond ``n_vertices`` are padding
     and dropped, as the TPU slot layout drops them
-    (``staircase2.build_staircase2_layout``).
+    (``staircase2.build_staircase2_layout``). ``n_sources``: the rows of
+    the table the sources index, n_vertices where None; a real edge's
+    source must lie in [0, n_sources). The kernels check no index on the
+    device, so this is the guard against a read out of bounds.
     """
     sources = np.asarray(sources, dtype=np.int64)
     relations = np.asarray(relations, dtype=np.int64)
     targets = np.asarray(targets, dtype=np.int64)
     weights = np.asarray(weights, dtype=np.float32)
+    n_src = n_vertices if n_sources is None else int(n_sources)
     real = np.nonzero((targets < n_vertices) & (weights != 0.0))[0]
     if real.size and (sources[real].min() < 0 or targets[real].min() < 0
-                      or sources[real].max() >= n_vertices
+                      or sources[real].max() >= n_src
                       or relations[real].min() < 0):
-        raise ValueError("build_csr: a real edge has a vertex outside "
-                         f"[0, {n_vertices}) or a negative relation")
+        raise ValueError("build_csr: a real edge has a source outside "
+                         f"[0, {n_src}), a negative target or a negative "
+                         "relation")
     order = real[np.lexsort((relations[real], targets[real]))]
     counts = np.bincount(targets[order], minlength=n_vertices)
     row_ptr = np.zeros(n_vertices + 1, dtype=np.int64)
@@ -91,7 +117,8 @@ def build_csr(sources: np.ndarray, relations: np.ndarray,
         row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
         src=torch.from_numpy(sources[order].astype(np.int32)),
         rel=torch.from_numpy(relations[order].astype(np.int32)),
-        w=torch.from_numpy(weights[order]))
+        w=torch.from_numpy(weights[order]),
+        n_sources=None if n_sources is None else n_src)
     return layout, order
 
 
@@ -141,8 +168,7 @@ class GraphBatch:
         return self._map(lambda t: t.pin_memory())
 
     def _map(self, fn) -> "GraphBatch":
-        fwd = CsrLayout(*map(fn, self.fwd.tensors()))
-        bwd = CsrLayout(*map(fn, self.bwd.tensors()))
+        fwd, bwd = self.fwd.map(fn), self.bwd.map(fn)
         return GraphBatch(fwd, bwd, replace(bwd, w=fn(self.fwd_twin.w)),
                           replace(fwd, w=fn(self.bwd_twin.w)),
                           fn(self.fwd_order), fn(self.bwd_order),

@@ -246,8 +246,8 @@ def _edge_messages(params, variant, features, layout, sfx) -> torch.Tensor:
     if variant == "only_bias":
         return relblock.relation_bias_messages(params[f"b_{sfx}"], rel)
     if variant == "block":
-        raise ValueError("the block layer has no unfused route in the port "
-                         "(its model takes the fused kernel)")
+        return relblock.block_diag_messages(features, params[f"W_{sfx}"],
+                                            src, rel)
     w = params[f"W_{sfx}"]
     proj = relblock.basis_vertex_projection(features, w.flatten(1),
                                             w.shape[1])

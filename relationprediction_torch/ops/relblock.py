@@ -82,6 +82,28 @@ def basis_messages_scaled(proj: torch.Tensor, coefficients: torch.Tensor,
     return out
 
 
+def block_diag_messages(features: torch.Tensor, blocks: torch.Tensor,
+                        edge_vertices: torch.Tensor,
+                        edge_relations: torch.Tensor,
+                        edge_chunk: int = _EDGE_CHUNK) -> torch.Tensor:
+    """[E, d] block-diagonal messages y[b*dr + i] = sum_j W[r_e, b, i, j] *
+    x[v_e, b*dr + j] (``relblock.py:66-84``), over chunks of edges so the
+    gathered [chunk, B, dr, dr] blocks stay bounded. The block layer's
+    unfused route: only the vertex-sharded path's overlapped schedule
+    takes it (``parallel/vertex_sharded.py``); every other block layer
+    runs the fused kernel."""
+    n_blocks, dr = blocks.shape[1], blocks.shape[2]
+    n_edges = edge_vertices.shape[0]
+    out = features.new_empty(n_edges, n_blocks * dr)
+    for start in range(0, n_edges, edge_chunk):
+        sl = slice(start, start + edge_chunk)
+        x = take_rows(features, edge_vertices[sl]).view(-1, n_blocks, dr)
+        out[sl] = torch.einsum("ebij,ebj->ebi",
+                               take_rows(blocks, edge_relations[sl]),
+                               x).reshape(-1, n_blocks * dr)
+    return out
+
+
 def relation_bias_messages(biases: torch.Tensor,
                            edge_relations: torch.Tensor) -> torch.Tensor:
     """Messages that are the relation's bias vector alone, b[r_e]

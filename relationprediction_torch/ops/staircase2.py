@@ -169,11 +169,13 @@ def block_direction(features: torch.Tensor, blocks: torch.Tensor,
     """One direction's aggregation, differentiable; see the module
     docstring.
 
-    features: [V, d] float32; blocks: [R, B, dr, dr] float32 (the JAX
+    features: [S, d] float32, S the layout's ``source_rows`` (V on a
+    graph's square layouts); blocks: [R, B, dr, dr] float32 (the JAX
     package's layout); layout: the direction's CSR with n_vertices rows;
-    twin: its twin CSR (graph.GraphBatch.fwd_twin / bwd_twin), needed only
-    for the gradient with respect to features; compute_dtype: None, or
-    torch.bfloat16 for the bf16 kernels. Returns [n_vertices, d] float32.
+    twin: its twin CSR (graph.GraphBatch.fwd_twin / bwd_twin: S rows
+    gathering from n_vertices), needed only for the gradient with respect
+    to features; compute_dtype: None, or torch.bfloat16 for the bf16
+    kernels. Returns [n_vertices, d] float32.
     """
     if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"block_direction: unsupported device "
@@ -206,7 +208,7 @@ class _BlockDirection(torch.autograd.Function):
     def forward(ctx, features, blocks, layout, twin, n_vertices,
                 compute_dtype=None):
         ctx.save_for_backward(features, blocks)
-        ctx.layout, ctx.twin, ctx.n_vertices = layout, twin, n_vertices
+        ctx.layout, ctx.twin = layout, twin
         ctx.compute_dtype = compute_dtype
         return _aggregate(_cast(features, compute_dtype),
                           _cast(blocks, compute_dtype), layout, n_vertices,
@@ -222,9 +224,12 @@ class _BlockDirection(torch.autograd.Function):
                 raise ValueError("block_direction: the gradient with "
                                  "respect to features needs the "
                                  "direction's twin layout")
+            # The twin sums into the rows of ``features``, which a
+            # rectangular layout (a vertex shard's) has more or fewer of
+            # than the forward's n_vertices.
             cd = ctx.compute_dtype
             d_features = _aggregate(_cast(g, cd), _cast(blocks, cd),
-                                    ctx.twin, ctx.n_vertices, twin=True)
+                                    ctx.twin, features.shape[0], twin=True)
         if ctx.needs_input_grad[1]:
             d_blocks = block_direction_dblocks(features, g, blocks.shape,
                                                ctx.layout)
@@ -326,10 +331,13 @@ def _check(features, blocks, layout, n_vertices) -> None:
     if features.dim() != 2 or features.shape[1] != n_blocks * dr:
         raise ValueError(f"block_direction: features {tuple(features.shape)}"
                          f" do not match d = B*dr = {n_blocks * dr}")
-    if layout.n_rows != n_vertices or features.shape[0] != n_vertices:
-        raise ValueError(f"block_direction: layout has {layout.n_rows} rows "
-                         f"and features {features.shape[0]}, expected "
-                         f"{n_vertices}")
+    if layout.n_rows != n_vertices:
+        raise ValueError(f"block_direction: layout has {layout.n_rows} rows, "
+                         f"expected {n_vertices}")
+    if features.shape[0] != layout.source_rows:
+        raise ValueError(f"block_direction: features have "
+                         f"{features.shape[0]} rows, the layout gathers "
+                         f"from {layout.source_rows}")
     e = layout.n_edges
     if layout.rel.shape[0] != e or layout.w.shape[0] != e:
         raise ValueError("block_direction: src, rel and w differ in length")
@@ -524,11 +532,12 @@ def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
                     ) -> torch.Tensor:
     """One basis direction, differentiable; see the module docstring.
 
-    features: [V, d_in] float32; w_flat: [d_in, B*d_out] float32;
-    coefficients: [R, B] float32; layout: the direction's CSR with
-    n_vertices rows; twin: its twin CSR, needed only for the gradient with
-    respect to features; compute_dtype: None, or torch.bfloat16 for the
-    bf16 kernels. Returns [n_vertices, d_out] float32.
+    features: [S, d_in] float32, S the layout's ``source_rows``; w_flat:
+    [d_in, B*d_out] float32; coefficients: [R, B] float32; layout: the
+    direction's CSR with n_vertices rows; twin: its twin CSR (S rows
+    gathering from n_vertices), needed only for the gradient with respect
+    to features; compute_dtype: None, or torch.bfloat16 for the bf16
+    kernels. Returns [n_vertices, d_out] float32.
     """
     if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"basis_direction: unsupported device "
@@ -584,7 +593,7 @@ class _BasisDirection(torch.autograd.Function):
                         _cast(w_flat, compute_dtype))
         ctx.save_for_backward(features, w_flat, coefficients,
                               proj if compute_dtype is None else None)
-        ctx.layout, ctx.twin, ctx.n_vertices = layout, twin, n_vertices
+        ctx.layout, ctx.twin = layout, twin
         ctx.compute_dtype = compute_dtype
         return _combine(proj, coefficients, layout, n_vertices, twin=False)
 
@@ -601,7 +610,7 @@ class _BasisDirection(torch.autograd.Function):
                                  "direction's twin layout")
             w_t = basis_twin_weights(w_flat, coefficients.shape[1])
             d_features = _combine(_project(_cast(g, cd), _cast(w_t, cd)),
-                                  coefficients, ctx.twin, ctx.n_vertices,
+                                  coefficients, ctx.twin, features.shape[0],
                                   twin=True)
         d_w = d_c = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
@@ -806,6 +815,9 @@ def _check_combine(proj, coefficients, layout, n_rows) -> None:
     if layout.n_rows != n_rows:
         raise ValueError(f"basis_combine: layout has {layout.n_rows} rows, "
                          f"expected {n_rows}")
+    if proj.shape[0] != layout.source_rows:
+        raise ValueError(f"basis_combine: proj has {proj.shape[0]} rows, "
+                         f"the layout gathers from {layout.source_rows}")
     e = layout.n_edges
     if layout.rel.shape[0] != e or layout.w.shape[0] != e:
         raise ValueError("basis_combine: src, rel and w differ in length")

@@ -186,3 +186,20 @@ def graph_split(graph_batch_ids: np.ndarray, split_size: float,
     rng = rng if rng is not None else np.random.default_rng()
     n = int(split_size * len(graph_batch_ids))
     return rng.choice(graph_batch_ids, size=n, replace=False).astype(np.int32)
+
+
+def draw_subgraph(train: np.ndarray, adj: AdjacencyIndex, batch_size: int,
+                  split_size: float, sampler: str,
+                  rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+    """(batch edge ids, message-graph edge ids) into ``train``, the batch
+    pipelines' one draw (``engine.py:126-138``,
+    ``vertex_sharded.py:1016-1043``): every edge where ``batch_size`` covers
+    the train set, else a 'neighborhood' or 'uniform' sample of ``batch_size``
+    edges, then its ``graph_split`` of ``split_size``, all from ``rng``."""
+    if batch_size >= len(train):
+        batch_ids = np.arange(len(train), dtype=np.int32)
+    elif sampler == "neighborhood":
+        batch_ids = sample_edge_neighborhood_fast(adj, batch_size, rng)
+    else:
+        batch_ids = sample_uniform_edges(len(train), batch_size, rng)
+    return batch_ids, graph_split(batch_ids, split_size, rng)

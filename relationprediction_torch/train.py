@@ -4,8 +4,9 @@
     python -m relationprediction_torch.train --settings settings/gcn_block.exp \
         --dataset synth:FB15k-237 [--max-iterations N] [--max-seconds S] \
         [--negative-mode binomial|split|shared] [--resume] [--seed 0] [--cpu] \
-        [--mesh N] [--coordinator HOST:PORT --num-processes P \
-         --process-id p --local-devices L]
+        [--mesh N [--vertex-sharded [--vs-overlap]]] \
+        [--coordinator HOST:PORT --num-processes P --process-id p \
+         --local-devices L]
 
 Counterpart of ``relationprediction_tpu/cli.py:102-215``:
 loads the settings and the dataset (a directory, or ``synth:<profile>``
@@ -32,8 +33,13 @@ a device list that repeats the card). The multi-host flags start
 P*L, which meet at ``--coordinator`` (the host of process 0, on a free
 port). Only rank 0 prints, writes checkpoints and
 metric records; a failed rank makes the run exit non-zero.
-``--vertex-sharded`` and ``--vs-overlap`` (the vertex-sharded path) are
-parsed and raise NotImplementedError: ROADMAP.md Queue 1 item 5b.
+``--vertex-sharded`` (with ``--mesh``; without it a parser error) shards
+the entity table's rows over the ranks instead
+(parallel/vertex_sharded.py): training takes the vertex-sharded step,
+``--vs-overlap`` its overlapped halo schedule, and evaluation runs through
+``VertexShardedModelView`` on the whole train graph's layouts.
+Checkpoints hold the padded table gathered from the ranks, the JAX
+package's layout.
 """
 from __future__ import annotations
 
@@ -43,22 +49,31 @@ import os
 import time
 
 
-def build_scorer(model, ds, metric: str, mesh=None):
+def build_scorer(model, ds, metric: str, mesh=None,
+                 vertex_sharded: bool = False):
     """The evaluation scorer over the train, valid and test splits, scoring
     through the encode-once view on the whole train graph (none for a
     model without one); on ``mesh`` (an ``EdgeMesh``) through the sharded
-    view on this rank's shard of it."""
+    view on this rank's shard of it, or with ``vertex_sharded`` through
+    ``VertexShardedModelView`` on the whole train graph's layouts
+    (``cli.py:141-156``)."""
     from relationprediction_torch.evaluation.scorer import Scorer
     from relationprediction_torch.models.build import ModelView
     scorer = Scorer(metric=metric)
     for t in (ds.train, ds.valid, ds.test):
         scorer.register_data(t)
     scorer.register_degrees(ds.train)
-    scorer.register_model(
-        ModelView(model, mesh=mesh), None,
-        model.make_graph(ds.train, shard=(0, 1) if mesh is None
-                         else mesh.shard),
-        n_entities=ds.n_entities)
+    if vertex_sharded:
+        from relationprediction_torch.parallel.vertex_sharded import (
+            VertexShardedEncoder, VertexShardedModelView, eval_arrays)
+        vse = VertexShardedEncoder(model, mesh)
+        view, graph = VertexShardedModelView(
+            vse, *eval_arrays(vse, ds.train)), None
+    else:
+        view = ModelView(model, mesh=mesh)
+        graph = model.make_graph(ds.train, shard=(0, 1) if mesh is None
+                                 else mesh.shard)
+    scorer.register_model(view, None, graph, n_entities=ds.n_entities)
     scorer.finalize_frequency_computation(ds.all_triples())
     return scorer
 
@@ -109,11 +124,11 @@ def parse_args(argv=None):
                              "N ranks, one process each: N cards over NCCL, "
                              "or N CPU ranks over gloo with --cpu.")
     parser.add_argument("--vertex-sharded", action="store_true",
-                        help="Shard the vertex axis (not ported: ROADMAP.md "
-                             "Queue 1 item 5b).")
+                        help="With --mesh: shard the entity table's rows "
+                             "over the ranks (targeted halo exchange).")
     parser.add_argument("--vs-overlap", action="store_true",
-                        help="Overlap the vertex-sharded halo exchange (not "
-                             "ported: ROADMAP.md Queue 1 item 5b).")
+                        help="With --vertex-sharded: the overlapped halo "
+                             "schedule.")
     parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                         help="Multi-host: the process group's TCP store "
                              "(process 0's host binds it).")
@@ -133,6 +148,8 @@ def parse_args(argv=None):
         or args.num_processes is not None
     if args.mesh is not None and args.mesh < 1:
         parser.error("--mesh takes a positive rank count")
+    if args.vertex_sharded and args.mesh is None:
+        parser.error("--vertex-sharded requires --mesh")
     if args.multihost and (args.coordinator is None
                            or args.num_processes is None
                            or args.process_id is None):
@@ -143,11 +160,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     parser, args = parse_args(argv)
-    if args.vertex_sharded or args.vs_overlap:
-        raise NotImplementedError(
-            "--vertex-sharded / --vs-overlap: the vertex-sharded path "
-            "(relationprediction_tpu/parallel/vertex_sharded.py) is not "
-            "ported yet (ROADMAP.md Queue 1 item 5b)")
 
     import torch
 
@@ -207,15 +219,20 @@ def run(args, device, mesh=None) -> None:
           f"{ds.n_relations} relations, {len(ds.train)} train triples "
           f"({device})")
     if mesh is not None:
+        layout = "vertex-sharded" if args.vertex_sharded \
+            else "edge-partitioned"
         print(f"Mesh: {mesh.world_size} ranks over {mesh.backend}, "
-              f"edge-partitioned")
+              f"{layout}")
 
     model = build_model(cfg, device)
-    scorer = build_scorer(model, ds, cfg.training.metric, mesh)
+    scorer = build_scorer(model, ds, cfg.training.metric, mesh,
+                          args.vertex_sharded)
     loop = TrainLoop(model, cfg, ds,
                      scoring_function=validation_scoring(scorer, ds),
                      sampler=args.sampler, seed=args.seed,
-                     negative_mode=args.negative_mode, mesh=mesh)
+                     negative_mode=args.negative_mode, mesh=mesh,
+                     vertex_sharded=args.vertex_sharded,
+                     vs_overlap=args.vs_overlap)
     checkpoint_path = cfg.training.experiment_name
     t0 = time.time()
     if args.resume:

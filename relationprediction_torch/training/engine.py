@@ -55,9 +55,21 @@ agree. Only rank 0 writes checkpoints and metric records; a mesh
 checkpoint restores on one device and a one-device checkpoint resumes on
 a mesh. The stored-message variant's step raises on a mesh, as in the
 JAX package (``engine.py:335-337``).
+
+With ``vertex_sharded`` (on a mesh; ``parallel/vertex_sharded.py``, the JAX
+package's ``engine.py:311-416``) the entity table is row-sharded over the ranks
+instead: each rank's pipeline (``VertexShardedBatchPipeline(shard_rank=)``)
+lays out its shard of the destination-partitioned graph and its slice of a
+factored batch (a factorizable decoder with device negatives) or of a
+host-tiled one, with host-drawn corruptions; the step is
+``VertexShardedEncoder``'s, whose keep-masks come from the rank's generator
+('per_shard'). The params of ``fit`` are padded to the sharded layout
+(one-device params are padded and the optimizer state reinitialised, with the
+JAX package's log line), each rank keeps its rows of the table and its moments,
+and checkpoints and ``FitResult`` hold the padded trees gathered from the
+ranks, the JAX package's layout.
 Not carried over from the JAX package: its K-step ``lax.scan`` dispatch
-(a TPU transport device) and the vertex-sharded mode (ROADMAP.md Queue 1
-item 5b).
+(a TPU transport device).
 """
 from __future__ import annotations
 
@@ -81,8 +93,7 @@ from ..parallel.distributed import is_coordinator
 from ..parallel.mesh import EdgeMesh, replicate, shard_batch
 from ..params import map_tree, params_from_jax, params_to_numpy, \
     tree_leaves, tree_unflatten
-from ..sampling import (AdjacencyIndex, NegativeSampler, graph_split,
-                        sample_edge_neighborhood_fast, sample_uniform_edges)
+from ..sampling import AdjacencyIndex, NegativeSampler, draw_subgraph
 from . import checkpoint as ckpt_lib
 from .device_sampling import (device_negative_entities_split,
                               device_negative_parts, device_negative_pool,
@@ -199,18 +210,9 @@ class BatchPipeline:
 
     def sample_ids(self) -> tuple:
         """(batch edge ids, message-graph edge ids) into the train set."""
-        if self.graph_batch_size >= len(self.train):
-            batch_ids = np.arange(len(self.train), dtype=np.int32)
-        elif self.sampler == "neighborhood":
-            batch_ids = sample_edge_neighborhood_fast(
-                self.adj, self.graph_batch_size, self.rng)
-        else:
-            batch_ids = sample_uniform_edges(
-                len(self.train), self.graph_batch_size, self.rng)
-        split_ids = graph_split(batch_ids,
-                                self.config.training.graph_split_size,
-                                self.rng)
-        return batch_ids, split_ids
+        return draw_subgraph(self.train, self.adj, self.graph_batch_size,
+                             self.config.training.graph_split_size,
+                             self.sampler, self.rng)
 
     def minibatch(self) -> np.ndarray:
         """The positives of a model without a graph (``engine.py:152-166``):
@@ -574,11 +576,12 @@ class FitResult:
 class TrainLoop:
     """``fit`` with the reference's loss reporter, early stopper and model
     saver, on one device or, with ``mesh``, edge-partitioned over its
-    ranks (the module's docstring). ``negative_mode`` and
-    ``device_negatives`` choose the objective (``loss_kind``);
-    ``negative_pool_size`` is the shared pool's size. A model with
-    stored-message state takes host-tiled batches and the tiled loss
-    whatever they say, and the loop keeps its caches in
+    ranks, or with ``vertex_sharded`` too, vertex-sharded (the module's
+    docstring; ``vs_overlap`` is ``VertexShardedEncoder``'s overlap).
+    ``negative_mode`` and ``device_negatives`` choose the objective
+    (``loss_kind``); ``negative_pool_size`` is the shared pool's size. A
+    model with stored-message state takes host-tiled batches and
+    the tiled loss whatever they say, and the loop keeps its caches in
     ``cache_state``."""
 
     def __init__(self, model: RGCNModel, config: RunConfig,
@@ -593,10 +596,16 @@ class TrainLoop:
                  device_negatives: bool = True,
                  negative_mode: str = "binomial",
                  negative_pool_size: int = 512,
-                 mesh: Optional[EdgeMesh] = None):
+                 mesh: Optional[EdgeMesh] = None,
+                 vertex_sharded: bool = False, vs_overlap: bool = False):
         if mesh is not None and model.device != mesh.device:
             raise ValueError(f"the model is on {model.device}, this rank's "
                              f"device is {mesh.device}")
+        if vertex_sharded and mesh is None:
+            raise ValueError("vertex_sharded requires a mesh")
+        if vertex_sharded and negative_mode != "binomial":
+            raise ValueError("vertex_sharded training uses the "
+                             "host-sampled binomial protocol")
         self.model = model
         self.config = config
         self.scoring_function = scoring_function
@@ -613,17 +622,45 @@ class TrainLoop:
         self.negative_pool_size = negative_pool_size
         shard = {} if mesh is None else dict(shard_multiple=mesh.world_size,
                                              shard_rank=mesh.rank)
-        self.pipeline = BatchPipeline(model, config, dataset, self.host_rng,
-                                      sampler, device_negatives, **shard)
-        # The other producers' pipelines, seeded as the JAX package seeds
-        # them (``engine.py:380-385``).
-        self._extra_pipelines = [
-            BatchPipeline(model, config, dataset,
-                          np.random.default_rng(seed + 1000 + w), sampler,
-                          device_negatives, **shard)
-            for w in range(max(0, prefetch_threads - 1))] if prefetch else []
+        # The other producers' pipelines are seeded as the JAX package
+        # seeds them (``engine.py:380-385``).
+        extra_seeds = [seed + 1000 + w
+                       for w in range(max(0, prefetch_threads - 1))] \
+            if prefetch else []
+        self.vse = None
+        if vertex_sharded:
+            from ..parallel.vertex_sharded import (VertexShardedBatchPipeline,
+                                                   VertexShardedEncoder)
+            self.vse = VertexShardedEncoder(model, mesh, overlap=vs_overlap)
+            # Factored binomial on the decoder halo by default; with
+            # device_negatives=False the host-tiled batch (the JAX
+            # package's rule, ``engine.py:346-351``).
+            factored = getattr(model.decoder, "factorizable", False) \
+                and device_negatives
+            self.loss_kind = "factored" if factored else "tiled"
+            self.pipeline = VertexShardedBatchPipeline(
+                self.vse, config, dataset, self.host_rng, sampler,
+                factored=factored, shard_rank=mesh.rank)
+            # The other producers' pipelines take the first one's budgets.
+            self._extra_pipelines = [
+                VertexShardedBatchPipeline(
+                    self.vse, config, dataset, np.random.default_rng(s),
+                    sampler, budgets=self.pipeline.budgets,
+                    factored=factored, shard_rank=mesh.rank)
+                for s in extra_seeds]
+        else:
+            self.pipeline = BatchPipeline(model, config, dataset,
+                                          self.host_rng, sampler,
+                                          device_negatives, **shard)
+            self._extra_pipelines = [
+                BatchPipeline(model, config, dataset,
+                              np.random.default_rng(s), sampler,
+                              device_negatives, **shard)
+                for s in extra_seeds]
         self._resume_rr = 0
         self.optimizer = build_optimizer(config.optimizer)
+        self.vs_step = None if self.vse is None \
+            else self.vse.make_train_step(self.optimizer)
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(seed)
         # On a mesh: the generator of this rank's corruptions; both are
@@ -635,8 +672,12 @@ class TrainLoop:
             else None
 
     def init_state(self, seed: int = 0) -> tuple:
+        """Seeded params and their optimizer state; vertex-sharded, padded
+        to v_pad entity rows."""
         params = self.model.init_params(
             torch.Generator().manual_seed(seed))
+        if self.vse is not None:
+            params = self.vse.pad_params(params)
         return params, self.optimizer.init(params)
 
     def seed_step(self, step: int) -> None:
@@ -682,7 +723,13 @@ class TrainLoop:
         for the stored variant. Returns (opt_state, loss as a 0-d tensor
         on the device). On a mesh, after ``seed_step``, the sharded loss
         and the gradients' mean over the ranks
-        (``sharded_loss_and_grads``), then the same update."""
+        (``sharded_loss_and_grads``), then the same update; vertex-sharded,
+        ``VertexShardedEncoder.make_train_step``'s step on this rank's
+        state."""
+        if self.vse is not None:
+            keep_masks = self.vse.draw_keep_masks(self.generator,
+                                                  self.rank_generator)
+            return self.vs_step(params, opt_state, batch, keep_masks)
         if self.mesh is not None:
             loss, grads = sharded_loss_and_grads(
                 self.model, self.loss_kind, params, batch, self.draw(batch),
@@ -721,7 +768,9 @@ class TrainLoop:
         if params is None:
             params, opt_state = self.init_state()
         mesh = self.mesh
-        if mesh is not None:
+        if self.vse is not None:
+            params, opt_state = self._place_sharded(params, opt_state)
+        elif mesh is not None:
             params, opt_state = replicate(mesh, (params, opt_state))
         max_iter = max_iterations if max_iterations is not None \
             else cfg.max_iterations
@@ -827,19 +876,43 @@ class TrainLoop:
 
                 # ModelSaver (shared/algorithms.py:61-79); skipped when the
                 # stopper fired, matching the decorator order.
-                if checkpoint_path and save_every and i % save_every == 0 \
-                        and is_coordinator():
-                    process_pending()
-                    self.save(checkpoint_path, params, opt_state, i,
-                              *source.states())
-                    self.log("saving...")
+                if checkpoint_path and save_every and i % save_every == 0:
+                    # Vertex-sharded, every rank joins the gather.
+                    saved = self._whole(params, opt_state)
+                    if is_coordinator():
+                        process_pending()
+                        self.save(checkpoint_path, *saved, i,
+                                  *source.states())
+                        self.log("saving...")
         finally:
             self._resume_rr = source.states()[1]
             source.close()
         process_pending()
+        params, opt_state = self._whole(params, opt_state)
         return FitResult(params=params, opt_state=opt_state, iterations=i,
                          stopped_early=stopped, last_loss=loss,
                          best_score=best_score, steps=records)
+
+    def _place_sharded(self, params, opt_state) -> tuple:
+        """This rank's vertex-sharded state of padded ``params`` and
+        ``opt_state``; one-device params are padded and the optimizer
+        state reinitialised (``engine.py:552-566``)."""
+        if params["input_transform"]["W"].shape[0] != self.vse.v_pad:
+            self.log("vertex-sharded fit: padding single-chip-shaped "
+                     "params to the sharded layout and REINITIALIZING "
+                     "optimizer state (existing moments, e.g. from a "
+                     "single-chip checkpoint, are discarded)")
+            params = self.vse.pad_params(params)
+            opt_state = self.optimizer.init(params)
+        return self.vse.place_state(params), self.vse.place_state(opt_state)
+
+    def _whole(self, params, opt_state) -> tuple:
+        """The padded trees of a vertex-sharded run (gathered from every
+        rank); ``params`` and ``opt_state`` as they are otherwise."""
+        if self.vse is None:
+            return params, opt_state
+        return self.vse.gather_state(params), \
+            self.vse.gather_state(opt_state)
 
     def save(self, checkpoint_path: str, params, opt_state, step: int,
              pipeline_states: list, rr: int) -> str:

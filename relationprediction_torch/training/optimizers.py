@@ -24,7 +24,7 @@ maps onto it (``opt_state_from_jax``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +33,17 @@ from ..config import OptimizerConfig
 from ..params import map_tree, tree_leaves, tree_unflatten
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> list:
-    """optax.clip_by_global_norm on a list of leaves."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+def clip_by_global_norm(grads: list, max_norm: float,
+                        sum_of_squares: Optional[Callable] = None) -> list:
+    """optax.clip_by_global_norm on a list of leaves. ``sum_of_squares``:
+    the global sum of squares from the leaves, where some leaf is a
+    rank's block of a sharded array (the vertex-sharded step); by default
+    the sum over the leaves here."""
+    if sum_of_squares is None:
+        total = sum((g * g).sum() for g in grads)
+    else:
+        total = sum_of_squares(grads)
+    norm = torch.sqrt(total)
     clipped = [(g / norm) * max_norm for g in grads]
     return [torch.where(norm < max_norm, g, c) for g, c in zip(grads,
                                                                clipped)]
@@ -115,11 +123,15 @@ class Optimizer:
     def init(self, params) -> dict:
         return self._init(params)
 
-    def update(self, grads, state: dict) -> Tuple[dict, dict]:
-        """(updates, new state) for gradient tree ``grads``."""
+    def update(self, grads, state: dict,
+               sum_of_squares: Optional[Callable] = None
+               ) -> Tuple[dict, dict]:
+        """(updates, new state) for gradient tree ``grads``;
+        ``sum_of_squares``: see ``clip_by_global_norm``."""
         g = tree_leaves(grads)
         if self.max_gradient_norm is not None:
-            g = clip_by_global_norm(g, self.max_gradient_norm)
+            g = clip_by_global_norm(g, self.max_gradient_norm,
+                                    sum_of_squares)
         updates, state = self._update(g, state, grads)
         return (tree_unflatten(grads, [u * -self.learning_rate
                                        for u in updates]), state)

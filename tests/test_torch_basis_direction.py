@@ -346,3 +346,54 @@ def test_split_tf32_under_truncating_accumulation(scheme, parts, shape,
     over = chip_smoke.over_allowance(tensor_core_model(x, w, scheme, parts),
                                      exact, allowance)
     assert (over <= 0.8) if within else (over > 1.1)
+
+
+@pytest.mark.parametrize("n_src,n_rows", [(90, 30), (30, 90)],
+                         ids=["fewer_rows", "more_rows"])
+def test_rectangular_layout_forward_and_gradient(n_src, n_rows):
+    """A layout whose rows differ from the features' (a vertex shard's):
+    the output and d features (the twin pass into the features' rows), d
+    W_flat and d C against autograd of the plain version in float64."""
+    from test_torch_block_direction_grad import rectangular
+    layout, twin = rectangular(n_src, n_rows, 21)
+    rng = np.random.default_rng(22)
+    arrays = (rng.standard_normal((n_src, D_IN)),
+              rng.standard_normal((D_IN, N_BASES * D_OUT)),
+              rng.standard_normal((R, N_BASES)))
+    probe = torch.from_numpy(rng.standard_normal((n_rows, D_OUT)))
+    f32 = [torch.tensor(a, dtype=torch.float32, requires_grad=True)
+           for a in arrays]
+    out = torch_s2.basis_direction(*f32, layout, n_rows, twin)
+    (out * probe.float()).sum().backward()
+    f64 = [torch.tensor(a, requires_grad=True) for a in arrays]
+    want = torch_s2.basis_direction_reference(*f64, layout, n_rows)
+    (want * probe).sum().backward()
+    assert out.shape == (n_rows, D_OUT) and f32[0].grad.shape == (n_src,
+                                                                  D_IN)
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for got, ref in zip(f32, f64):
+        np.testing.assert_allclose(got.grad.numpy(), ref.grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_combine_check_holds_proj_to_the_layouts_sources(monkeypatch):
+    """basis_combine's host check takes a rectangular layout and holds
+    proj's rows to its sources, the output's to its rows."""
+    import types
+
+    from test_torch_block_direction_grad import rectangular
+    monkeypatch.setattr(torch_s2, "basis_kernel_library", lambda: (
+        types.SimpleNamespace(basis_direction_max_bases=lambda: 16), None))
+    layout, twin = rectangular(90, 30, 23)
+    coef = torch.zeros(R, N_BASES)
+    torch_s2._check_combine(torch.zeros(90, N_BASES * D_OUT), coef, layout,
+                            30)
+    torch_s2._check_combine(torch.zeros(30, N_BASES * D_OUT), coef, twin,
+                            90)
+    with pytest.raises(ValueError, match="gathers from 90"):
+        torch_s2._check_combine(torch.zeros(30, N_BASES * D_OUT), coef,
+                                layout, 30)
+    with pytest.raises(ValueError, match="expected 90"):
+        torch_s2._check_combine(torch.zeros(90, N_BASES * D_OUT), coef,
+                                layout, 90)

@@ -170,3 +170,67 @@ def test_cpu_backward_launches_nothing_and_needs_the_twin():
     torch_s2.block_direction(torch.from_numpy(x), w, tg.fwd, V).sum() \
         .backward()
     assert w.grad is not None
+
+
+def rectangular(n_src, n_rows, seed, e=300):
+    """A layout of ``n_rows`` rows reading a table of ``n_src`` rows (a
+    vertex shard's: its owned rows from a longer halo buffer, or the
+    reverse), its twin, and some padding edges of weight 0."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_src, e)
+    tgt = rng.integers(0, n_rows, e)
+    rel = rng.integers(0, R, e)
+    w = (rng.random(e) * 0.9 + 0.1).astype(np.float32)
+    w[:5] = 0.0
+    layout, order = torch_graph.build_csr(src, rel, tgt, w, n_rows,
+                                          n_sources=n_src)
+    twin, _ = torch_graph.build_csr(tgt[order], rel[order], src[order],
+                                    w[order], n_src, n_sources=n_rows)
+    return layout, twin
+
+
+@pytest.mark.parametrize("n_src,n_rows", [(90, 30), (30, 90)],
+                         ids=["fewer_rows", "more_rows"])
+def test_rectangular_layout_forward_and_gradient(n_src, n_rows):
+    """A layout whose rows differ from the features' (n_rows !=
+    features.shape[0]): the output, d features (the twin pass, whose rows
+    are the features') and d blocks against autograd of the plain version
+    in float64."""
+    layout, twin = rectangular(n_src, n_rows, 11)
+    assert (layout.n_rows, layout.source_rows) == (n_rows, n_src)
+    assert (twin.n_rows, twin.source_rows) == (n_src, n_rows)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((n_src, D)).astype(np.float32)
+    blocks = rng.standard_normal((R, N_BLOCKS, DR, DR)).astype(np.float32)
+    probe = torch.from_numpy(rng.standard_normal((n_rows, D)))
+    f = torch.from_numpy(x).requires_grad_(True)
+    w = torch.from_numpy(blocks).requires_grad_(True)
+    out = torch_s2.block_direction(f, w, layout, n_rows, twin)
+    (out * probe.float()).sum().backward()
+    f64 = torch.from_numpy(x).double().requires_grad_(True)
+    w64 = torch.from_numpy(blocks).double().requires_grad_(True)
+    want = torch_s2.block_direction_reference(f64, w64, layout, n_rows)
+    (want * probe).sum().backward()
+    assert out.shape == (n_rows, D) and f.grad.shape == (n_src, D)
+    for got, ref in ((out, want), (f.grad, f64.grad), (w.grad, w64.grad)):
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   ref.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_kernel_checks_rows_and_sources_apart(monkeypatch):
+    """The kernel's host check takes a rectangular layout, and holds the
+    features' rows to the layout's sources and the output's to its rows:
+    the kernels check no index on the device."""
+    import types
+    monkeypatch.setattr(torch_s2, "kernel_library", lambda: (
+        types.SimpleNamespace(block_direction_max_blocks=lambda: 1024),
+        None))
+    layout, twin = rectangular(90, 30, 13)
+    blocks = torch.zeros(R, N_BLOCKS, DR, DR)
+    torch_s2._check(torch.zeros(90, D), blocks, layout, 30)
+    torch_s2._check(torch.zeros(30, D), blocks, twin, 90)
+    with pytest.raises(ValueError, match="gathers from 90"):
+        torch_s2._check(torch.zeros(30, D), blocks, layout, 30)
+    with pytest.raises(ValueError, match="expected 90"):
+        torch_s2._check(torch.zeros(90, D), blocks, layout, 90)

@@ -277,13 +277,44 @@ def test_two_processes_of_two_ranks_equal_one_process_of_four(tmp_path):
     same_state(straight, checkpoint.restore_latest(cut_ckpt))
 
 
-def test_cli_vertex_sharded_is_not_ported():
-    for flag in ("--vertex-sharded", "--vs-overlap"):
-        with pytest.raises(NotImplementedError, match="5b"):
-            torch_train.main(["--settings", str(ROOT / "settings" /
-                                                "gcn_block.exp"),
-                              "--dataset", TOY, "--cpu", "--mesh", "2",
-                              flag])
+def test_cli_vertex_sharded_without_mesh_is_a_parser_error(capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        torch_train.main(["--settings", str(ROOT / "settings" /
+                                            "gcn_block.exp"),
+                          "--dataset", TOY, "--cpu", "--vertex-sharded"])
+    assert exit_info.value.code == 2
+    assert "--vertex-sharded requires --mesh" in capsys.readouterr().err
+
+
+def test_cli_vertex_sharded_trains_and_saves_jax_checkpoints(tmp_path):
+    """train.py --cpu --mesh 2 --vertex-sharded, sequential and with
+    --vs-overlap, trains 6 steps on Toy with its checks, and writes
+    checkpoints in the JAX package's layout (the entity table and its Adam
+    moments padded to v_pad rows, gathered from the ranks) that the JAX
+    package's checkpoint.restore reads."""
+    from relationprediction_tpu.training import checkpoint as jax_checkpoint
+    runs = {name: narrow_copy(tmp_path, name) for name in ("seq", "overlap")}
+    outs = finish(
+        start_cli(runs["seq"][0], "--mesh", "2", "--vertex-sharded",
+                  "--max-iterations", "6"),
+        start_cli(runs["overlap"][0], "--mesh", "2", "--vertex-sharded",
+                  "--vs-overlap", "--max-iterations", "6"))
+    for out, (_, ckpt) in zip(outs, runs.values()):
+        assert "Mesh: 2 ranks over gloo, vertex-sharded" in out
+        assert out.count("Dataset Toy") == 1  # rank 1 prints nothing
+        assert len(re.findall(r"Tested validation score at iteration",
+                              out)) == 2
+        last = re.search(r"Training done: 6 iterations .* last loss (\S+)",
+                         out)
+        assert last and np.isfinite(float(last.group(1)))
+        assert "Final test metrics" in out
+        state = jax_checkpoint.restore(f"{ckpt}-6.ckpt")
+        assert state["step"] == 6
+        table = state["params"]["input_transform"]["W"]
+        assert table.shape == (16, 16)  # 16 entities: v_pad = V on 2 ranks
+        assert np.isfinite(table).all()
+        assert state["opt_state"]["mu"]["input_transform"]["W"].shape \
+            == table.shape
 
 
 def test_cli_mesh_above_the_devices_is_a_parser_error(capsys):

@@ -88,3 +88,26 @@ def test_graph_to_keeps_counts_and_values():
     assert torch.equal(h.bwd.row_ptr, g.bwd.row_ptr)
     # receiver 2 has in-degree 2: its forward weights are 1/2
     np.testing.assert_allclose(g.fwd.w.numpy(), [1.0, 0.5, 0.5])
+
+
+def test_build_csr_checks_sources_against_their_own_count():
+    """A rectangular layout (``n_sources`` != its rows): sources are held
+    to [0, n_sources), targets to the rows; the kernels read ``src`` with
+    no check on the device, so this is the guard."""
+    layout, _ = torch_graph.build_csr([5, 0], [0, 1], [1, 2], [1.0, 0.5], 3,
+                                      n_sources=6)
+    assert (layout.n_rows, layout.source_rows, layout.n_sources) == (3, 6, 6)
+    assert layout.src.tolist() == [5, 0]
+    assert layout.to("cpu").n_sources == 6
+    with pytest.raises(ValueError, match=r"source outside \[0, 6\)"):
+        torch_graph.build_csr([6], [0], [1], [1.0], 3, n_sources=6)
+    with pytest.raises(ValueError, match=r"source outside \[0, 3\)"):
+        torch_graph.build_csr([5], [0], [1], [1.0], 3)
+    # fewer sources than rows; a padding edge's source is not checked
+    layout, _ = torch_graph.build_csr([1, 7], [0, 0], [4, 2], [1.0, 0.0], 5,
+                                      n_sources=2)
+    assert (layout.n_edges, layout.source_rows) == (1, 2)
+    with pytest.raises(ValueError, match=r"source outside \[0, 2\)"):
+        torch_graph.build_csr([2], [0], [4], [1.0], 5, n_sources=2)
+    square, _ = torch_graph.build_csr([0], [0], [1], [1.0], 3)
+    assert square.n_sources is None and square.source_rows == 3

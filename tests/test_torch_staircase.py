@@ -298,3 +298,33 @@ def test_merge_path_items_follow_the_graph_size():
         assert 32 <= items <= 512
         assert items == 32 or staircase.merge_path_blocks(total, 0,
                                                           items) >= 512
+
+
+@pytest.mark.parametrize("n_src,n_rows", [(90, 30), (30, 90)],
+                         ids=["fewer_rows", "more_rows"])
+def test_rectangular_layout_forward_and_gradient(n_src, n_rows):
+    """Per-edge messages gathered from a table whose rows differ from the
+    layout's (a vertex shard's halo buffer and owned rows, or the
+    reverse), summed into the layout's rows: the output and d table
+    against autograd of the plain version in float64."""
+    from relationprediction_torch.ops import relblock
+    from test_torch_block_direction_grad import rectangular
+    layout, _ = rectangular(n_src, n_rows, 31)
+    rng = np.random.default_rng(32)
+    table = rng.standard_normal((n_src, D))
+    diags = torch.from_numpy(rng.standard_normal((9, D)))
+    probe = torch.from_numpy(rng.standard_normal((n_rows, D)))
+    t32 = torch.tensor(table, dtype=torch.float32, requires_grad=True)
+    msgs = relblock.diag_messages(t32, diags.float(), layout.src, layout.rel)
+    out = staircase.staircase_aggregate(msgs, layout, n_rows)
+    (out * probe.float()).sum().backward()
+    t64 = torch.tensor(table, requires_grad=True)
+    want = staircase.staircase_aggregate_reference(
+        relblock.diag_messages(t64, diags, layout.src, layout.rel), layout,
+        n_rows)
+    (want * probe).sum().backward()
+    assert out.shape == (n_rows, D) and t32.grad.shape == (n_src, D)
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t32.grad.numpy(), t64.grad.numpy(),
+                               rtol=1e-5, atol=1e-5)
