@@ -79,7 +79,9 @@ basis_combine forward and twin, staircase_aggregate) is followed by one
 launch of its carry fix-up, counted apart and checked on every path; so is
 every kernel 3 launch of ops/gather.sum_by_csr (d blocks and d C summed by
 relation, once a direction and layer a step; the fused energies' per-id
-scalars), whose count each train phase checks.
+scalars), whose count each train phase checks. Every bf16 block_direction
+launch of a main path is counted by its route too, and must be the slice
+route (check_block_routes).
 
 Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
 gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
@@ -115,7 +117,7 @@ Then the rest of TrainLoop on gcn_block.exp:
           stop rule on the logged scores, a checkpoint for each check that
           did not stop, train_loss and validation records, 4 forward and 4
           twin block_direction launches a step, 4 more forward a check;
-  prefetch, prefetch_basis  10 steps serial, prefetch, prefetch, serial
+  prefetch, prefetch_basis  5 steps serial, prefetch, prefetch, serial
           (gcn_block, then gcn_basis), in turns in one process: steps/s,
           median step_ms, batch_ms (in the producer) and wait_ms; the
           device idle share of a whole 5-step fit each way
@@ -214,8 +216,19 @@ of a shipped settings file with ``MessagePrecision=bfloat16`` and
 ``stream_precision`` bfloat16 set by ``dataclasses.replace`` (no settings
 key has it), at published widths:
 
-  kernel_bf16  the bf16 entry points (block_direction_bf16 and its twin,
-          basis_project_bf16 after its pad pass (the pad equal to
+  kernel_bf16  the bf16 entry points (block_direction_bf16 and its twin by
+          the slice route, W's slice in shared memory: equal bit
+          for bit to the f32 entry point on the widened inputs, carry rows
+          and two launches bit for bit, timed beside the walk on the
+          same inputs (route="walk") with both device times, the slice
+          plan, shared memory, registers, items and an items sweep, and
+          torch.sparse.mm of the one-call [V*d, V*d] CSR of E*B*dr*dr
+          entries, f32 and bf16, its build timed apart; then the stress
+          layouts of block_layouts and the training batch at every dr of
+          1-8 by the slice route, and a layout of R = 5,000 relations that
+          takes the walk: within the allowance, the wrong layout outside,
+          bits twice, route="slice" refused; basis_project_bf16 after its
+          pad pass (the pad equal to
           bf16_pad_reference bit for bit; pad and product timed apart,
           their device times from torch.profiler, the product's
           registers and stages), basis_combine_bf16 forward and twin CSR,
@@ -308,6 +321,7 @@ import dataclasses
 import functools
 import hashlib
 import io
+import itertools
 import json
 import os
 import re
@@ -403,14 +417,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names, iters: int = 20) -> dict:
-    """Mean device time of each kernel whose name holds one of ``names``
-    over ``iters`` calls of ``fn``, from torch.profiler's CUDA activity
-    (CUDA events around calls of a launch function that spends more time
-    on the host than the kernel takes measure the host instead). Empty
-    where the profiler's record cannot be right: a kernel not recorded
-    once a call, or kernels whose times add up to more than the CUDA
-    events around the same calls."""
+def profiler_record(fn, names, iters: int = 20) -> tuple:
+    """torch.profiler's CUDA activity over ``iters`` calls of ``fn`` (one
+    call before, unprofiled): for each kernel whose name holds one of
+    ``names``, (name, kernel, times recorded, mean ms a call), and the
+    CUDA events' ms a call around the same calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -422,16 +433,54 @@ def device_ms(fn, names, iters: int = 20) -> dict:
             fn()
         end.record()
         torch.cuda.synchronize()
-    out = {}
-    for event in prof.key_averages():
-        for name in names:
-            if name in event.key and event.device_time_total > 0:
-                out[name] = (event.device_time_total / iters / 1e3
-                             if event.count == iters else None)
-    if None in out.values() or sum(out.values()) > 1.05 * (
-            start.elapsed_time(end) / iters):
+    kernels = [(name, event.key[:90], event.count,
+                event.device_time_total / iters / 1e3)
+               for event in prof.key_averages() for name in names
+               if name in event.key and event.device_time_total > 0]
+    return kernels, start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names, iters: int = 20) -> dict:
+    """Mean device time of each kernel whose name holds one of ``names``
+    over ``iters`` calls of ``fn``, from torch.profiler's CUDA activity
+    (CUDA events around calls of a launch function that spends more time
+    on the host than the kernel takes measure the host instead). Empty
+    where the profiler's record cannot be right: a kernel not recorded
+    once a call, or kernels whose times add up to more than the CUDA
+    events around the same calls."""
+    return checked_device_ms(*profiler_record(fn, names, iters), iters)
+
+
+def checked_device_ms(kernels, events_ms, iters) -> dict:
+    """device_ms's result from a profiler_record."""
+    out = {name: ms if count == iters else None
+           for name, _, count, ms in kernels}
+    if None in out.values() or sum(out.values()) > 1.05 * events_ms:
         return {}
     return out
+
+
+def retried_device_ms(fn, names, key: str, tries: int = 3,
+                      iters: int = 20) -> dict:
+    """device_ms, taken again where the profiler's record could not be
+    right (an empty result), up to ``tries`` times: ``key`` the last
+    reading, ``key``_tries the readings taken, ``key``_refused the
+    records that failed device_ms's check (what the profiler saw)."""
+    refused = []
+    for n in range(1, tries + 1):
+        kernels, events_ms = profiler_record(fn, names, iters)
+        out = checked_device_ms(kernels, events_ms, iters)
+        if out:
+            break
+        refused.append({"kernels": kernels, "events_ms": events_ms})
+    return {key: out, f"{key}_tries": n, f"{key}_refused": refused}
+
+
+def mean_device_ms(readings, name):
+    """The mean of kernel ``name``'s time over device_ms readings, or
+    None where a reading has none."""
+    values = [r.get(name) for r in readings]
+    return None if None in values else sum(values) / len(values)
 
 
 def sum_by_csr_op():
@@ -835,12 +884,19 @@ ENERGY_OPS = (neg_energy.factored_negative_energies,
               neg_energy.single_factor_negative_energies)
 
 
+# block_direction's bf16 launches by direction and route.
+ROUTE_COUNTERS = ("bf16_slice_launches", "bf16_walk_launches",
+                  "bf16_twin_slice_launches", "bf16_twin_walk_launches")
+
+
 def reset_launch_counts() -> None:
     """Every kernel count to 0, f32 and bf16, just before a main path
     runs."""
     for op in (staircase2.block_direction, staircase2.basis_direction):
         op.launches = op.twin_launches = 0
         op.bf16_launches = op.bf16_twin_launches = 0
+    for name in ROUTE_COUNTERS:
+        setattr(staircase2.block_direction, name, 0)
     staircase2.basis_direction.project_launches = 0
     staircase2.basis_direction.split_launches = 0
     staircase2.basis_direction.bf16_project_launches = 0
@@ -952,10 +1008,59 @@ def check_helper_launches(op, launches, twin_launches, project_launches,
         want[op.__name__] += launches + twin_launches
     if fixups != want:
         raise AssertionError(f"carry fix-ups {fixups}, expected {want}")
+    check_block_routes()
+
+
+def route_launches() -> dict:
+    """block_direction's bf16 launch counts by direction and route since
+    the counts were set to 0."""
+    return {name: getattr(staircase2.block_direction, name)
+            for name in ROUTE_COUNTERS}
+
+
+def check_block_routes() -> None:
+    """Every bf16 block_direction launch since the counts were set to 0
+    went by the slice route, counted once by direction and route: the
+    route is picked from the shapes, and every cell's (R = 237 or 40,
+    B = 100, dr = 5) takes the slice."""
+    bd = staircase2.block_direction
+    want = {"bf16_slice_launches": bd.bf16_launches,
+            "bf16_walk_launches": 0,
+            "bf16_twin_slice_launches": bd.bf16_twin_launches,
+            "bf16_twin_walk_launches": 0}
+    if route_launches() != want:
+        raise AssertionError(f"bf16 block_direction launches by route "
+                             f"{route_launches()}, expected {want}")
+
+
+@contextlib.contextmanager
+def forced_route(route: str):
+    """block_direction's bf16 launches take ``route`` ("slice" or "walk")
+    inside the block, whatever their shapes' plan: for timing the main
+    path by the merge-path walk beside the slice route, outside counted
+    runs."""
+    kernel_route = staircase2.kernel_route
+    staircase2.kernel_route = lambda features, blocks: (
+        route if features.dtype == torch.bfloat16 else "walk")
+    try:
+        yield
+    finally:
+        staircase2.kernel_route = kernel_route
+
+
+def route_times(measure) -> dict:
+    """``measure()`` by the slice route and by the walk, in the order
+    slice, walk, walk, slice (so a drift of the machine falls on both):
+    route -> its two readings."""
+    out = {"slice": [], "walk": []}
+    for route in ("slice", "walk", "walk", "slice"):
+        with forced_route(route):
+            out[route].append(measure())
+    return out
 
 
 def phase_serve(ds, device, cfg, op=staircase2.block_direction,
-                phase="serve"):
+                phase="serve", compare_routes=False):
     """The serving path at full width, with the kernels' launch counts:
     ``op`` (block_direction, basis_direction or staircase_aggregate) must
     have launched once a direction and layer, and nothing else launched;
@@ -965,7 +1070,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     path's within 1e-3 in relative L2 norm (the same bf16 inputs, f32
     sums in other orders, which can flip a bf16 rounding of the next
     layer's input) and to the f32 configuration's encode within 2e-2,
-    its filtered MRR beside the f32 one."""
+    its filtered MRR beside the f32 one. ``compare_routes`` (bf16
+    block_direction) also times the warm encode by each bf16 route."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     bf16 = model.agg_dtype is not None
@@ -1003,6 +1109,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     pads = staircase2.basis_direction.bf16_pad_launches
     fixups = fixup_counts()
     fixup_launches = sum(fixups.values())
+    route_counts = route_launches()
     peak = torch.cuda.max_memory_allocated()
     check_helper_launches(op, launches, 0, project_launches, split_launches,
                           fixups)
@@ -1070,6 +1177,9 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
         view.invalidate()
         view.encoded(params, graph)
     encode_ms_warm = cuda_ms(encode_again, 5, warmup=1)
+    by_route = {"encode_ms_warm_by_route": route_times(
+        lambda: cuda_ms(encode_again, 5, warmup=1))} if compare_routes \
+        else {}
     scorer.register_model(view, params, graph, n_entities=ds.n_entities)
     t3 = time.perf_counter()
     scorer.compute_scores(triples)
@@ -1101,6 +1211,7 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     row = {"triples": len(triples), "chunks": n_chunks,
            "graph_build_s": graph_s,
            "encode_ms": (t1 - t0) * 1e3, "encode_ms_warm": encode_ms_warm,
+           **by_route,
            "chunk_ms": (t2 - t1) * 1e3 / n_chunks,
            "chunk_ms_warm": chunk_ms_warm,
            "chunk_score_ms": score_ms, "chunk_rank_ms": rank_ms,
@@ -1116,7 +1227,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
            "max_memory_allocated": peak,
            "launches": launches, "project_launches": products,
            "split_launches": split_launches,
-           "pad_launches": pads, "fixup_launches": fixup_launches}
+           "pad_launches": pads, "fixup_launches": fixup_launches,
+           **route_counts}
     if mlp is not None:
         row["mlp_scoring"] = mlp
     emit(phase, model=model_label(cfg),
@@ -2246,7 +2358,7 @@ def lockstep_vs_cpu(cfg, ds, device, steps) -> dict:
 def phase_train(cfg, ds, device, op=staircase2.block_direction,
                 phase="train", steps=TRAIN_STEPS, compare_positives=None,
                 tiled=False, falling=True, nonfinite_ok=False,
-                **loop_kwargs):
+                compare_routes=False, **loop_kwargs):
     """One step on the card against the CPU plain path, then the training
     path through TrainLoop.fit (serial batches, prefetch=False) with
     the kernels' launch counts: ``op`` (block_direction, basis_direction
@@ -2275,7 +2387,9 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     BF16_STEP_TOL (the same bf16 arithmetic, f32 sums in other orders,
     which can flip bf16 roundings and ReLU gates near 0), and its loss to
     the f32 configuration's on the same draws within 1e-2 relative (the
-    JAX package's own rule, tests/test_bf16_streams.py)."""
+    JAX package's own rule, tests/test_bf16_streams.py).
+    ``compare_routes`` (bf16 block_direction) also profiles steps by each
+    bf16 route after the counted run."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     bf16 = model.agg_dtype is not None or model.stream_dtype is not None
@@ -2377,6 +2491,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     energies = energy_launches()
     id_sums = sum_by_csr_op().launches
     pads = staircase2.basis_direction.bf16_pad_launches
+    route_counts = route_launches()
     peak = torch.cuda.max_memory_allocated()
     check_helper_launches(op, launches, twin_launches, project_launches,
                           split_launches, fixups, energies)
@@ -2475,11 +2590,19 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     emit(f"{phase}_breakdown", **breakdown,
          **profile_steps(loop, params, result.opt_state),
          phase_s=time.perf_counter() - t_phase)
+    if compare_routes:
+        keys = ("profile_wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share")
+        by_route = route_times(lambda: profile_steps(
+            loop, params, result.opt_state))
+        emit(f"{phase}_routes", phase_s=time.perf_counter() - t_phase,
+             **{route: {k: [p.get(k) for p in readings] for k in keys}
+                for route, readings in by_route.items()})
     return {**row, "launches": launches, "twin_launches": twin_launches,
             "project_launches": products, "dc_project_launches": dc_projects,
             "split_launches": split_launches, "fixup_launches": fixup_launches,
             "energy_launches": energies, "sum_by_csr_launches": id_sums,
-            "pad_launches": pads}
+            "pad_launches": pads, **route_counts}
 
 
 def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
@@ -2546,7 +2669,7 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
 FIT_CUTS = {"early_stopping_check_every": 10, "early_stopping_burnin": 20,
             "report_train_loss_every": 10}
 FIT_STEPS = 40
-PREFETCH_STEPS = 10
+PREFETCH_STEPS = 5
 PROFILE_STEPS = 5
 # The thread switch interval (s) of the interpreter-lock diagnostic runs,
 # against the default 5 ms.
@@ -3172,6 +3295,7 @@ def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
     records += result.steps
     launches = getattr(op, pre + "launches") if op else 0
     twin = getattr(op, pre + "twin_launches") if op else 0
+    routes = route_launches()
     energies = energy_launches()
     id_sums = sum_by_csr_op().launches
     check_helper_launches(op, launches, twin,
@@ -3233,7 +3357,7 @@ def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
            "launches": launches, "twin_launches": twin,
            "energy_launches": energies, "sum_by_csr_launches": id_sums,
            "fixup_launches": sum(fixup_counts().values()),
-           "op": op.__name__ if op else None, **trace,
+           **routes, "op": op.__name__ if op else None, **trace,
            "card": nvidia_smi_line(),
            "cell_s": time.perf_counter() - t_cell}
     row["passed"] = test["MRR"] >= mrr_gate \
@@ -3731,6 +3855,214 @@ def bf16_row(kernel, graph_name, direction, got, exact, allowance, wrong,
     return row
 
 
+def block_csr_matrix(blocks, layout, n_rows, n_src, dtype=torch.float32,
+                     edge_chunk=16384):
+    """The one-call form of a block_direction pass (``blocks`` as the pass
+    reads them: transposed for the twin): the [n_rows * d, n_src * d] CSR
+    matrix with w_e * W[r_e, b, i, j] at (tgt_e * d + b * dr + i, src_e *
+    d + b * dr + j) for every edge, block, i and j, E * B * dr * dr
+    entries with int32 indices, scattered straight into CSR order (row
+    (v, b, i) holds v's edges' dr entries in CSR order, so it starts at
+    row_ptr[v] * d * dr + (b * dr + i) * deg(v) * dr). Returns (matrix,
+    build ms on the host clock, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_blocks, dr = blocks.shape[1], blocks.shape[2]
+    d, e = n_blocks * dr, layout.n_edges
+    dev = layout.row_ptr.device
+    rp = layout.row_ptr.long()
+    deg = rp.diff()
+    bi = torch.arange(d, device=dev)
+    crow = torch.empty(n_rows * d + 1, dtype=torch.int64, device=dev)
+    crow[:-1] = (rp[:-1, None] * (d * dr)
+                 + bi[None, :] * (deg[:, None] * dr)).reshape(-1)
+    crow[-1] = e * d * dr
+    cols = torch.empty(e * d * dr, dtype=torch.int32, device=dev)
+    vals = torch.empty(e * d * dr, dtype=dtype, device=dev)
+    targets = staircase.row_of_entry(layout)
+    b_dr = (torch.arange(n_blocks, device=dev) * dr)[:, None]
+    ij = torch.arange(dr, device=dev)
+    for start in range(0, e, edge_chunk):
+        k = torch.arange(start, min(start + edge_chunk, e), device=dev)
+        v = targets[k]
+        pos = ((rp[v] * (d * dr) + (k - rp[v]) * dr)[:, None, None, None]
+               + (b_dr + ij[None, :])[None, :, :, None]
+               * (deg[v] * dr)[:, None, None, None]
+               + ij[None, None, None, :])
+        src = layout.src[k].long()
+        cols[pos] = (src[:, None, None, None] * d + b_dr[None, :, :, None]
+                     + ij[None, None, None, :]).expand_as(pos).to(
+                         torch.int32)
+        vals[pos] = (blocks[layout.rel[k].long()].float()
+                     * layout.w[k, None, None, None]).to(dtype)
+        del pos
+    matrix = torch.sparse_csr_tensor(crow.to(torch.int32), cols, vals,
+                                     size=(n_rows * d, n_src * d))
+    torch.cuda.synchronize()
+    return matrix, (time.perf_counter() - t0) * 1e3
+
+
+def block_library(blocks, x, layout, n_rows, got) -> dict:
+    """torch.sparse.mm of block_csr_matrix by x as one column, with f32
+    values (beside the f32 entry point) and bf16 values (beside the bf16
+    ones): times, build times, and the f32 product's relative L2 distance
+    from the kernel's output ``got`` (a check that the matrix is the
+    pass's). Where the matrix cannot be built or multiplied (memory), the
+    reason."""
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", BF16)):
+        try:
+            matrix, build_ms = block_csr_matrix(blocks, layout, n_rows,
+                                                x.shape[0], dtype)
+            col = x.to(dtype).reshape(-1, 1)
+            product = torch.sparse.mm(matrix, col)
+            torch.cuda.synchronize()
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+            out[f"library_{label}_ms"] = None
+            out[f"library_{label}"] = (f"none: torch.sparse.mm on the "
+                                       f"{label} one-call form raised "
+                                       f"{str(err).splitlines()[0][:120]}")
+            continue
+        out[f"library_{label}_ms"] = cuda_ms(
+            lambda: torch.sparse.mm(matrix, col), 10)
+        out[f"library_{label}_build_ms"] = build_ms
+        out[f"library_{label}"] = (
+            f"torch.sparse.mm of the [V*d, S*d] one-call CSR "
+            f"({matrix.values().numel()} entries, {label} values, int32 "
+            f"indices) by x as one column")
+        if dtype == torch.float32:
+            out["library_rel_l2_vs_kernel"] = rel_l2(
+                product.view(n_rows, -1), got)
+            if not out["library_rel_l2_vs_kernel"] < 1e-2:
+                raise AssertionError(f"the one-call matrix is not the "
+                                     f"pass's: {out}")
+        del matrix, product, col
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice_plan_row(lib, blocks, layout, n_rows, twin) -> dict:
+    """The route block_direction's bf16 entry points take for ``blocks``,
+    and the slice kernel's plan, shared memory, threads, thread blocks
+    along the partition, registers and items at this layout."""
+    n_rel, n_blocks, dr = blocks.shape[:3]
+    plan = staircase2.block_direction_route(n_rel, n_blocks, dr)
+    items = staircase.block_direction_items(n_rows, layout.n_edges)
+    row = {"route": plan.route, "items": items}
+    if plan.route == "slice":
+        row.update(
+            blocks_per_slice=plan.blocks_per_slice, lanes=plan.lanes,
+            n_slices=plan.n_slices, smem_bytes=plan.smem_bytes,
+            kernel_smem_bytes=lib.block_direction_slice_smem_bytes(
+                n_rel, plan.blocks_per_slice, dr),
+            threads=lib.block_direction_slice_threads(dr),
+            chunks=lib.block_direction_slice_chunks(
+                n_rows, layout.n_edges, n_blocks, dr, n_rel, items,
+                plan.blocks_per_slice, int(twin), 0),
+            registers=lib.block_direction_slice_registers(dr, int(twin)))
+        if (row["kernel_smem_bytes"], row["threads"],
+                lib.block_direction_slice_min_lanes()) != (
+                    plan.smem_bytes, staircase2.slice_threads(dr),
+                    staircase2.SLICE_LANES[0]):
+            raise AssertionError(f"the kernel's layout {row} is not the "
+                                 f"plan's {plan}")
+    return row
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def bf16_block_layouts(lib, graphs, n_rel, device) -> list:
+    """block_direction_bf16 and its twin by the slice route on
+    block_layouts' stress layouts (B = 100, dr = 5) and on the training
+    batch's layout at every dr of 1-8 (B = min(128, 500 // dr); d odd at
+    dr = 7, the 2-byte load path), each equal bit for bit to the f32
+    entry point on the widened inputs, within the rounding allowance of a
+    float64 sum, with carry rows equal to merge_path_carry_rows and two
+    launches equal bit for bit; then a layout whose R = 5,000 relations
+    do not fit shared memory (one 5x5 block of every relation takes
+    260,000 bytes), which must take the walk: through the op's launch
+    function (counted on its direction's walk counter), within the
+    allowance, the wrong layout (weights reversed) outside it, two
+    launches the same bits, and route="slice" refused."""
+    gen = torch.Generator().manual_seed(15)
+    v = graphs["full_train"].n_vertices
+    counts = stress_counts(graphs)
+    cases = {name: (csr_of_counts(c, gen, device, v, n_rel), n_rel, 100, 5)
+             for name, c in counts.items()}
+    cases["one_run_9155"] = (csr_of_counts(counts["hub_9155"], gen, device,
+                                           v), n_rel, 100, 5)
+    for dr in range(1, 9):
+        cases[f"train_batch_dr{dr}"] = (graphs["train_batch"].fwd, n_rel,
+                                        min(128, 500 // dr), dr)
+    walk_rel = 5000
+    cases["walk_R5000"] = (csr_of_counts(counts["hub_9155"], gen, device, v,
+                                         walk_rel), walk_rel, 100, 5)
+    rows = []
+    for name, (layout, r, n_blocks, dr) in cases.items():
+        x = torch.randn(v, n_blocks * dr, generator=gen).to(device).to(BF16)
+        w = torch.randn(r, n_blocks, dr, dr, generator=gen).to(device) \
+            .to(BF16)
+        items = staircase.block_direction_items(v, layout.n_edges)
+        want_route = "walk" if r == walk_rel else "slice"
+        for kernel, twin in (("block_direction_bf16", False),
+                             ("block_direction_twin_bf16", True)):
+            plan = slice_plan_row(lib, w, layout, v, twin)
+            if plan["route"] != want_route:
+                raise AssertionError(f"{kernel} {name}: route {plan}")
+            got = repeatable(f"{kernel} layout {name}",
+                             lambda c: staircase2.launch(
+                                 lib, x, w, layout, v, twin=twin,
+                                 carries=c), layout.row_ptr, items)
+            f32 = staircase2.launch(lib, x.float(), w.float(), layout, v,
+                                    twin=twin)
+            wt = w.float().transpose(-1, -2) if twin else w.float()
+            exact, allowance = block_exact(x.float(), wt, layout, v)
+            torch.cuda.synchronize()
+            over = over_allowance(got, exact, allowance)
+            row = {"kernel": kernel, "layout": name, "R": r, "B": n_blocks,
+                   "dr": dr, **plan, **partition_row(layout, v, items),
+                   "over_allowance": over, "same_bits_twice": True,
+                   "equals_f32_bitwise": same_bits(got, f32),
+                   "kernel_ms": cuda_ms(lambda: staircase2.launch(
+                       lib, x, w, layout, v, twin=twin), 10),
+                   "bound_ms": block_direction_bound(
+                       layout, v, r, n_blocks, dr, elem=2)["bound_ms"]}
+            if not (torch.isfinite(got).all() and over <= 1):
+                raise AssertionError(f"{kernel} layout {name}: {row}")
+            if want_route == "slice" and not row["equals_f32_bitwise"]:
+                raise AssertionError(f"{kernel} layout {name}: the slice "
+                                     f"route's bits differ from the f32 "
+                                     f"entry point's: {row}")
+            if want_route == "walk":
+                pre = "bf16_twin_" if twin else "bf16_"
+                keys = (pre + "slice_launches", pre + "walk_launches")
+                before = [route_launches()[k] for k in keys]
+                via_op = staircase2._aggregate(x, w, layout, v, twin=twin)
+                after = [route_launches()[k] for k in keys]
+                wrong = staircase2._aggregate(
+                    x, w, with_weights(layout, layout.w.flip(0)
+                                       .contiguous()), v, twin=twin)
+                row["wrong_layout_over_allowance"] = over_allowance(
+                    wrong, exact, allowance)
+                row["op_counted"] = [after[0] - before[0],
+                                     after[1] - before[1]]
+                try:
+                    staircase2.launch(lib, x, w, layout, v, twin=twin,
+                                      route="slice")
+                    refused = False
+                except ValueError:
+                    refused = True
+                if not (same_bits(via_op, got) and row["op_counted"]
+                        == [0, 1] and refused
+                        and row["wrong_layout_over_allowance"] > 1):
+                    raise AssertionError(f"{kernel} layout {name}: the "
+                                         f"walk route {row}")
+            rows.append(row)
+    return rows
+
+
 def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
     """The bf16 entry points at the main paths' shapes, on the full train
     graph and on the first training batch's graph, both directions, each
@@ -3836,10 +4168,18 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
                     ("block_direction_twin_bf16", twin, layout, True)):
                 wt = wf.transpose(-1, -2) if is_twin else wf
                 exact, allowance = block_exact(xf, wt, lay, v)
+                items = staircase.block_direction_items(v, lay.n_edges)
+                got = repeatable(f"{kernel} {graph_name}/{name}",
+                                 lambda c: staircase2.launch(
+                                     lib, x16, w16, lay, v, twin=is_twin,
+                                     carries=c), lay.row_ptr, items)
+                f32 = staircase2.launch(lib, xf, wf, lay, v, twin=is_twin)
+                walk = staircase2.launch(lib, x16, w16, lay, v,
+                                         twin=is_twin, route="walk")
+                extra = block_library(wt, xf, lay, v, f32) \
+                    if name == "forward" else {}
                 row = bf16_row(
-                    kernel, graph_name, name,
-                    staircase2.launch(lib, x16, w16, lay, v, twin=is_twin),
-                    exact, allowance,
+                    kernel, graph_name, name, got, exact, allowance,
                     staircase2.launch(lib, x16, w16, bad, v, twin=is_twin),
                     staircase2.block_direction_reference(x16, wt, lay, v),
                     lambda: staircase2.launch(lib, x16, w16, lay, v,
@@ -3850,10 +4190,40 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
                         x16, wt, lay, v),
                     block_direction_bound(lay, v, n_rel, n_blocks, dr,
                                           elem=2),
-                    (None, "none: the one-call form is a [V*d, V*d] sparse "
-                           "matrix of E*B*dr*dr entries"))
-                row["items"] = staircase.block_direction_items(v,
-                                                               lay.n_edges)
+                    (extra.get("library_bf16_ms"),
+                     extra.get("library_bf16", "none: timed on the "
+                                               "forward direction")))
+                row.update(
+                    **slice_plan_row(lib, w16, lay, v, is_twin),
+                    same_bits_twice=True,
+                    equals_f32_bitwise=same_bits(got, f32),
+                    walk_equals_f32_bitwise=same_bits(walk, f32),
+                    walk_ms=cuda_ms(lambda: staircase2.launch(
+                        lib, x16, w16, lay, v, twin=is_twin,
+                        route="walk"), 20),
+                    **retried_device_ms(lambda: staircase2.launch(
+                        lib, x16, w16, lay, v, twin=is_twin),
+                        ("block_slice_kernel", "carry_fixup"), "device_ms"),
+                    **retried_device_ms(
+                        lambda: staircase2.launch(lib, x16, w16, lay, v,
+                                                  twin=is_twin,
+                                                  route="walk"),
+                        ("block_direction_kernel", "carry_fixup"),
+                        "walk_device_ms"),
+                    **{k: val for k, val in extra.items()
+                       if k not in ("library_bf16_ms", "library_bf16")},
+                    card=nvidia_smi_line())
+                if graph_name == "full_train" and name == "forward":
+                    row["items_sweep_ms"] = {
+                        str(n): cuda_ms(lambda: staircase2.launch(
+                            lib, x16, w16, lay, v, twin=is_twin, items=n),
+                            10) for n in SWEEP_ITEMS}
+                if not (row["equals_f32_bitwise"]
+                        and row["route"] == "slice"):
+                    raise AssertionError(f"{kernel} {graph_name}/{name}: "
+                                         f"the slice route's bits differ "
+                                         f"from the f32 entry point's: "
+                                         f"{row}")
                 emit_row(row)
             for kernel, lay, bad in (("basis_combine_bf16", layout, wrong),
                                      ("basis_combine_bf16_twin", twin,
@@ -3927,6 +4297,8 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
                       "direction": name, "over_allowance": over,
                       "max_abs_err": (scattered.double() - exact).abs()
                       .max().item()})
+    for row in bf16_block_layouts(lib, graphs, n_rel, device):
+        emit_row({**row, "graph": "stress", "direction": row["layout"]})
     return rows
 
 
@@ -3969,7 +4341,7 @@ def bf16_kernels_line(kb, runs) -> list:
             "forward", "backward"), **extra):
         full = pick(kernel, "full_train", directions)
         batch = pick(kernel, "train_batch", directions)
-        lib = [r["library_ms"] for r in full]
+        lib = [r["library_ms"] for r in full if r["library_ms"] is not None]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(launches.values()),
@@ -3981,7 +4353,7 @@ def bf16_kernels_line(kb, runs) -> list:
                 "plain_ms": mean_of(full, "plain_ms"),
                 "bound_ms": mean_of(full, "bound_ms"),
                 "bound_by": full[0]["bound_by"],
-                "library_ms": None if None in lib else sum(lib) / len(lib),
+                "library_ms": sum(lib) / len(lib) if lib else None,
                 "library": full[0]["library"],
                 "train_batch_ms": mean_of(batch, "ms"),
                 "train_batch_f32_ms": mean_of(batch, "f32_ms"),
@@ -3992,19 +4364,80 @@ def bf16_kernels_line(kb, runs) -> list:
                 + (r.get("energy_launches", 0) if energies else 0)
                 for k, r in runs.items()}
 
+    def block_routes(kernel, launches):
+        """The slice and walk routes of a block_direction bf16 entry
+        point: the slice's plan, times (CUDA events; device times from
+        torch.profiler) beside the walk's on the same inputs, bits against
+        the f32 entry point, the library's one-call form (f32 and bf16,
+        forward direction), and the walk on the layout that forces it."""
+        full = pick(kernel, "full_train")
+        batch = pick(kernel, "train_batch")
+        fwd = [r for r in full + batch if r["direction"] == "forward"]
+        walk_rows = [r for r in pick(kernel, "stress", None)
+                     if r["route"] == "walk"]
+        keys = ("blocks_per_slice", "lanes", "n_slices", "smem_bytes",
+                "threads", "registers", "items")
+        pre = "bf16_twin_" if "twin" in kernel else "bf16_"
+        by_route = {route: sum(r.get(f"{pre}{route}_launches", 0)
+                               for r in runs.values())
+                    for route in ("slice", "walk")}
+        if sum(by_route.values()) != sum(launches.values()):
+            raise AssertionError(f"{kernel}: launches by route {by_route}, "
+                                 f"{sum(launches.values())} in all")
+        return {
+            "launches_by_route": by_route,
+            "equals_f32_bitwise": all(r["equals_f32_bitwise"]
+                                      for r in full + batch),
+            "slice": {**{k: full[0][k] for k in keys},
+                      "chunks": full[0]["chunks"],
+                      "train_batch_chunks": batch[0]["chunks"],
+                      "train_batch_items": batch[0]["items"],
+                      "ms": mean_of(full, "ms"),
+                      "device_ms": mean_device_ms(
+                          [r["device_ms"] for r in full],
+                          "block_slice_kernel"),
+                      "device_ms_tries": [r["device_ms_tries"]
+                                          for r in full],
+                      "train_batch_ms": mean_of(batch, "ms"),
+                      "items_sweep_ms": full[0].get("items_sweep_ms")},
+            "walk": {"ms": mean_of(full, "walk_ms"),
+                     "device_ms": mean_device_ms(
+                         [r["walk_device_ms"] for r in full],
+                         "block_direction_kernel"),
+                     "device_ms_tries": [r["walk_device_ms_tries"]
+                                         for r in full],
+                     "train_batch_ms": mean_of(batch, "walk_ms"),
+                     "stress_layouts": [
+                         {k: r[k] for k in ("layout", "R", "kernel_ms",
+                                            "over_allowance",
+                                            "wrong_layout_over_allowance",
+                                            "op_counted")}
+                         for r in walk_rows]},
+            "library_one_call": {
+                f"{r['graph']}_{k}": r.get(k) for r in fwd
+                for k in ("library_f32_ms", "library_f32_build_ms",
+                          "library_bf16_build_ms",
+                          "library_rel_l2_vs_kernel")},
+            "stress_layouts_slice": len([r for r in pick(kernel, "stress",
+                                                         None)
+                                         if r["route"] == "slice"]),
+            "card": full[0]["card"]}
+
     proj = {r["direction"]: r for r in pick("basis_project_bf16", None,
                                             None)}
     fwd = proj["forward"]
     combine = {k: a + b for (k, a), b in zip(
         launches("launches", "basis_direction").items(),
         launches("twin_launches", "basis_direction").values())}
+    block_fwd = launches("launches", "block_direction")
+    block_twin = launches("twin_launches", "block_direction")
     return [
         timed("block_direction_bf16", KERNEL_SOURCE, REPLACES,
-              "block_direction_bf16", launches("launches",
-                                               "block_direction")),
+              "block_direction_bf16", block_fwd,
+              **block_routes("block_direction_bf16", block_fwd)),
         timed("block_direction_twin_bf16", KERNEL_SOURCE, REPLACES_TWIN,
-              "block_direction_twin_bf16",
-              launches("twin_launches", "block_direction")),
+              "block_direction_twin_bf16", block_twin,
+              **block_routes("block_direction_twin_bf16", block_twin)),
         {"name": "basis_project_bf16", "route": "cuda",
          "source": PROJECT_SOURCE, "replaces": REPLACES_BASIS,
          "replaces_twin": REPLACES_BASIS_TWIN,
@@ -4211,6 +4644,7 @@ def mesh_launches(model, cfg, op, kind, steps, graph, rows) -> dict:
             "split_launches": staircase2.basis_direction.split_launches,
             "pad_launches": staircase2.basis_direction.bf16_pad_launches,
             "fixup_launches": sum(fixup_counts().values()),
+            **route_launches(),
             "dc_project_launches": launches if pre and op is
             staircase2.basis_direction else 0,
             "per_step": {k: v // steps for k, v in got.items()}}
@@ -4772,6 +5206,7 @@ def vs_launches(enc, model, op, batch, steps=1) -> dict:
             "split_launches": staircase2.basis_direction.split_launches,
             "pad_launches": staircase2.basis_direction.bf16_pad_launches,
             "fixup_launches": sum(fixup_counts().values()),
+            **route_launches(),
             "per_step": {k: v // steps for k, v in got.items()}}
 
 
@@ -4797,7 +5232,9 @@ def vs_kernel_rows(enc, model, batch) -> list:
     float64 sum of its (bf16-valued) inputs within sum_allowance (plus one
     bf16 ulp for the rounded bf16 product); the same layout with its
     weights reversed (a wrong layout) must fall outside it. Times of the
-    kernel (CUDA events) and of its plain version beside the bound."""
+    kernel (CUDA events) and of its plain version beside the bound. The
+    f32 all-gather cell also holds the bf16 block entry points (the slice
+    route) on its layouts, which read all v_pad rows."""
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(VS_KERNEL_SEED)
     e = model.config.encoder
@@ -4807,34 +5244,39 @@ def vs_kernel_rows(enc, model, batch) -> list:
     bf16 = model.agg_dtype is not None and enc.fused
     dtype, elem, sfx = (BF16, 2, "_bf16") if bf16 else (torch.float32, 4, "")
 
-    def randn(*shape):
+    def randn(*shape, to=dtype):
         """Random inputs in the kernel's dtype."""
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        return torch.randn(*shape, generator=gen, device=dev).to(to)
 
     def wrong(layout):
         return with_weights(layout, layout.w.flip(0).contiguous())
     cases = []
     if enc.fused and enc.variant == "block":
         n_blocks, dr = e.n_bases, d // e.n_bases
-        blocks = randn(n_rel, n_blocks, dr, dr)
         lib = staircase2.kernel_library()[0]
-        for kernel, x, layout, n_out, is_twin in (
-                ("block_direction", randn(h_len, d), csr, rows_per, False),
-                ("block_direction_twin", randn(rows_per, d), twin, h_len,
-                 True)):
+        precisions = [(dtype, elem, sfx)]
+        if enc.halo == "all_gather" and not bf16:
+            precisions.append((BF16, 2, "_bf16"))
+        for (to, p_elem, p_sfx), (kernel, x_rows, layout, n_out, is_twin) \
+                in itertools.product(precisions, (
+                    ("block_direction", h_len, csr, rows_per, False),
+                    ("block_direction_twin", rows_per, twin, h_len, True))):
+            if not is_twin:  # one set of blocks for both passes
+                blocks = randn(n_rel, n_blocks, dr, dr, to=to)
+            x = randn(x_rows, d, to=to)
             w_eff = blocks.transpose(-1, -2) if is_twin else blocks
             cases.append((
-                kernel + sfx, layout, n_out,
-                lambda lay, x=x, n=n_out, t=is_twin: staircase2._aggregate(
-                    x, blocks, lay, n, twin=t),
+                kernel + p_sfx, layout, n_out,
+                lambda lay, x=x, w=blocks, n=n_out, t=is_twin:
+                    staircase2._aggregate(x, w, lay, n, twin=t),
                 lambda lay, x=x, w=w_eff, n=n_out: block_exact(
                     x.float(), w.float(), lay, n),
                 lambda lay, x=x, w=w_eff, n=n_out:
                     staircase2.block_direction_reference(x, w, lay, n),
-                lambda lay, x=x, n=n_out, t=is_twin: staircase2.launch(
-                    lib, x, blocks, lay, n, twin=t),
+                lambda lay, x=x, w=blocks, n=n_out, t=is_twin:
+                    staircase2.launch(lib, x, w, lay, n, twin=t),
                 block_direction_bound(layout, n_out, n_rel, n_blocks, dr,
-                                      elem=elem)))
+                                      elem=p_elem)))
     elif enc.fused:
         n_bases = e.n_bases
         coef = torch.randn(n_rel, n_bases, generator=gen, device=dev)
@@ -4880,6 +5322,14 @@ def vs_kernel_rows(enc, model, batch) -> list:
                "kernel_ms": cuda_ms(lambda: launch_of(layout), 10),
                "plain_ms": cuda_ms(lambda: plain_of(layout), 3, warmup=1),
                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        if kernel.startswith("block_direction"):
+            # The bf16 block kernels take the slice route: R = 237
+            # relations' 5x5 blocks fit shared memory.
+            row["route"] = staircase2.block_direction_route(
+                n_rel, e.n_bases, d // e.n_bases).route \
+                if kernel.endswith("_bf16") else "walk"
+            if kernel.endswith("_bf16") and row["route"] != "slice":
+                raise AssertionError(f"{kernel}: route {row['route']}")
         if not (torch.isfinite(got).all() and row["over_allowance"] <= 1
                 < row["wrong_layout_over_allowance"]):
             raise AssertionError(f"{kernel} on a rectangular layout: {row}")
@@ -5362,11 +5812,13 @@ def main() -> int:
     bf16_runs = {}
     for label, settings, lines, op in BF16_VARIANTS:
         b_cfg = bf16_config(ds, label, settings, lines)
+        routes = op is staircase2.block_direction
         bf16_runs[f"serve_{label}"] = {**phase_serve(
-            ds, device, b_cfg, op, f"serve_{label}"), "op": op.__name__}
-        bf16_runs[f"train_{label}"] = {**phase_train(
-            b_cfg, ds, device, op, f"train_{label}", steps=BF16_STEPS),
+            ds, device, b_cfg, op, f"serve_{label}", compare_routes=routes),
             "op": op.__name__}
+        bf16_runs[f"train_{label}"] = {**phase_train(
+            b_cfg, ds, device, op, f"train_{label}", steps=BF16_STEPS,
+            compare_routes=routes), "op": op.__name__}
     dm_cfg = bf16_config(ds, "distmult_bf16",
                          ROOT / "settings" / "distmult.exp", [])
     bf16_runs["train_distmult_bf16"] = {**phase_train(

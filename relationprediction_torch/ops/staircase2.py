@@ -59,7 +59,9 @@ bf16 message precision (the JAX ops' ``compute_dtype``): with
 ``compute_dtype=torch.bfloat16`` each op sends its gathered table and its
 weights operand to the bf16 entry point of its kernel
 (``block_direction_bf16`` and ``block_direction_twin_bf16``: features or
-g and the blocks; ``basis_project_bf16``, after a pad pass that lays them
+g and the blocks, by the slice route where W's slice fits a thread
+block's shared memory, ``block_direction_route``, else by the walk;
+``basis_project_bf16``, after a pad pass that lays them
 out K-major for TMA: x or g and W_flat or w_t, P written in bf16;
 ``basis_combine_bf16``: P), which widens them to f32:
 edge weights and C stay f32, products and sums are f32, outputs f32 but
@@ -75,6 +77,7 @@ only in the order of their f32 sums.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -91,6 +94,77 @@ _BASIS_SOURCE = "basis_direction.cu"
 _PROJECT_SOURCE = "basis_project.cu"
 _MAX_DR = 8
 _EDGE_CHUNK = 16384
+# The bf16 slice route (csrc/block_direction.cu): the shared memory a
+# thread block may have on an H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin,
+# 227 KB), and the lanes a walker may have (its kernel's
+# block_direction_slice_min_lanes and a warp); the kernel checks both.
+SLICE_SMEM_BUDGET = 232448
+SLICE_LANES = (4, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockRoute:
+    """How block_direction's bf16 entry points run for R relations of B
+    blocks of dr x dr: ``route`` "slice" (thread block y serves output
+    blocks [y * blocks_per_slice, ...) of ``n_slices``, W's slice of
+    ``smem_bytes`` in shared memory, walkers of ``lanes`` lanes) or "walk"
+    (the merge-path walk, W read from L2 each relation run; the other fields
+    0)."""
+
+    route: str
+    blocks_per_slice: int = 0
+    lanes: int = 0
+    n_slices: int = 0
+    smem_bytes: int = 0
+
+    def slices(self, n_blocks: int) -> list:
+        """(first, end) output blocks of each slice."""
+        bs = self.blocks_per_slice
+        return [(s * bs, min((s + 1) * bs, n_blocks))
+                for s in range(self.n_slices)]
+
+
+def slice_threads(dr: int) -> int:
+    """Threads of a slice thread block (block_direction.cu's
+    slice_threads): 1024 up to dr = 6, 512 above."""
+    return 1024 if dr <= 6 else 512
+
+
+def slice_smem_bytes(n_rel: int, blocks_per_slice: int, dr: int) -> int:
+    """Shared memory of a slice launch, as block_direction.cu lays it out:
+    a region a relation of ceil((2 * bs * dr * dr + 14) / 16) 16-byte
+    chunks, the chunks of W that hold its bf16 values (they start at any
+    even byte of a chunk), then the CSR staging: each walker's windows of
+    row ends and entries, 16 bytes a thread."""
+    return 16 * (n_rel * ((2 * blocks_per_slice * dr * dr + 29) // 16)
+                 + slice_threads(dr))
+
+
+@functools.lru_cache(maxsize=None)
+def block_direction_route(n_rel: int, n_blocks: int, dr: int) -> BlockRoute:
+    """The bf16 route for these shapes, from the shapes alone: the slice
+    route where a slice of at least one block fits SLICE_SMEM_BUDGET, else
+    the walk. The slice takes as many blocks as fit (at most a warp's 32);
+    the walker's lanes are a power of two >= those blocks (at least 4),
+    or 16 where a warp of lanes would idle more of them; the slices are
+    then evened out (FB15k-237, R = 237 at B = 100, dr = 5: 7 slices of
+    15 and 10 blocks, 16 lanes, 198,400 bytes)."""
+    least, most = SLICE_LANES
+    cap = next((bs for bs in range(min(most, n_blocks), 0, -1)
+                if slice_smem_bytes(n_rel, bs, dr) <= SLICE_SMEM_BUDGET), 0)
+    if cap == 0:
+        return BlockRoute("walk")
+
+    def plan(lanes):
+        n_slices = -(-n_blocks // min(cap, lanes))
+        bs = -(-n_blocks // n_slices)
+        lanes = max(least, 1 << (bs - 1).bit_length())
+        return (n_slices * lanes, -lanes), BlockRoute(
+            "slice", bs, lanes, n_slices, slice_smem_bytes(n_rel, bs, dr))
+    first = max(least, 1 << (cap - 1).bit_length())
+    return min((plan(lanes) for lanes in
+                ([first, most // 2] if first == most else [first])),
+               key=lambda p: p[0])[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,14 +176,27 @@ def kernel_library() -> tuple:
 
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the kernel source."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.block_direction_f32, lib.block_direction_twin_f32,
                lib.block_direction_bf16, lib.block_direction_twin_bf16):
         fn.argtypes = [p] * 9 + [i] * 6 + [p]
         fn.restype = i
-    for fn in (lib.block_direction_max_blocks, lib.block_direction_max_items):
+    for fn in (lib.block_direction_slice_bf16,
+               lib.block_direction_twin_slice_bf16):
+        fn.argtypes = [p] * 9 + [i] * 9 + [p]
+        fn.restype = i
+    for fn in (lib.block_direction_max_blocks, lib.block_direction_max_items,
+               lib.block_direction_slice_min_lanes):
         fn.argtypes = []
         fn.restype = i
+    lib.block_direction_slice_threads.argtypes = [i]
+    lib.block_direction_slice_threads.restype = i
+    lib.block_direction_slice_smem_bytes.argtypes = [i, i, i]
+    lib.block_direction_slice_smem_bytes.restype = ll
+    lib.block_direction_slice_chunks.argtypes = [i] * 9
+    lib.block_direction_slice_chunks.restype = ll
+    lib.block_direction_slice_registers.argtypes = [i, i]
+    lib.block_direction_slice_registers.restype = i
     lib.block_direction_error_string.argtypes = [i]
     lib.block_direction_error_string.restype = ctypes.c_char_p
     return lib
@@ -186,11 +273,16 @@ def block_direction(features: torch.Tensor, blocks: torch.Tensor,
 
 # Kernel launches since the counts were last set to 0, forward passes and
 # twin passes apart, f32 and bf16 apart, and the carry fix-up that follows
-# each of them (CPU calls never count).
+# each of them (CPU calls never count); the bf16 launches also by route,
+# forward and twin apart: the slice kernel or the walk.
 block_direction.launches = 0
 block_direction.twin_launches = 0
 block_direction.bf16_launches = 0
 block_direction.bf16_twin_launches = 0
+block_direction.bf16_slice_launches = 0
+block_direction.bf16_twin_slice_launches = 0
+block_direction.bf16_walk_launches = 0
+block_direction.bf16_twin_walk_launches = 0
 block_direction.fixup_launches = 0
 
 
@@ -238,8 +330,9 @@ class _BlockDirection(torch.autograd.Function):
 
 def _aggregate(features, blocks, layout, n_vertices, *, twin: bool):
     """One kernel pass: the forward (blocks as given) or the twin pass
-    (blocks transposed), f32 or bf16 by the inputs' dtype, or their plain
-    version for a CPU tensor."""
+    (blocks transposed), f32 or bf16 by the inputs' dtype (bf16 by the
+    route ``kernel_route`` gives), or their plain version for a CPU
+    tensor."""
     if features.device.type == "cpu":
         return block_direction_reference(
             features, blocks.transpose(-1, -2) if twin else blocks, layout,
@@ -250,8 +343,20 @@ def _aggregate(features, blocks, layout, n_vertices, *, twin: bool):
     bf16 = "bf16_" if features.dtype == torch.bfloat16 else ""
     name = f"{bf16}twin_launches" if twin else f"{bf16}launches"
     setattr(block_direction, name, getattr(block_direction, name) + 1)
+    if bf16:
+        name = (f"bf16_{'twin_' if twin else ''}"
+                f"{kernel_route(features, blocks)}_launches")
+        setattr(block_direction, name, getattr(block_direction, name) + 1)
     block_direction.fixup_launches += 1
     return out
+
+
+def kernel_route(features: torch.Tensor, blocks: torch.Tensor) -> str:
+    """The kernel ``launch`` runs by default: "walk" for f32, the bf16
+    inputs' ``block_direction_route`` otherwise."""
+    if features.dtype != torch.bfloat16:
+        return "walk"
+    return block_direction_route(*blocks.shape[:3]).route
 
 
 def _carry_buffers(n_rows: int, n_edges: int, items: int, width: int,
@@ -269,15 +374,27 @@ def _carry_buffers(n_rows: int, n_edges: int, items: int, width: int,
 
 def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
            layout: CsrLayout, n_vertices: int, *, twin: bool = False,
-           items: Optional[int] = None, carries: bool = False):
+           items: Optional[int] = None, carries: bool = False,
+           route: Optional[str] = None):
     """One call of a bound kernel library (the merge-path kernel, then its
     carry fix-up) on the current stream, on inputs already checked; raises
     if a launch is refused. ``twin`` launches the entry point that reads
     ``blocks`` transposed; bf16 ``features`` and ``blocks`` the bf16 entry
-    points. Returns ``out``, or (out, carry_rows) with
-    ``carries`` (see ``staircase.merge_path_carry_rows``). ``items``
-    defaults to ``staircase.block_direction_items``."""
-    n_blocks, dr = blocks.shape[1], blocks.shape[2]
+    points, by ``route`` ("slice" or "walk"; by default ``kernel_route``,
+    which the main path takes: ``route`` is for timing one route against
+    the other, and "slice" raises where the plan has none). Returns
+    ``out``, or (out, carry_rows) with ``carries`` (see
+    ``staircase.merge_path_carry_rows``). ``items`` defaults to
+    ``staircase.block_direction_items``."""
+    n_rel, n_blocks, dr = blocks.shape[:3]
+    bf16 = features.dtype == torch.bfloat16
+    plan = block_direction_route(n_rel, n_blocks, dr) if bf16 else None
+    route = route or kernel_route(features, blocks)
+    if route not in ("slice", "walk") or (route == "slice" and (
+            plan is None or plan.route != "slice")):
+        raise ValueError(f"block_direction: no {route!r} route for "
+                         f"{features.dtype} inputs with R={n_rel}, "
+                         f"B={n_blocks}, dr={dr}")
     if items is None:
         items = staircase.block_direction_items(n_vertices, layout.n_edges)
     carry_rows, carry = _carry_buffers(
@@ -286,16 +403,28 @@ def launch(lib: ctypes.CDLL, features: torch.Tensor, blocks: torch.Tensor,
     out = torch.empty(n_vertices, n_blocks * dr, dtype=torch.float32,
                       device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
-    if features.dtype == torch.bfloat16:
-        fn = lib.block_direction_twin_bf16 if twin \
-            else lib.block_direction_bf16
+    args = (features.data_ptr(), blocks.data_ptr(),
+            layout.row_ptr.data_ptr(), layout.src.data_ptr(),
+            layout.rel.data_ptr(), layout.w.data_ptr(), out.data_ptr(),
+            carry_rows.data_ptr(), carry.data_ptr(), n_vertices,
+            layout.n_edges, n_blocks, dr)
+    if route == "slice":
+        if blocks.data_ptr() % 16:
+            raise ValueError("block_direction: the slice route copies the "
+                             "bf16 blocks in 16-byte chunks; they do not "
+                             "start on one")
+        fn = lib.block_direction_twin_slice_bf16 if twin \
+            else lib.block_direction_slice_bf16
+        rc = fn(*args, n_rel, items, plan.blocks_per_slice, plan.lanes,
+                features.device.index, stream)
     else:
-        fn = lib.block_direction_twin_f32 if twin else lib.block_direction_f32
-    rc = fn(features.data_ptr(), blocks.data_ptr(), layout.row_ptr.data_ptr(),
-            layout.src.data_ptr(), layout.rel.data_ptr(),
-            layout.w.data_ptr(), out.data_ptr(), carry_rows.data_ptr(),
-            carry.data_ptr(), n_vertices, layout.n_edges, n_blocks, dr, items,
-            features.device.index, stream)
+        if bf16:
+            fn = lib.block_direction_twin_bf16 if twin \
+                else lib.block_direction_bf16
+        else:
+            fn = lib.block_direction_twin_f32 if twin \
+                else lib.block_direction_f32
+        rc = fn(*args, items, features.device.index, stream)
     if rc != 0:
         msg = lib.block_direction_error_string(rc).decode()
         raise RuntimeError(f"block_direction kernel launch failed: "
