@@ -80,8 +80,8 @@ launch of its carry fix-up, counted apart and checked on every path; so is
 every kernel 3 launch of ops/gather.sum_by_csr (d blocks and d C summed by
 relation, once a direction and layer a step; the fused energies' per-id
 scalars), whose count each train phase checks. Every bf16 block_direction
-launch of a main path is counted by its route too, and must be the slice
-route (check_block_routes).
+and basis_combine launch of a main path is counted by its route too, and
+must be the slice route and the chunk route (check_routes).
 
 Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
 gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
@@ -231,7 +231,16 @@ key has it), at published widths:
           pad pass (the pad equal to
           bf16_pad_reference bit for bit; pad and product timed apart,
           their device times from torch.profiler, the product's
-          registers and stages), basis_combine_bf16 forward and twin CSR,
+          registers and stages), basis_combine_bf16 forward and twin CSR
+          by the chunk route (equal bit for bit to the f32 entry point on
+          the widened P, carry rows and two launches bit for bit, timed
+          beside PR 6's kernel on the same inputs (route="row") with both
+          device times, ptxas' registers and spills of both, the plan and
+          an items sweep; then combine_layouts' stress layouts, the
+          training batch at B = 1-8 with d_out = 37, items 1,024 at B = 8,
+          two column chunks at d_out = 1,000 and two rectangular layouts,
+          each equal to the f32 entry point's bits, within the allowance,
+          the wrong layout outside, both kernels timed),
           staircase_aggregate_bf16 with and without perm, scatter2 with
           compute_dtype bf16) on the full train graph and on the first
           training batch's graph, each against a float64 sum of its
@@ -248,7 +257,9 @@ key has it), at published widths:
           (relative L2) of the CPU plain path and 2e-2 of the f32 encode,
           MRR beside the f32 one; the step within BF16_STEP_TOL of the CPU
           plain path and its loss within 1e-2 of the f32 loss on the same
-          draws;
+          draws; gcn_block's and gcn_basis's warm encode timed and 3 steps
+          profiled by each bf16 route of their kernel (slice and walk;
+          chunk and row), in the order new, old, old, new;
   train_distmult_bf16  distmult.exp on bf16 streams, 6 steps of all
           272,115 positives: the fused backward's d codes against
           autograd's on the same bf16 values, and the fused, bf16 direct
@@ -884,9 +895,13 @@ ENERGY_OPS = (neg_energy.factored_negative_energies,
               neg_energy.single_factor_negative_energies)
 
 
-# block_direction's bf16 launches by direction and route.
+# block_direction's and basis_combine's bf16 launches by direction and
+# route.
 ROUTE_COUNTERS = ("bf16_slice_launches", "bf16_walk_launches",
                   "bf16_twin_slice_launches", "bf16_twin_walk_launches")
+COMBINE_ROUTE_COUNTERS = ("bf16_chunk_launches", "bf16_row_launches",
+                          "bf16_twin_chunk_launches",
+                          "bf16_twin_row_launches")
 
 
 def reset_launch_counts() -> None:
@@ -897,6 +912,8 @@ def reset_launch_counts() -> None:
         op.bf16_launches = op.bf16_twin_launches = 0
     for name in ROUTE_COUNTERS:
         setattr(staircase2.block_direction, name, 0)
+    for name in COMBINE_ROUTE_COUNTERS:
+        setattr(staircase2.basis_direction, name, 0)
     staircase2.basis_direction.project_launches = 0
     staircase2.basis_direction.split_launches = 0
     staircase2.basis_direction.bf16_project_launches = 0
@@ -1008,52 +1025,69 @@ def check_helper_launches(op, launches, twin_launches, project_launches,
         want[op.__name__] += launches + twin_launches
     if fixups != want:
         raise AssertionError(f"carry fix-ups {fixups}, expected {want}")
-    check_block_routes()
+    check_routes()
 
 
 def route_launches() -> dict:
-    """block_direction's bf16 launch counts by direction and route since
-    the counts were set to 0."""
-    return {name: getattr(staircase2.block_direction, name)
-            for name in ROUTE_COUNTERS}
+    """block_direction's and basis_combine's bf16 launch counts by
+    direction and route since the counts were set to 0."""
+    return {**{name: getattr(staircase2.block_direction, name)
+               for name in ROUTE_COUNTERS},
+            **{name: getattr(staircase2.basis_direction, name)
+               for name in COMBINE_ROUTE_COUNTERS}}
 
 
-def check_block_routes() -> None:
+def check_routes() -> None:
     """Every bf16 block_direction launch since the counts were set to 0
-    went by the slice route, counted once by direction and route: the
-    route is picked from the shapes, and every cell's (R = 237 or 40,
-    B = 100, dr = 5) takes the slice."""
-    bd = staircase2.block_direction
+    went by the slice route and every bf16 basis_combine launch by the
+    chunk route, counted once by direction and route: the routes are
+    picked from the shapes, and every cell's (R = 237 or 40, B = 100,
+    dr = 5; B = 5, d_out = 500) takes the slice and the chunks."""
+    bd, bb = staircase2.block_direction, staircase2.basis_direction
     want = {"bf16_slice_launches": bd.bf16_launches,
             "bf16_walk_launches": 0,
             "bf16_twin_slice_launches": bd.bf16_twin_launches,
-            "bf16_twin_walk_launches": 0}
+            "bf16_twin_walk_launches": 0,
+            "bf16_chunk_launches": bb.bf16_launches,
+            "bf16_row_launches": 0,
+            "bf16_twin_chunk_launches": bb.bf16_twin_launches,
+            "bf16_twin_row_launches": 0}
     if route_launches() != want:
-        raise AssertionError(f"bf16 block_direction launches by route "
-                             f"{route_launches()}, expected {want}")
+        raise AssertionError(f"bf16 launches by route {route_launches()}, "
+                             f"expected {want}")
+
+
+# Each bf16 op's routes: (the main path's, the earlier design's).
+OP_ROUTES = {"block_direction": ("slice", "walk"),
+             "basis_direction": ("chunk", "row")}
 
 
 @contextlib.contextmanager
 def forced_route(route: str):
-    """block_direction's bf16 launches take ``route`` ("slice" or "walk")
-    inside the block, whatever their shapes' plan: for timing the main
-    path by the merge-path walk beside the slice route, outside counted
-    runs."""
-    kernel_route = staircase2.kernel_route
-    staircase2.kernel_route = lambda features, blocks: (
-        route if features.dtype == torch.bfloat16 else "walk")
+    """block_direction's bf16 launches take ``route`` ("slice" or "walk"),
+    or basis_combine's ("chunk" or "row"), inside the block, whatever
+    their shapes' plan: for timing the main path by the earlier design
+    beside the shipped one, outside counted runs."""
+    if route in OP_ROUTES["block_direction"]:
+        name, f32 = "kernel_route", "walk"
+    else:
+        name, f32 = "combine_route", "row"
+    chosen = getattr(staircase2, name)
+    setattr(staircase2, name, lambda t, _: (
+        route if t.dtype == torch.bfloat16 else f32))
     try:
         yield
     finally:
-        staircase2.kernel_route = kernel_route
+        setattr(staircase2, name, chosen)
 
 
-def route_times(measure) -> dict:
-    """``measure()`` by the slice route and by the walk, in the order
-    slice, walk, walk, slice (so a drift of the machine falls on both):
-    route -> its two readings."""
-    out = {"slice": [], "walk": []}
-    for route in ("slice", "walk", "walk", "slice"):
+def route_times(measure, routes=OP_ROUTES["block_direction"]) -> dict:
+    """``measure()`` by the shipped route and by the earlier one
+    (``routes``), in the order new, old, old, new (so a drift of the
+    machine falls on both): route -> its two readings."""
+    new, old = routes
+    out = {new: [], old: []}
+    for route in (new, old, old, new):
         with forced_route(route):
             out[route].append(measure())
     return out
@@ -1071,7 +1105,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
     sums in other orders, which can flip a bf16 rounding of the next
     layer's input) and to the f32 configuration's encode within 2e-2,
     its filtered MRR beside the f32 one. ``compare_routes`` (bf16
-    block_direction) also times the warm encode by each bf16 route."""
+    block_direction or basis_direction) also times the warm encode by
+    each of its bf16 routes (OP_ROUTES)."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     bf16 = model.agg_dtype is not None
@@ -1178,8 +1213,8 @@ def phase_serve(ds, device, cfg, op=staircase2.block_direction,
         view.encoded(params, graph)
     encode_ms_warm = cuda_ms(encode_again, 5, warmup=1)
     by_route = {"encode_ms_warm_by_route": route_times(
-        lambda: cuda_ms(encode_again, 5, warmup=1))} if compare_routes \
-        else {}
+        lambda: cuda_ms(encode_again, 5, warmup=1), OP_ROUTES[op.__name__])
+        } if compare_routes else {}
     scorer.register_model(view, params, graph, n_entities=ds.n_entities)
     t3 = time.perf_counter()
     scorer.compute_scores(triples)
@@ -2388,8 +2423,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     which can flip bf16 roundings and ReLU gates near 0), and its loss to
     the f32 configuration's on the same draws within 1e-2 relative (the
     JAX package's own rule, tests/test_bf16_streams.py).
-    ``compare_routes`` (bf16 block_direction) also profiles steps by each
-    bf16 route after the counted run."""
+    ``compare_routes`` (bf16 block_direction or basis_direction) also
+    profiles steps by each of its bf16 routes after the counted run."""
     t_phase = time.perf_counter()
     model = build.build_model(cfg, device)
     bf16 = model.agg_dtype is not None or model.stream_dtype is not None
@@ -2594,7 +2629,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
         keys = ("profile_wall_ms_per_step", "device_busy_ms_per_step",
                 "device_idle_share")
         by_route = route_times(lambda: profile_steps(
-            loop, params, result.opt_state))
+            loop, params, result.opt_state), OP_ROUTES[op.__name__])
         emit(f"{phase}_routes", phase_s=time.perf_counter() - t_phase,
              **{route: {k: [p.get(k) for p in readings] for k in keys}
                 for route, readings in by_route.items()})
@@ -3973,6 +4008,64 @@ def same_bits(a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def ptxas_of(info, kernel: str):
+    """ptxas' line (registers, spills) of the first kernel of a fresh
+    build whose mangled name holds ``kernel``, or None (a cached build
+    has none)."""
+    return next((line for line in info.ptxas if kernel in line), None)
+
+
+# The B = 5 instantiations the main path's bf16 combine launches at d_out
+# = 500: the chunk kernel on 4-column words, PR 6's on uint2 into float4.
+CHUNK_KERNEL = "combine_chunk_kernelILi5ELi4E"
+ROW_KERNEL = "basis_combine_kernelILi5E5uint26float4E"
+
+
+def combine_route_row(blib, p16, pf, coef, layout, v, got, items) -> dict:
+    """basis_combine_bf16's route on these inputs and its chunk plan
+    (checked against the kernel's constants), ``got`` (the chunk
+    kernel's output) against the f32 entry point on the widened P ``pf``
+    bit for bit (raises where it differs), PR 6's kernel (route="row") on
+    the same inputs: its bits, its time (CUDA events) and both kernels'
+    device times (torch.profiler), with ptxas' registers and spills of
+    both at B = 5."""
+    n_bases = coef.shape[1]
+    d_out = p16.shape[1] // n_bases
+    plan = staircase.basis_combine_plan(d_out)
+    info = staircase2.basis_kernel_library()[1]
+    f32 = staircase2.launch_combine(blib, pf, coef, layout, v)
+    row_out = staircase2.launch_combine(blib, p16, coef, layout, v,
+                                        route="row")
+    out = {"route": staircase2.combine_route(p16, coef), "items": items,
+           "cols": plan.cols, "chunk_cols": plan.chunk_cols,
+           "n_chunks": plan.n_chunks,
+           "smem_bytes": blib.basis_combine_chunk_smem_bytes(n_bases,
+                                                             items),
+           "equals_f32_bitwise": same_bits(got, f32),
+           "row_equals_f32_bitwise": same_bits(row_out, f32),
+           "row_ms": cuda_ms(lambda: staircase2.launch_combine(
+               blib, p16, coef, layout, v, route="row"), 20),
+           **retried_device_ms(lambda: staircase2.launch_combine(
+               blib, p16, coef, layout, v),
+               ("combine_chunk_kernel", "carry_fixup"), "device_ms"),
+           **retried_device_ms(lambda: staircase2.launch_combine(
+               blib, p16, coef, layout, v, route="row"),
+               ("basis_combine_kernel", "carry_fixup"), "row_device_ms"),
+           "ptxas": ptxas_of(info, CHUNK_KERNEL),
+           "row_ptxas": ptxas_of(info, ROW_KERNEL)}
+    if (blib.basis_combine_chunk_threads(),
+            blib.basis_combine_word_cols()) != (
+                staircase.COMBINE_CHUNK_THREADS,
+                staircase.COMBINE_WORD_COLS):
+        raise AssertionError(f"the chunk kernel's shape is not the "
+                             f"planner's: {out}")
+    if not (out["route"] == "chunk" and out["equals_f32_bitwise"]
+            and out["row_equals_f32_bitwise"]):
+        raise AssertionError(f"basis_combine_bf16: the chunk route's bits "
+                             f"differ from the f32 entry point's: {out}")
+    return out
+
+
 def bf16_block_layouts(lib, graphs, n_rel, device) -> list:
     """block_direction_bf16 and its twin by the slice route on
     block_layouts' stress layouts (B = 100, dr = 5) and on the training
@@ -4060,6 +4153,101 @@ def bf16_block_layouts(lib, graphs, n_rel, device) -> list:
                     raise AssertionError(f"{kernel} layout {name}: the "
                                          f"walk route {row}")
             rows.append(row)
+    return rows
+
+
+def bf16_combine_layouts(lib, graphs, n_rel, device) -> list:
+    """basis_combine_bf16 by the chunk route on combine_layouts' stress
+    layouts (B = 5, d_out = 500), on the training batch's layout at every
+    B of 1-8 with d_out = 37 (one column a thread) and at B = 8, d_out =
+    500 with the kernels' largest items (1,024: 40,960 bytes of staging),
+    at B = 5, d_out = 1,000 (two column chunks), and on two rectangular
+    layouts (a vertex shard's: the full graph's first 7,270 rows reading
+    14,541 source rows, and its 14,541 rows reading 7,270): each equal bit
+    for bit
+    to the f32 entry point on the widened P, and to PR 6's kernel
+    (route="row") likewise, within the rounding allowance of a float64
+    sum, the layout with its weights reversed outside it (where it has
+    entries), carry rows equal to merge_path_carry_rows and two launches
+    equal bit for bit; route="chunk" refused for an f32 P. Both kernels
+    timed."""
+    gen = torch.Generator().manual_seed(16)
+    full = graphs["full_train"]
+    v = full.n_vertices
+    cases = {name: (csr_of_counts(c, gen, device, v, n_rel), v, 5, 500,
+                    None)
+             for name, c in stress_counts(graphs).items()}
+    batch = graphs["train_batch"].fwd
+    for n_bases in range(1, 9):
+        cases[f"train_batch_B{n_bases}_d37"] = (batch, v, n_bases, 37, None)
+    cases["train_batch_B8_items1024"] = (batch, v, 8, 500, 1024)
+    cases["train_batch_d1000"] = (batch, v, 5, 1000, None)
+    lengths = full.fwd.row_ptr.diff().cpu().long()
+    half = v // 2
+    for name, counts, n_src in (("rect_fewer_rows", lengths[:half], v),
+                                ("rect_more_rows", lengths, half)):
+        lay = csr_of_counts(counts, gen, device, n_src, n_rel)
+        cases[name] = (dataclasses.replace(lay, n_sources=n_src), n_src, 5,
+                       500, None)
+    rows = []
+    for name, (layout, n_src, n_bases, d_out, items) in cases.items():
+        n_rows = layout.n_rows
+        p16 = torch.randn(n_src, n_bases * d_out, generator=gen).to(
+            device).to(BF16)
+        pf = p16.float()
+        coef = torch.randn(n_rel, n_bases, generator=gen).to(device)
+        staircase2._check_combine(p16, coef, layout, n_rows)
+        items = items or staircase.basis_combine_items(n_rows,
+                                                       layout.n_edges)
+        got = repeatable(f"basis_combine_bf16 layout {name}",
+                         lambda c: staircase2.launch_combine(
+                             lib, p16, coef, layout, n_rows, items=items,
+                             carries=c), layout.row_ptr, items)
+        f32 = staircase2.launch_combine(lib, pf, coef, layout, n_rows,
+                                        items=items)
+        row_out = staircase2.launch_combine(lib, p16, coef, layout, n_rows,
+                                            items=items, route="row")
+        exact, allowance = combine_exact(pf, coef, layout, n_rows)
+        torch.cuda.synchronize()
+        plan = staircase.basis_combine_plan(d_out)
+        row = {"kernel": "basis_combine_bf16", "layout": name,
+               "n_src": n_src, "n_rows": n_rows, "B": n_bases,
+               "d_out": d_out, "route": staircase2.combine_route(p16, coef),
+               "cols": plan.cols, "chunk_cols": plan.chunk_cols,
+               "n_chunks": plan.n_chunks,
+               "smem_bytes": lib.basis_combine_chunk_smem_bytes(n_bases,
+                                                                items),
+               **partition_row(layout, n_rows, items),
+               "over_allowance": over_allowance(got, exact, allowance),
+               "same_bits_twice": True,
+               "equals_f32_bitwise": same_bits(got, f32),
+               "row_equals_f32_bitwise": same_bits(row_out, f32),
+               "kernel_ms": cuda_ms(lambda: staircase2.launch_combine(
+                   lib, p16, coef, layout, n_rows, items=items), 10),
+               "row_ms": cuda_ms(lambda: staircase2.launch_combine(
+                   lib, p16, coef, layout, n_rows, items=items,
+                   route="row"), 10),
+               "bound_ms": combine_bound(layout, n_rows, n_bases, d_out,
+                                         elem=2)["bound_ms"]}
+        if layout.n_edges:
+            wrong = staircase2.launch_combine(
+                lib, p16, coef, with_weights(layout, layout.w.flip(0)
+                                             .contiguous()), n_rows,
+                items=items)
+            row["wrong_layout_over_allowance"] = over_allowance(
+                wrong, exact, allowance)
+        if not (torch.isfinite(got).all() and row["over_allowance"] <= 1
+                and row["route"] == "chunk" and row["equals_f32_bitwise"]
+                and row["row_equals_f32_bitwise"]
+                and row.get("wrong_layout_over_allowance", 2) > 1):
+            raise AssertionError(f"basis_combine_bf16 layout {name}: {row}")
+        rows.append(row)
+    try:
+        staircase2.launch_combine(lib, pf, coef, layout, n_rows,
+                                  route="chunk")
+        raise AssertionError("basis_combine: route='chunk' ran an f32 P")
+    except ValueError:
+        pass
     return rows
 
 
@@ -4229,10 +4417,16 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
                                      ("basis_combine_bf16_twin", twin,
                                       layout)):
                 exact, allowance = combine_exact(pf, coef, lay, v)
+                direction = name + ("_twin" if kernel.endswith("twin")
+                                    else "")
+                items = staircase.basis_combine_items(v, lay.n_edges)
+                got = repeatable(f"basis_combine_bf16 {graph_name}/"
+                                 f"{direction}",
+                                 lambda c: staircase2.launch_combine(
+                                     blib, p16, coef, lay, v, carries=c),
+                                 lay.row_ptr, items)
                 row = bf16_row(
-                    "basis_combine_bf16", graph_name,
-                    f"{name}{'_twin' if kernel.endswith('twin') else ''}",
-                    staircase2.launch_combine(blib, p16, coef, lay, v),
+                    "basis_combine_bf16", graph_name, direction, got,
                     exact, allowance,
                     staircase2.launch_combine(blib, p16, coef, bad, v),
                     staircase2.basis_combine_reference(p16, coef, lay, v),
@@ -4245,6 +4439,14 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
                     combine_bound(lay, v, n_bases, d, elem=2),
                     bf16_csr_library(combine_matrix(coef, lay, v, v),
                                      p16.view(v * n_bases, d)))
+                row.update(**combine_route_row(blib, p16, pf, coef, lay, v,
+                                               got, items),
+                           same_bits_twice=True, card=nvidia_smi_line())
+                if graph_name == "full_train" and direction == "forward":
+                    row["items_sweep_ms"] = {
+                        str(n): cuda_ms(lambda: staircase2.launch_combine(
+                            blib, p16, coef, lay, v, items=n), 10)
+                        for n in SWEEP_ITEMS}
                 emit_row(row)
             e = layout.n_edges
             msgs = torch.randn(e, d, generator=gen).to(device).to(BF16)
@@ -4299,6 +4501,8 @@ def phase_kernel_bf16(graphs, n_rel, n_blocks, dr, n_bases, d, device):
                       .max().item()})
     for row in bf16_block_layouts(lib, graphs, n_rel, device):
         emit_row({**row, "graph": "stress", "direction": row["layout"]})
+    for row in bf16_combine_layouts(blib, graphs, n_rel, device):
+        emit_row({**row, "graph": "stress", "direction": row["layout"]})
     return rows
 
 
@@ -4337,11 +4541,14 @@ def bf16_kernels_line(kb, runs) -> list:
                 and graph in (None, r["graph"])
                 and (directions is None or r["direction"] in directions)]
 
+    def library_mean(rows):
+        lib = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+        return sum(lib) / len(lib) if lib else None
+
     def timed(name, source, replaces, kernel, launches, directions=(
             "forward", "backward"), **extra):
         full = pick(kernel, "full_train", directions)
         batch = pick(kernel, "train_batch", directions)
-        lib = [r["library_ms"] for r in full if r["library_ms"] is not None]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(launches.values()),
@@ -4353,11 +4560,12 @@ def bf16_kernels_line(kb, runs) -> list:
                 "plain_ms": mean_of(full, "plain_ms"),
                 "bound_ms": mean_of(full, "bound_ms"),
                 "bound_by": full[0]["bound_by"],
-                "library_ms": sum(lib) / len(lib) if lib else None,
+                "library_ms": library_mean(full),
                 "library": full[0]["library"],
                 "train_batch_ms": mean_of(batch, "ms"),
                 "train_batch_f32_ms": mean_of(batch, "f32_ms"),
-                "train_batch_bound_ms": mean_of(batch, "bound_ms"), **extra}
+                "train_batch_bound_ms": mean_of(batch, "bound_ms"),
+                "train_batch_library_ms": library_mean(batch), **extra}
 
     def launches(key, op, energies=False):
         return {k: r.get(key, 0) * (r["op"] == op)
@@ -4423,6 +4631,69 @@ def bf16_kernels_line(kb, runs) -> list:
                                          if r["route"] == "slice"]),
             "card": full[0]["card"]}
 
+    def combine_routes(launches):
+        """basis_combine_bf16's chunk and row routes: the chunk plan,
+        times (CUDA events; device times from torch.profiler) beside PR
+        6's kernel on the same inputs, forward and twin CSR, bits against
+        the f32 entry point, ptxas of both, the library at both shapes,
+        and the stress and rectangular layouts."""
+        full = pick("basis_combine_bf16", "full_train", None)
+        batch = pick("basis_combine_bf16", "train_batch", None)
+        twin = ("forward_twin", "backward_twin")
+        stress = [r for r in pick("basis_combine_bf16", "stress", None)]
+        by_route = {route: sum(r.get(f"bf16_{route}_launches", 0)
+                               + r.get(f"bf16_twin_{route}_launches", 0)
+                               for r in runs.values())
+                    for route in ("chunk", "row")}
+        if sum(by_route.values()) != sum(launches.values()):
+            raise AssertionError(f"basis_combine_bf16: launches by route "
+                                 f"{by_route}, {sum(launches.values())} in "
+                                 f"all")
+
+        def times(rows, key, kernel):
+            return {"ms": mean_of(rows, key),
+                    "device_ms": mean_device_ms([r[f"{kernel[1]}"]
+                                                 for r in rows], kernel[0]),
+                    "fixup_device_ms": mean_device_ms(
+                        [r[kernel[1]] for r in rows], "carry_fixup"),
+                    "device_ms_tries": [r[f"{kernel[1]}_tries"]
+                                        for r in rows]}
+        chunk_k = ("combine_chunk_kernel", "device_ms")
+        row_k = ("basis_combine_kernel", "row_device_ms")
+        fwd_full = [r for r in full if r["direction"] not in twin]
+        fwd_batch = [r for r in batch if r["direction"] not in twin]
+        tw_full = [r for r in full if r["direction"] in twin]
+        tw_batch = [r for r in batch if r["direction"] in twin]
+        return {
+            "launches_by_route": by_route,
+            "equals_f32_bitwise": all(r["equals_f32_bitwise"]
+                                      for r in full + batch + stress),
+            "chunk": {**{k: full[0][k] for k in (
+                          "cols", "chunk_cols", "n_chunks",
+                          "smem_bytes", "items", "ptxas")},
+                      "train_batch_items": batch[0]["items"],
+                      **times(fwd_full, "ms", chunk_k),
+                      "twin": times(tw_full, "ms", chunk_k),
+                      "train_batch": times(fwd_batch, "ms", chunk_k),
+                      "train_batch_twin": times(tw_batch, "ms", chunk_k),
+                      "items_sweep_ms": next(
+                          (r["items_sweep_ms"] for r in full
+                           if "items_sweep_ms" in r), None)},
+            "row": {"ptxas": full[0]["row_ptxas"],
+                    **times(fwd_full, "row_ms", row_k),
+                    "twin": times(tw_full, "row_ms", row_k),
+                    "train_batch": times(fwd_batch, "row_ms", row_k),
+                    "train_batch_twin": times(tw_batch, "row_ms", row_k)},
+            "library_twin_ms": library_mean(tw_full),
+            "library_train_batch_twin_ms": library_mean(tw_batch),
+            "stress_layouts": [
+                {k: r.get(k) for k in (
+                    "layout", "n_src", "n_rows", "B", "d_out", "cols",
+                    "n_chunks", "items", "kernel_ms", "row_ms", "bound_ms",
+                    "over_allowance", "wrong_layout_over_allowance")}
+                for r in stress],
+            "card": full[0]["card"]}
+
     proj = {r["direction"]: r for r in pick("basis_project_bf16", None,
                                             None)}
     fwd = proj["forward"]
@@ -4477,7 +4748,7 @@ def bf16_kernels_line(kb, runs) -> list:
               replaces_twin=REPLACES_BASIS_TWIN,
               twin_ms=mean_of(pick("basis_combine_bf16", "full_train",
                                    ("forward_twin", "backward_twin")),
-                              "ms")),
+                              "ms"), **combine_routes(combine)),
         timed("staircase_aggregate_bf16", STAIRCASE_SOURCE,
               REPLACES_STAIRCASE, "staircase_aggregate_bf16",
               launches("launches", "staircase_aggregate", energies=True),
@@ -5812,7 +6083,7 @@ def main() -> int:
     bf16_runs = {}
     for label, settings, lines, op in BF16_VARIANTS:
         b_cfg = bf16_config(ds, label, settings, lines)
-        routes = op is staircase2.block_direction
+        routes = op.__name__ in OP_ROUTES
         bf16_runs[f"serve_{label}"] = {**phase_serve(
             ds, device, b_cfg, op, f"serve_{label}", compare_routes=routes),
             "op": op.__name__}

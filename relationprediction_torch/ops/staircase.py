@@ -37,6 +37,7 @@ calls them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -52,6 +53,12 @@ _EDGE_CHUNK = 16384
 # least its smallest; chosen for each kernel by the sweeps of its phase in
 # chip_smoke.py (PERF.md).
 _MIN_BLOCKS = 512
+# basis_combine_bf16's chunk kernel (csrc/basis_direction.cu): the threads
+# of a thread block's group, which lie across the words of one column
+# chunk (its kGroupThreads), and the bf16 columns a thread loads as one
+# 8-byte word where d_out allows it (kWordCols).
+COMBINE_CHUNK_THREADS = 128
+COMBINE_WORD_COLS = 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,6 +125,44 @@ def basis_combine_items(n_rows: int, n_edges: int) -> int:
     rows, 5x kernel 3's bytes at B = 5): 128 on the full FB15k-237 graph,
     32 at the train shape."""
     return merge_path_items(n_rows, n_edges, least=16, most=128)
+
+
+@dataclasses.dataclass(frozen=True)
+class CombinePlan:
+    """How basis_combine runs for P's parts of d_out columns: ``route``
+    "chunk" (bf16 P: the columns cut into ``n_chunks`` chunks of
+    ``chunk_cols``, the last one shorter, each thread ``cols`` columns) or
+    "row" (f32 P: PR 6's kernel, the columns of whole rows across a thread
+    block; the other fields 0)."""
+
+    route: str
+    cols: int = 0
+    chunk_cols: int = 0
+    n_chunks: int = 0
+
+    def chunks(self, d_out: int) -> list:
+        """(first, end) columns of each chunk."""
+        c = self.chunk_cols
+        return [(k * c, min((k + 1) * c, d_out))
+                for k in range(self.n_chunks)]
+
+
+@functools.lru_cache(maxsize=None)
+def basis_combine_plan(d_out: int, elem: int = 2) -> CombinePlan:
+    """basis_combine's route for these shapes, from the shapes alone (the
+    columns of P's parts and its element bytes): "row" for f32, else
+    "chunk" with 4 columns a thread where d_out % 4 == 0, else 1, and as
+    few chunks of at most COMBINE_CHUNK_THREADS words as cover the
+    columns, evened out. gcn_basis.exp (d_out = 500): one chunk of 500
+    columns. (Chunks sized to keep a slice of P in L2 were measured
+    slower; PERF.md.)"""
+    if elem != 2:
+        return CombinePlan("row")
+    cols = COMBINE_WORD_COLS if d_out % COMBINE_WORD_COLS == 0 else 1
+    words = d_out // cols
+    chunk_words = -(-words // -(-words // COMBINE_CHUNK_THREADS))
+    return CombinePlan("chunk", cols, chunk_words * cols,
+                       -(-words // chunk_words))
 
 
 def merge_path_split(row_ptr: torch.Tensor, items: int) -> tuple:

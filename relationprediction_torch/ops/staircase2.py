@@ -63,7 +63,9 @@ g and the blocks, by the slice route where W's slice fits a thread
 block's shared memory, ``block_direction_route``, else by the walk;
 ``basis_project_bf16``, after a pad pass that lays them
 out K-major for TMA: x or g and W_flat or w_t, P written in bf16;
-``basis_combine_bf16``: P), which widens them to f32:
+``basis_combine_bf16``: P, its words held until the FMA so that more
+thread blocks an SM keep gathers in flight, by the column chunks of
+``staircase.basis_combine_plan``), which widens them to f32:
 edge weights and C stay f32, products and sums are f32, outputs f32 but
 P. The JAX kernels round more (the weighted rows, the per-edge products,
 the sum over the bases in bf16). d blocks, d W_flat and d C stay f32
@@ -520,12 +522,17 @@ def bind_project_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_basis_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from the basis source."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.basis_combine_f32, lib.basis_combine_bf16):
+    for fn in (lib.basis_combine_f32, lib.basis_combine_row_bf16):
         fn.argtypes = [p] * 9 + [i] * 6 + [p]
         fn.restype = i
-    for fn in (lib.basis_direction_max_bases, lib.basis_combine_max_items):
+    lib.basis_combine_bf16.argtypes = [p] * 9 + [i] * 8 + [p]
+    lib.basis_combine_bf16.restype = i
+    for fn in (lib.basis_direction_max_bases, lib.basis_combine_max_items,
+               lib.basis_combine_chunk_threads, lib.basis_combine_word_cols):
         fn.argtypes = []
         fn.restype = i
+    lib.basis_combine_chunk_smem_bytes.argtypes = [i, i]
+    lib.basis_combine_chunk_smem_bytes.restype = ctypes.c_longlong
     lib.basis_direction_error_string.argtypes = [i]
     lib.basis_direction_error_string.restype = ctypes.c_char_p
     return lib
@@ -677,12 +684,16 @@ def basis_direction(features: torch.Tensor, w_flat: torch.Tensor,
 
 # Kernel launches since the counts were last set to 0 (CPU calls never
 # count), f32 and bf16 apart: basis_combine in forward passes and in twin
-# passes, the carry fix-up after each of them (both precisions), and
-# basis_project in both (one before each combine), each f32 launch after
-# one launch of its split pass, each bf16 launch after one launch of its
-# pad pass.
+# passes (the bf16 ones also by route), the carry fix-up after each of
+# them (both precisions), and basis_project in both (one before each
+# combine), each f32 launch after one launch of its split pass, each bf16
+# launch after one launch of its pad pass.
 basis_direction.launches = 0
 basis_direction.twin_launches = 0
+basis_direction.bf16_chunk_launches = 0
+basis_direction.bf16_twin_chunk_launches = 0
+basis_direction.bf16_row_launches = 0
+basis_direction.bf16_twin_row_launches = 0
 basis_direction.fixup_launches = 0
 basis_direction.project_launches = 0
 basis_direction.split_launches = 0
@@ -782,8 +793,20 @@ def _combine(proj, coefficients, layout, n_rows, *, twin: bool):
     bf16 = "bf16_" if proj.dtype == torch.bfloat16 else ""
     name = f"{bf16}twin_launches" if twin else f"{bf16}launches"
     setattr(basis_direction, name, getattr(basis_direction, name) + 1)
+    if bf16:
+        name = (f"bf16_{'twin_' if twin else ''}"
+                f"{combine_route(proj, coefficients)}_launches")
+        setattr(basis_direction, name, getattr(basis_direction, name) + 1)
     basis_direction.fixup_launches += 1
     return out
+
+
+def combine_route(proj: torch.Tensor, coefficients: torch.Tensor) -> str:
+    """The kernel ``launch_combine`` runs by default: the route of
+    ``staircase.basis_combine_plan`` for P's shapes ("row" for f32,
+    "chunk" for bf16)."""
+    return staircase.basis_combine_plan(
+        proj.shape[1] // coefficients.shape[1], proj.element_size()).route
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -880,14 +903,28 @@ def launch_project_bf16(lib: ctypes.CDLL, x: torch.Tensor,
 def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
                    coefficients: torch.Tensor, layout: CsrLayout,
                    n_rows: int, *, items: Optional[int] = None,
-                   carries: bool = False):
-    """One call of basis_combine_f32, or of basis_combine_bf16 for a bf16
-    ``proj`` (the merge-path kernel, then its carry fix-up), on the current
-    stream, on inputs already checked; raises if a launch is refused. Returns ``out``, or (out, carry_rows) with
-    ``carries`` (see ``staircase.merge_path_carry_rows``). ``items``
-    defaults to ``staircase.basis_combine_items``."""
+                   carries: bool = False, route: Optional[str] = None):
+    """One call of basis_combine_f32, or for a bf16 ``proj`` of
+    basis_combine_bf16 (the chunk kernel) or basis_combine_row_bf16 (PR 6's
+    kernel), each a merge-path kernel and then its carry fix-up, on the
+    current stream, on inputs already checked; raises if a launch is
+    refused. ``route`` ("chunk" or "row") defaults to ``combine_route``,
+    which the main path takes: it is for timing one bf16 kernel against
+    the other, and "chunk" raises for f32. Returns ``out``, or (out,
+    carry_rows) with ``carries`` (see ``staircase.merge_path_carry_rows``).
+    ``items`` defaults to ``staircase.basis_combine_items``."""
     n_bases = coefficients.shape[1]
     d_out = proj.shape[1] // n_bases
+    bf16 = proj.dtype == torch.bfloat16
+    plan = staircase.basis_combine_plan(d_out, proj.element_size())
+    route = route or combine_route(proj, coefficients)
+    if route not in ("chunk", "row") or (route == "chunk" and not bf16):
+        raise ValueError(f"basis_combine: no {route!r} route for "
+                         f"{proj.dtype} P")
+    if route == "chunk" and proj.data_ptr() % (2 * plan.cols):
+        raise ValueError(f"basis_combine: the chunk route reads P in "
+                         f"{2 * plan.cols}-byte words; it does not start "
+                         f"on one")
     if items is None:
         items = staircase.basis_combine_items(n_rows, layout.n_edges)
     carry_rows, carry = _carry_buffers(
@@ -896,13 +933,17 @@ def launch_combine(lib: ctypes.CDLL, proj: torch.Tensor,
     out = torch.empty(n_rows, d_out, dtype=torch.float32,
                       device=proj.device)
     stream = torch.cuda.current_stream(proj.device).cuda_stream
-    fn = lib.basis_combine_bf16 if proj.dtype == torch.bfloat16 \
-        else lib.basis_combine_f32
-    rc = fn(
-        proj.data_ptr(), coefficients.data_ptr(), layout.row_ptr.data_ptr(),
-        layout.src.data_ptr(), layout.rel.data_ptr(), layout.w.data_ptr(),
-        out.data_ptr(), carry_rows.data_ptr(), carry.data_ptr(), n_rows,
-        layout.n_edges, n_bases, d_out, items, proj.device.index, stream)
+    args = (proj.data_ptr(), coefficients.data_ptr(),
+            layout.row_ptr.data_ptr(), layout.src.data_ptr(),
+            layout.rel.data_ptr(), layout.w.data_ptr(), out.data_ptr(),
+            carry_rows.data_ptr(), carry.data_ptr(), n_rows, layout.n_edges,
+            n_bases, d_out, items)
+    if route == "chunk":
+        rc = lib.basis_combine_bf16(*args, plan.cols, plan.chunk_cols,
+                                    proj.device.index, stream)
+    else:
+        fn = lib.basis_combine_row_bf16 if bf16 else lib.basis_combine_f32
+        rc = fn(*args, proj.device.index, stream)
     if rc != 0:
         msg = lib.basis_direction_error_string(rc).decode()
         raise RuntimeError(f"basis_combine kernel launch failed: {msg} "

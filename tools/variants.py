@@ -14,9 +14,9 @@ OUT = Path(__file__).resolve().parent.parent / "build" / "variants"
 
 def build(source: str, name: str, edits, kernel: str = "") -> tuple:
     """Compile ``source`` with ``edits`` ((old, new) pairs; each old text
-    must occur once) as the variant ``name``: (library path, ptxas' line
-    for the first kernel whose name holds ``kernel``, or None). Raises
-    where an edit no longer matches the source or nvcc fails."""
+    must occur once) as the variant ``name``: (library path, ptxas' lines
+    of the kernels whose names hold ``kernel``, joined by "; ", or None).
+    Raises where an edit no longer matches the source or nvcc fails."""
     src = (nvcc.CSRC / source).read_text()
     for old, new in edits:
         if src.count(old) != 1:
@@ -35,7 +35,7 @@ def build(source: str, name: str, edits, kernel: str = "") -> tuple:
     ptxas = [line.split(": ", 1)[1]
              for line in nvcc.ptxas_summary(proc.stderr)
              if kernel and kernel in line]
-    return lib, ptxas[0] if ptxas else None
+    return lib, "; ".join(ptxas) if ptxas else None
 
 
 def build_all(source: str, variants: dict, kernel: str = "") -> dict:
