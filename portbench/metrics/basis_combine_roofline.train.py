@@ -1,0 +1,31 @@
+"""``basis_combine_kernel`` (forward and twin launches) against its
+roofline in the traced training slices: the least time a step's
+combinations need (``portbench.bounds.combine_bound`` on each recorded
+step's four layouts, once a layer) over the kernel's device time a step,
+in %. The carry fix-up is not counted: its name is shared with the other
+merge-path kernels."""
+from portbench import bounds
+
+LAYER = "kernels"
+SOURCE = "device_trace"
+MOVES = "train_triples_per_s"
+UNIT = "%"
+KERNELS = r"\bbasis_combine_kernel\b"
+
+
+def step_least_s(graph, r) -> float:
+    s = r.shape
+    return s["n_layers"] * sum(
+        bounds.combine_bound(lay, r.n_vertices, s["n_bases"],
+                             s["d"])["bound_s"]
+        for lay in (graph.fwd, graph.bwd, graph.fwd_twin, graph.bwd_twin))
+
+
+def read(r):
+    if r.kind != "train" or r.trace is None or r.shape["variant"] != "basis":
+        return None
+    graphs = r.trace.tags
+    seconds, launches = r.trace.family_seconds(KERNELS)
+    per_step = 4 * r.shape["n_layers"]
+    least = sum(step_least_s(g, r) for g in graphs) / len(graphs)
+    return 100.0 * least / (seconds * per_step / launches)
