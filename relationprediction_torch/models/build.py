@@ -30,6 +30,7 @@ import torch
 from ..config import RunConfig
 from ..device import exact_float32
 from ..graph import GraphBatch, build_graph_batch
+from ..observability import span
 from ..ops.gather import take_rows
 from ..ops.neg_energy import (factored_negative_energies,
                               single_factor_negative_energies)
@@ -289,67 +290,73 @@ class RGCNModel:
         shard (``make_graph(shard=...)``): each layer all-reduces its
         partial sums, and every rank gets the whole graph's codes.
         """
-        e = self.config.encoder
-        if noise is None:
-            noise = self.draw_noise(
-                torch.Generator().manual_seed(TEST_NOISE_SEED)
-                if deterministic else generator, deterministic
-            ).to(self.device)
-        rel = params["relation_embedding"]["W_relation"]
-        if e.name == "embedding":
-            return EncodeResult(params["embedding"]["W"], rel)
-        if e.name == "variational_embedding":
-            mu = params["mu_embedding"]["W"]
-            log_sigma = params["sigma_embedding"]["W"]
-            return EncodeResult(enc.apply_variational(noise.eps, mu,
-                                                      log_sigma),
-                                rel, mu, log_sigma)
+        with span("model.encode"):
+            e = self.config.encoder
+            if noise is None:
+                noise = self.draw_noise(
+                    torch.Generator().manual_seed(TEST_NOISE_SEED)
+                    if deterministic else generator, deterministic
+                ).to(self.device)
+            rel = params["relation_embedding"]["W_relation"]
+            if e.name == "embedding":
+                return EncodeResult(params["embedding"]["W"], rel)
+            if e.name == "variational_embedding":
+                mu = params["mu_embedding"]["W"]
+                log_sigma = params["sigma_embedding"]["W"]
+                return EncodeResult(enc.apply_variational(noise.eps, mu,
+                                                          log_sigma),
+                                    rel, mu, log_sigma)
 
-        # -- input stage ---------------------------------------------------
-        if self.has_input_transform:
-            features = enc.apply_affine(params["input_transform"], None,
-                                        onehot_input=True, use_bias=True,
-                                        use_nonlinearity=True)
-        elif self.random_input:
-            features = noise.random_input
-        elif self.partially_random_input:
-            # the affine map without its ReLU (``build.py:377-379``)
-            c1 = enc.apply_affine(params["input_transform"], None,
-                                  onehot_input=True, use_bias=True)
-            features = enc.apply_dropover(noise.dropover, c1,
-                                          noise.random_input, deterministic)
-        else:
-            features = None  # one-hot input to the first layer
+            # -- input stage -----------------------------------------------
+            if self.has_input_transform:
+                features = enc.apply_affine(params["input_transform"], None,
+                                            onehot_input=True, use_bias=True,
+                                            use_nonlinearity=True)
+            elif self.random_input:
+                features = noise.random_input
+            elif self.partially_random_input:
+                # the affine map without its ReLU (``build.py:377-379``)
+                c1 = enc.apply_affine(params["input_transform"], None,
+                                      onehot_input=True, use_bias=True)
+                features = enc.apply_dropover(noise.dropover, c1,
+                                              noise.random_input,
+                                              deterministic)
+            else:
+                features = None  # one-hot input to the first layer
 
-        # -- message-passing layers ----------------------------------------
-        highways = params.get("highways")
-        for layer_idx, layer_params in enumerate(params["gcn_layers"]):
-            new = enc.apply_gcn_layer(
-                layer_params, self.variant, graph, features,
-                fused=self.preferred_staircase2,
-                use_nonlinearity=layer_idx < e.n_layers - 1,
-                dropout_keep=e.dropout_keep_probability,
-                deterministic=deterministic, generator=generator,
-                n_vertices=self.n_entities,
-                keep_mask=None if keep_masks is None
-                else keep_masks[layer_idx], agg_dtype=self.agg_dtype,
-                group=group)
-            if features is not None and e.skip_connections == "Highway":
-                new = enc.apply_highway(highways[layer_idx], new, features)
-            elif features is not None and e.skip_connections == "Residual":
-                new = enc.apply_residual(new, features)
-            features = new
+            # -- message-passing layers ------------------------------------
+            highways = params.get("highways")
+            for layer_idx, layer_params in enumerate(params["gcn_layers"]):
+                new = enc.apply_gcn_layer(
+                    layer_params, self.variant, graph, features,
+                    fused=self.preferred_staircase2,
+                    use_nonlinearity=layer_idx < e.n_layers - 1,
+                    dropout_keep=e.dropout_keep_probability,
+                    deterministic=deterministic, generator=generator,
+                    n_vertices=self.n_entities,
+                    keep_mask=None if keep_masks is None
+                    else keep_masks[layer_idx], agg_dtype=self.agg_dtype,
+                    group=group)
+                if features is not None \
+                        and e.skip_connections == "Highway":
+                    new = enc.apply_highway(highways[layer_idx], new,
+                                            features)
+                elif features is not None \
+                        and e.skip_connections == "Residual":
+                    new = enc.apply_residual(new, features)
+                features = new
 
-        # -- variational stage and output transform ------------------------
-        mu = log_sigma = None
-        if e.name == "variational_gcn_basis":
-            mu = enc.apply_affine(params["mu_projection"], features)
-            log_sigma = enc.apply_affine(params["sigma_projection"],
-                                         features)
-            features = enc.apply_variational(noise.eps, mu, log_sigma)
-        if e.use_output_transform:
-            features = enc.apply_affine(params["output_transform"], features)
-        return EncodeResult(features, rel, mu, log_sigma)
+            # -- variational stage and output transform --------------------
+            mu = log_sigma = None
+            if e.name == "variational_gcn_basis":
+                mu = enc.apply_affine(params["mu_projection"], features)
+                log_sigma = enc.apply_affine(params["sigma_projection"],
+                                             features)
+                features = enc.apply_variational(noise.eps, mu, log_sigma)
+            if e.use_output_transform:
+                features = enc.apply_affine(params["output_transform"],
+                                            features)
+            return EncodeResult(features, rel, mu, log_sigma)
 
     def draw_keep_masks(self, generator: torch.Generator) -> list:
         """One train-mode dropout keep-mask [V, d] per layer, drawn on the

@@ -86,7 +86,7 @@ from ..config import RunConfig
 from ..data.dataset import KGDataset
 from ..graph import GraphBatch
 from ..models.build import EncoderNoise, RGCNModel
-from ..observability import MetricLogger, StepTimer
+from ..observability import MetricLogger, StepTimer, collect, span, spans_ms
 from ..ops import staircase2
 from ..parallel.collectives import broadcast_value, pmean
 from ..parallel.distributed import is_coordinator
@@ -231,10 +231,12 @@ class BatchPipeline:
         if not self.model.needs_graph():
             graph, positives, edge_ids = None, self.minibatch(), None
         else:
-            batch_ids, split_ids = self.sample_ids()
-            graph = self.model.make_graph(self.train[split_ids],
-                                          to_device=False,
-                                          shard=self.shard or (0, 1))
+            with span("batch.sample"):
+                batch_ids, split_ids = self.sample_ids()
+            with span("batch.graph"):
+                graph = self.model.make_graph(self.train[split_ids],
+                                              to_device=False,
+                                              shard=self.shard or (0, 1))
             positives = self.train[batch_ids]
             edge_ids = split_ids.astype(np.int32)
         if self.device_negatives:
@@ -248,7 +250,10 @@ class BatchPipeline:
                 edge_ids.astype(np.int64)))
         if self.shard is not None:
             batch = shard_batch(self.shard, batch)
-        return batch.pin_memory() if self.pin else batch
+        if not self.pin:
+            return batch
+        with span("batch.pin"):
+            return batch.pin_memory()
 
     @staticmethod
     def _padded(graph, triples, labels, pad, edge_ids) -> TrainBatch:
@@ -288,16 +293,19 @@ class _SerialSource:
         self.device = device
 
     def next(self) -> tuple:
-        """(batch on the device, batch_ms, wait_ms): the step waits for
-        all of the batch, so wait_ms is batch_ms."""
+        """(batch on the device, the sink of its ``batch.*`` spans): the
+        step waits for all of the batch, so its ``fit.batch_wait`` span
+        encloses the ``batch.build``."""
         if self.device.type == "cuda":
             # The batch's copies would wait for the queued step; waiting
-            # here keeps that out of batch_ms.
+            # here keeps that out of the batch's spans.
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        batch = self.pipeline.next().to(self.device)
-        batch_ms = (time.perf_counter() - t0) * 1e3
-        return batch, batch_ms, batch_ms
+        with span("fit.batch_wait"), collect() as built, \
+                span("batch.build"):
+            batch = self.pipeline.next()
+            with span("batch.copy"):
+                batch = batch.to(self.device)
+        return batch, built
 
     def states(self) -> tuple:
         return [self.pipeline.state()], 0
@@ -323,7 +331,9 @@ class _Prefetcher:
     records the current stream on every device tensor of the batch, so
     that the caching allocator does not hand the memory to the side
     stream again before the step is done with it. The producers launch no
-    kernel: they run host code and copies only. A producer's exception is
+    kernel: they run host code and copies only. Each producer collects
+    one sink of spans a batch (``batch.build`` and the ``batch.*`` spans
+    inside it), which travels with the batch. A producer's exception is
     raised by ``next()``.
     """
 
@@ -352,15 +362,15 @@ class _Prefetcher:
     def _run(self, pipeline: BatchPipeline, q: queue.Queue, stream) -> None:
         try:
             while not self._stop.is_set():
-                t0 = time.perf_counter()
-                batch, event = pipeline.next(), None
-                if stream is not None:
-                    with torch.cuda.stream(stream):
-                        batch = batch.to(self.device, non_blocking=True)
-                        event = torch.cuda.Event()
-                        event.record(stream)
-                item = (pipeline.state(), batch, event,
-                        (time.perf_counter() - t0) * 1e3)
+                with collect() as built, span("batch.build"):
+                    batch, event = pipeline.next(), None
+                    if stream is not None:
+                        with span("batch.copy"), torch.cuda.stream(stream):
+                            batch = batch.to(self.device, non_blocking=True)
+                            event = torch.cuda.Event()
+                            event.record(stream)
+                    state = pipeline.state()
+                item = (state, batch, event, built)
                 while not self._stop.is_set():
                     try:
                         q.put(item, timeout=0.5)
@@ -371,20 +381,18 @@ class _Prefetcher:
             self.error = e
 
     def next(self) -> tuple:
-        """(batch on the device, batch_ms, wait_ms): batch_ms timed in the
-        producer (build and copy enqueue), wait_ms the time this call
-        waited for the queue."""
+        """(batch on the device, the sink of its producer's spans); the
+        ``fit.batch_wait`` span times this call's wait for the queue."""
         q = self.queues[self._rr]
-        t0 = time.perf_counter()
-        while True:
-            if self.error is not None:
-                raise self.error
-            try:
-                st, batch, event, batch_ms = q.get(timeout=0.1)
-                break
-            except queue.Empty:
-                continue
-        wait_ms = (time.perf_counter() - t0) * 1e3
+        with span("fit.batch_wait"):
+            while True:
+                if self.error is not None:
+                    raise self.error
+                try:
+                    st, batch, event, built = q.get(timeout=0.1)
+                    break
+                except queue.Empty:
+                    continue
         if event is not None:
             current = torch.cuda.current_stream(self.device)
             current.wait_event(event)
@@ -392,7 +400,7 @@ class _Prefetcher:
                 t.record_stream(current)
         self._consumed_state[self._rr] = st
         self._rr = (self._rr + 1) % len(self.queues)
-        return batch, batch_ms, wait_ms
+        return batch, built
 
     def states(self) -> tuple:
         """(per-pipeline resume states, next round-robin index)."""
@@ -534,8 +542,12 @@ def _value_and_grad(loss_fn, params) -> tuple:
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        loss = loss_fn()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("step.forward"):
+            loss = loss_fn()
+        # On the card the backward runs on autograd's device thread; this
+        # thread waits for it here.
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for leaf in leaves:
             leaf.requires_grad_(False)
@@ -563,13 +575,18 @@ class FitResult:
     stopped_early: bool
     last_loss: float
     best_score: Optional[float]
-    # One dict per step: iteration, loss, batch_ms (host clock: sampling,
-    # split, layouts and the copy to the device; with prefetch timed in the
-    # producer, the copy only enqueued), wait_ms (host clock: how long the
-    # step waited for its batch; batch_ms without prefetch), step_ms (CUDA
-    # events around the device step; None on the CPU), and the aggregation
+    # One dict per step: iteration, loss, batch_ms (the wall time of the
+    # batch's batch.build span: sampling, split, layouts and the copy to
+    # the device; with prefetch in the producer, the copy only enqueued),
+    # wait_ms (the wall time of the step's fit.batch_wait span: how long
+    # it waited for its batch; batch_ms without prefetch), step_ms (CUDA
+    # events around the device step; None on the CPU), the aggregation
     # kernels' forward and twin launches in the step
-    # (staircase2.launch_counts; a validation encode counts in none).
+    # (staircase2.launch_counts; a validation encode counts in none),
+    # spans (the fit loop's sink for the step: fit.*, step.* and
+    # model.encode) and batch_spans (the sink of the producer that built
+    # its batch: batch.*), each name -> [wall_ms, cpu_ms, count]
+    # (observability.span).
     steps: list = field(default_factory=list)
 
 
@@ -700,22 +717,23 @@ class TrainLoop:
         n_entities, gen = self.config.entity_count, self.generator
         rows_gen = gen if self.mesh is None else self.rank_generator
         kind = self.loss_kind
-        if kind == "factored":
-            neg = device_negative_parts(batch.triples, rate, n_entities,
-                                        rows_gen)
-        elif kind == "split":
-            neg = device_negative_entities_split(batch.triples, rate,
-                                                 n_entities, rows_gen)
-        elif kind == "shared":
-            neg = (device_negative_pool(self.negative_pool_size, n_entities,
-                                        gen),)
-        elif batch.labels is None:
-            neg = device_negative_sample(batch.triples, batch.mask, rate,
-                                         n_entities, rows_gen)
-        else:
-            neg = ()
-        keep_masks = self.model.draw_keep_masks(gen)
-        return Draws(tuple(neg), keep_masks, self.model.draw_noise(gen))
+        with span("step.draws"):
+            if kind == "factored":
+                neg = device_negative_parts(batch.triples, rate, n_entities,
+                                            rows_gen)
+            elif kind == "split":
+                neg = device_negative_entities_split(batch.triples, rate,
+                                                     n_entities, rows_gen)
+            elif kind == "shared":
+                neg = (device_negative_pool(self.negative_pool_size,
+                                            n_entities, gen),)
+            elif batch.labels is None:
+                neg = device_negative_sample(batch.triples, batch.mask, rate,
+                                             n_entities, rows_gen)
+            else:
+                neg = ()
+            keep_masks = self.model.draw_keep_masks(gen)
+            return Draws(tuple(neg), keep_masks, self.model.draw_noise(gen))
 
     def train_step(self, params, opt_state, batch: TrainBatch) -> tuple:
         """One step (``engine.py:411-483``, the stored variant's
@@ -741,8 +759,9 @@ class TrainLoop:
         else:
             loss, grads = step_loss_and_grads(
                 self.model, self.loss_kind, params, batch, self.draw(batch))
-        updates, opt_state = self.optimizer.update(grads, opt_state)
-        apply_updates(params, updates)
+        with span("step.optimizer"):
+            updates, opt_state = self.optimizer.update(grads, opt_state)
+            apply_updates(params, updates)
         return opt_state, loss
 
     def _source(self):
@@ -785,105 +804,118 @@ class TrainLoop:
 
         def process_pending():
             nonlocal cumulative_loss, loss
-            for rec, loss_dev, events in pending:
-                it_ = rec["iteration"]
-                loss = rec["loss"] = float(loss_dev)
-                if events is not None:
-                    events[1].synchronize()
-                    rec["step_ms"] = events[0].elapsed_time(events[1])
-                cumulative_loss += loss
-                if it_ == 1:
-                    cumulative_loss = 0.0
-                    self.log(f"Initial loss: {loss}")
-                elif report_every and it_ % report_every == 1:
-                    avg = cumulative_loss / float(report_every)
-                    cumulative_loss = 0.0
-                    if it_ - report_every < start_iteration + 1:
-                        # Resumed mid-window: the sum holds only the steps
-                        # since the resume; no mislabelled partial average.
-                        continue
-                    self.log(f"Average train loss for iteration "
-                             f"{it_ - report_every}-{it_ - 1}: {avg}")
-                    self.metrics.log("train_loss", iteration=it_ - 1,
-                                     loss=avg, **self.timer.summary())
-            pending.clear()
+            with span("fit.pending"):
+                for rec, loss_dev, events in pending:
+                    it_ = rec["iteration"]
+                    loss = rec["loss"] = float(loss_dev)
+                    if events is not None:
+                        events[1].synchronize()
+                        rec["step_ms"] = events[0].elapsed_time(events[1])
+                    cumulative_loss += loss
+                    if it_ == 1:
+                        cumulative_loss = 0.0
+                        self.log(f"Initial loss: {loss}")
+                    elif report_every and it_ % report_every == 1:
+                        avg = cumulative_loss / float(report_every)
+                        cumulative_loss = 0.0
+                        if it_ - report_every < start_iteration + 1:
+                            # Resumed mid-window: the sum holds only the
+                            # steps since the resume; no mislabelled
+                            # partial average.
+                            continue
+                        self.log(f"Average train loss for iteration "
+                                 f"{it_ - report_every}-{it_ - 1}: {avg}")
+                        self.metrics.log("train_loss", iteration=it_ - 1,
+                                         loss=avg, **self.timer.summary())
+                pending.clear()
 
         source = self._source()
         started = time.time()
         i = start_iteration
         try:
-            while True:
-                if max_iter is not None and i >= max_iter:
-                    break
-                if max_seconds is not None:
-                    late = time.time() - started > max_seconds
-                    if mesh is not None:
-                        late = bool(broadcast_value(float(late), mesh.group,
-                                                    mesh.device))
-                    if late:
+            while not stopped:
+                # One sink of spans a step; a break at the top leaves the
+                # loop before the step begins.
+                with collect() as sink, span("fit.step"):
+                    if max_iter is not None and i >= max_iter:
                         break
-                i += 1
-                if mesh is not None:
-                    self.seed_step(i)
-                # The global batch's edges and positives, on every rank.
-                with self.timer.step(edges=self.pipeline.split_size,
-                                     triples=self.pipeline.n_positives):
-                    batch, batch_ms, wait_ms = source.next()
+                    if max_seconds is not None:
+                        late = time.time() - started > max_seconds
+                        if mesh is not None:
+                            late = bool(broadcast_value(
+                                float(late), mesh.group, mesh.device))
+                        if late:
+                            break
+                    i += 1
+                    if mesh is not None:
+                        self.seed_step(i)
+                    batch, built = source.next()
                     fwd0, twin0 = staircase2.launch_counts()
                     events = None
                     if on_card:
                         events = (torch.cuda.Event(enable_timing=True),
                                   torch.cuda.Event(enable_timing=True))
                         events[0].record()
-                    opt_state, loss_dev = self.train_step(params, opt_state,
-                                                          batch)
+                    with span("fit.train_step"):
+                        opt_state, loss_dev = self.train_step(
+                            params, opt_state, batch)
                     if on_card:
                         events[1].record()
-                fwd1, twin1 = staircase2.launch_counts()
-                rec = {"iteration": i, "batch_ms": batch_ms,
-                       "wait_ms": wait_ms, "step_ms": None,
-                       "launches": fwd1 - fwd0,
-                       "twin_launches": twin1 - twin0}
-                records.append(rec)
-                pending.append((rec, loss_dev, events))
-                del batch
+                    fwd1, twin1 = staircase2.launch_counts()
+                    rec = {"iteration": i, "step_ms": None,
+                           "launches": fwd1 - fwd0,
+                           "twin_launches": twin1 - twin0}
+                    records.append(rec)
+                    pending.append((rec, loss_dev, events))
+                    del batch
 
-                # TrainLossReporter (shared/algorithms.py:82-116)
-                if i == 1 or (report_every and i % report_every == 1):
-                    process_pending()
-
-                # EarlyStopper (shared/algorithms.py:119-161)
-                if self.scoring_function is not None and check_every \
-                        and i % check_every == 0:
-                    process_pending()
-                    score = self.scoring_function(params)
-                    if mesh is not None:
-                        score = broadcast_value(score, mesh.group, mesh.device)
-                    self.log(f"Tested validation score at iteration {i}. "
-                             f"Result: {score}")
-                    self.metrics.log("validation", iteration=i, score=score)
-                    if best_score is None or score > best_score:
-                        best_score = score
-                    if previous_score is not None \
-                            and not score > previous_score:
-                        if i > cfg.early_stopping_burnin:
-                            self.log("Stopping criterion reached.")
-                            stopped = True
-                            break
-                        self.log("Ignoring criterion while in burn-in "
-                                 "phase.")
-                    previous_score = score
-
-                # ModelSaver (shared/algorithms.py:61-79); skipped when the
-                # stopper fired, matching the decorator order.
-                if checkpoint_path and save_every and i % save_every == 0:
-                    # Vertex-sharded, every rank joins the gather.
-                    saved = self._whole(params, opt_state)
-                    if is_coordinator():
+                    # TrainLossReporter (shared/algorithms.py:82-116)
+                    if i == 1 or (report_every and i % report_every == 1):
                         process_pending()
-                        self.save(checkpoint_path, *saved, i,
-                                  *source.states())
-                        self.log("saving...")
+
+                    # EarlyStopper (shared/algorithms.py:119-161)
+                    if self.scoring_function is not None and check_every \
+                            and i % check_every == 0:
+                        process_pending()
+                        with span("fit.check"):
+                            score = self.scoring_function(params)
+                            if mesh is not None:
+                                score = broadcast_value(score, mesh.group,
+                                                        mesh.device)
+                        self.log(f"Tested validation score at iteration "
+                                 f"{i}. Result: {score}")
+                        self.metrics.log("validation", iteration=i,
+                                         score=score)
+                        if best_score is None or score > best_score:
+                            best_score = score
+                        if previous_score is not None \
+                                and not score > previous_score:
+                            if i > cfg.early_stopping_burnin:
+                                self.log("Stopping criterion reached.")
+                                stopped = True
+                            else:
+                                self.log("Ignoring criterion while in "
+                                         "burn-in phase.")
+                        previous_score = score
+
+                    # ModelSaver (shared/algorithms.py:61-79); skipped when
+                    # the stopper fired, matching the decorator order.
+                    if not stopped and checkpoint_path and save_every \
+                            and i % save_every == 0:
+                        with span("fit.save"):
+                            # Vertex-sharded, every rank joins the gather.
+                            saved = self._whole(params, opt_state)
+                            if is_coordinator():
+                                process_pending()
+                                self.save(checkpoint_path, *saved, i,
+                                          *source.states())
+                                self.log("saving...")
+                rec["spans"] = spans_ms(sink)
+                rec["batch_spans"] = spans_ms(built)
+                rec["wait_ms"] = rec["spans"]["fit.batch_wait"][0]
+                rec["batch_ms"] = rec["batch_spans"]["batch.build"][0]
+                # The global batch's edges, on every rank.
+                self.timer.add(sink, edges=self.pipeline.split_size)
         finally:
             self._resume_rr = source.states()[1]
             source.close()

@@ -11,6 +11,7 @@ from relationprediction_tpu.training.engine import (
     BatchPipeline as JaxBatchPipeline)
 from relationprediction_tpu.training.engine import (
     _Prefetcher as JaxPrefetcher)
+from relationprediction_torch.observability import collect
 from relationprediction_torch.training.engine import (BatchPipeline,
                                                       _Prefetcher)
 
@@ -62,8 +63,10 @@ def test_prefetched_stream_equals_jax(threads, start_offset):
     try:
         for _ in range(6):
             jb = jpf.next()
-            tb, batch_ms, wait_ms = tpf.next()
-            assert batch_ms > 0 and wait_ms >= 0
+            with collect() as sink:
+                tb, built = tpf.next()
+            assert built["batch.build"][0] > 0
+            assert sink["fit.batch_wait"][0] >= 0
             np.testing.assert_array_equal(tb.triples.numpy(), jb.triples)
             np.testing.assert_array_equal(tb.mask.numpy(), jb.mask)
             np.testing.assert_array_equal(
@@ -82,7 +85,7 @@ def test_one_producer_gives_the_serial_stream():
     tpf = _Prefetcher(tpipes, CPU)
     try:
         for _ in range(4):
-            want, (got, _, _) = serial.next(), tpf.next()
+            want, (got, _) = serial.next(), tpf.next()
             np.testing.assert_array_equal(got.triples.numpy(),
                                           want.triples.numpy())
             np.testing.assert_array_equal(got.edge_ids, want.edge_ids)
