@@ -46,7 +46,10 @@ each with the seconds the phase has taken so far (``phase_s``):
           draws, masks) on the CPU plain path, then 20 steps of
           TrainLoop.fit: host batch and device step times, the loss at
           steps 1, 10 and 20 (finite and falling), exactly 4 forward and 4
-          twin launches in every step, peak device memory.
+          twin launches in every step, peak device memory; then the hand
+          kernels of 3 replayed steps of the step's CUDA graph, counted by
+          name in torch.profiler, against 3 steps op by op
+          (replayed_launches; every train phase whose loop takes a graph).
 
 Then the same for gcn_basis (TPU kernel 2 as basis_project + basis_combine):
 
@@ -81,7 +84,10 @@ every kernel 3 launch of ops/gather.sum_by_csr (d blocks and d C summed by
 relation, once a direction and layer a step; the fused energies' per-id
 scalars), whose count each train phase checks. Every bf16 block_direction
 and basis_combine launch of a main path is counted by its route too, and
-must be the slice route and the chunk route (check_routes).
+must be the slice route and the chunk route (check_routes). No wrapper
+runs in a replay of the step's CUDA graph: a replayed step adds the counts
+its capture recorded, and each train phase measures its hand kernels by
+name (replayed_launches; the kernels line's replayed_step_launches).
 
 Then the one-hot-input R-GCN (gcn_basis.exp with UseInputTransform=No) and
 gcn_diag (gcn_basis.exp with Name=gcn_diag), whose layers sum per-edge
@@ -125,7 +131,16 @@ Then the rest of TrainLoop on gcn_block.exp:
           run's batches, hash for hash;
   resume  20 steps against 10 and a resume to 20 in a new loop, saves
           every 10, prefetch on 2 threads, at PyTorch's default settings:
-          batches, losses, params and Adam state equal bit for bit;
+          batches, losses, params and Adam state equal bit for bit (the
+          whole run replayed from step 3, the resumed one from step 13);
+  graph, graph_basis  the step as one CUDA graph (gcn_block, then
+          gcn_basis): GRAPH_STEPS steps of a fit by the loop's own step
+          (captured at step 3, then replayed) and by the sync-free step op
+          by op (TrainLoop.eager_step, no graph), in turns (graph, eager,
+          eager, graph), prefetch on 2 threads: the losses equal step for
+          step, the captures, replays and eager steps, a replayed step's
+          host ms against an eager one's, each run's rate over the steps
+          after the capture, peak and reserved device memory;
   determinism  in a child process (``chip_smoke.py --determinism-child``)
           whose environment lacks CUBLAS_WORKSPACE_CONFIG: two 10-step
           fits from seed 0 as train.py runs them, at default settings, of
@@ -342,6 +357,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2390,6 +2406,16 @@ def lockstep_vs_cpu(cfg, ds, device, steps) -> dict:
     return row
 
 
+def checked_graph_counts(loop, what: str) -> dict:
+    """The loop's graph counts (``TrainLoop.graph_counts``); raises where
+    a capture failed."""
+    counts = dict(loop.graph_counts)
+    if counts["failed_captures"]:
+        raise AssertionError(f"{what}: a capture of the step failed: "
+                             f"{counts}")
+    return counts
+
+
 def phase_train(cfg, ds, device, op=staircase2.block_direction,
                 phase="train", steps=TRAIN_STEPS, compare_positives=None,
                 tiled=False, falling=True, nonfinite_ok=False,
@@ -2576,6 +2602,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
         raise AssertionError(f"basis_project launched {products} "
                              f"times for {launches + twin_launches} "
                              f"combine launches")
+    graphs = checked_graph_counts(loop, phase)
+    replayed = replayed_launches(loop, params, result.opt_state)
     losses = {i: records[i - 1]["loss"] for i in (1, steps // 2, steps)}
     finite = all(np.isfinite(s["loss"]) for s in records)
     lockstep = {}
@@ -2617,7 +2645,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "precision": {"message": "bfloat16" if pre else "float32",
                          "stream": "float32" if model.stream_dtype is None
                          else "bfloat16"},
-           "max_memory_allocated": peak, "log": logged}
+           "max_memory_allocated": peak, "graph_counts": graphs,
+           "replayed_kernels": replayed, "log": logged}
     emit(phase, model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
     breakdown = host_batch_breakdown(loop.pipeline, device) \
@@ -2629,7 +2658,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
         keys = ("profile_wall_ms_per_step", "device_busy_ms_per_step",
                 "device_idle_share")
         by_route = route_times(lambda: profile_steps(
-            loop, params, result.opt_state), OP_ROUTES[op.__name__])
+            loop, params, result.opt_state, eager=True),
+            OP_ROUTES[op.__name__])
         emit(f"{phase}_routes", phase_s=time.perf_counter() - t_phase,
              **{route: {k: [p.get(k) for p in readings] for k in keys}
                 for route, readings in by_route.items()})
@@ -2660,11 +2690,117 @@ def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
-def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
+def hand_kernel_names() -> tuple:
+    """The hand kernels' names (``__global__`` functions of
+    ``relationprediction_torch/ops/csrc``), as a device trace names
+    them."""
+    names = set()
+    for path in sorted((ROOT / "relationprediction_torch" / "ops"
+                        / "csrc").glob("*.cu*")):
+        names.update(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(",
+                                path.read_text()))
+    return tuple(sorted(names))
+
+
+def kernels_by_name(prof, n: int) -> dict:
+    """Each hand kernel's launches a step in a torch.profiler session
+    over ``n`` steps, by name (those launched at all)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    counts = dict.fromkeys(hand_kernel_names(), 0)
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            for name in counts:
+                if re.search(rf"\b{name}\b", e.key):
+                    counts[name] += e.count
+    return {name: c / n for name, c in counts.items() if c}
+
+
+REPLAY_COUNT_STEPS = 3
+
+
+def replayed_launches(loop, params, opt_state,
+                      n: int = REPLAY_COUNT_STEPS) -> dict:
+    """The hand kernels a replayed step launches, measured: torch.profiler
+    over ``n`` replays of the loop's graph and over ``n`` steps op by op
+    (``TrainLoop.eager_step``), each kernel counted by name. Raises where
+    the two differ by any kernel, where the profiler saw no hand kernel
+    that the counters saw, or where the wrappers' counters over the eager
+    steps differ from the counts the graph's capture recorded (which a
+    replay adds to them, since no wrapper runs in a replay). Empty where
+    the loop's steps take no graph. Runs after the counted run, so its
+    launches count nowhere else."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from relationprediction_torch.ops import launch_counters
+    entry = loop.graphs.current
+    if entry is None or entry.graph is None:
+        return {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    batches = [loop.pipeline.next().to(loop.model.device)
+               for _ in range(2 * n + 3)]
+    state = [opt_state]
+
+    def eager(batch):
+        state[0], _ = loop.eager_step(params, state[0], batch,
+                                      loop.draw(batch))
+
+    def replay(batch):
+        state[0], _ = loop.train_step(params, state[0], batch)
+        if loop.last_step != "replay":
+            raise AssertionError(f"a step ran {loop.last_step}, not as a "
+                                 f"replay of the loop's graph")
+
+    def profiled(step, batches) -> dict:
+        # The session's first step warms the profiler up and counts for
+        # nothing: a session can miss the kernels of its first
+        # launches.
+        read = []
+        with profile(activities=acts, on_trace_ready=lambda prof:
+                     read.append(kernels_by_name(prof, len(batches) - 1)),
+                     schedule=schedule(wait=0, warmup=1,
+                                       active=len(batches) - 1,
+                                       repeat=1)) as prof:
+            for batch in batches:
+                step(batch)
+                torch.cuda.synchronize()
+                prof.step()
+        if len(read) != 1:
+            raise AssertionError(f"{len(read)} profiles, expected one")
+        return read[0]
+    # Thrown away: a process's first session can record no kernel of the
+    # port's.
+    with profile(activities=acts):
+        eager(batches[0])
+        torch.cuda.synchronize()
+    before = launch_counters()
+    eager_kernels = profiled(eager, batches[1:n + 2])
+    counted = {f"{fn.__name__}.{attr}": (c - before[fn, attr]) / (n + 1)
+               for (fn, attr), c in launch_counters().items()
+               if c != before[fn, attr]}
+    recorded = {f"{fn.__name__}.{attr}": c
+                for (fn, attr), c in entry.launches.items()}
+    replay_kernels = profiled(replay, batches[n + 2:])
+    if counted != recorded:
+        raise AssertionError(f"an eager step's launch counters {counted}, "
+                             f"the capture recorded {recorded}")
+    if replay_kernels != eager_kernels or (recorded and not replay_kernels):
+        raise AssertionError(f"hand kernels a replayed step "
+                             f"{replay_kernels}, an eager step "
+                             f"{eager_kernels}")
+    return {"steps": n, "per_replayed_step": replay_kernels,
+            "equal_to_eager_step": True,
+            "eager_counters_equal_to_recorded": True}
+
+
+def profile_steps(loop, params, opt_state, n: int = 3,
+                  eager: bool = False) -> dict:
     """torch.profiler over ``n`` device steps (batches made beforehand):
     device busy time per step, the idle share of the window, and the
     kernels and operators with the most device time. Runs after the
-    counted run, so its launches count nowhere."""
+    counted run, so its launches count nowhere. The steps are
+    ``loop.train_step``'s (replays of the step's graph once it has one),
+    or with ``eager`` the step op by op (``TrainLoop.eager_step``), which
+    a route forced after the capture reaches."""
     from torch.profiler import ProfilerActivity, profile
     batches = [loop.pipeline.next().to(loop.model.device)
                for _ in range(n)]
@@ -2673,7 +2809,11 @@ def profile_steps(loop, params, opt_state, n: int = 3) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
-            opt_state, _ = loop.train_step(params, opt_state, batch)
+            if eager:
+                opt_state, _ = loop.eager_step(params, opt_state, batch,
+                                               loop.draw(batch))
+            else:
+                opt_state, _ = loop.train_step(params, opt_state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     cuda = torch.autograd.DeviceType.CUDA
@@ -2748,14 +2888,16 @@ def hashing(loop) -> list:
     """Wrap ``loop.train_step`` to record a hash of each consumed batch's
     triples (read back from the card, after the step's stream has waited
     for the copy) and message-graph edge ids, in consumption order."""
-    hashes, step = [], loop.train_step
+    hashes, ref = [], weakref.ref(loop)
 
     def train_step(params, opt_state, batch):
         h = hashlib.sha256(batch.triples.cpu().numpy().tobytes())
         if batch.edge_ids is not None:
             h.update(batch.edge_ids.tobytes())
         hashes.append(h.hexdigest())
-        return step(params, opt_state, batch)
+        return engine.TrainLoop.train_step(ref(), params, opt_state, batch)
+    # The wrapper holds the loop weakly: a cycle would keep the loop, and
+    # its step's graph with the graph's memory pool, until a collection.
     loop.train_step = train_step
     return hashes
 
@@ -2859,7 +3001,8 @@ def phase_fit(cfg, ds, device):
            "metric_records": len(records),
            "printed_tables": printed.getvalue().count("MRR"),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "log": logged}
+           "graph_counts": checked_graph_counts(loop, "fit"),
+           "routes": [s["graph"] for s in result.steps], "log": logged}
     emit("fit", model=model_label(cfg), phase_s=time.perf_counter() - t_phase,
          **row)
     return row
@@ -2900,6 +3043,7 @@ def timed_fit(cfg, ds, device, params0, *, prefetch, threads=2,
                              f"{per_step} forward and {per_step} twin")
     recs = result.steps
     return {"prefetch": prefetch, "threads": threads if prefetch else 0,
+            "graph_counts": checked_graph_counts(loop, "prefetch"),
             "switch_interval_s": switch_interval or default_interval,
             "steps": len(recs), "wall_s": wall_s,
             "steps_per_s": len(recs) / wall_s,
@@ -3081,6 +3225,7 @@ def phase_resume(cfg, ds, device):
     params, opt_state = loop.init_state(0)
     whole = loop.fit(params, opt_state, max_iterations=RESUME_STEPS,
                      checkpoint_path=str(out / "a"))
+    graphs = checked_graph_counts(loop, "resume")
     loop = new_loop(cfg, ds, device, prefetch=True)
     params, opt_state = loop.init_state(0)
     loop.fit(params, opt_state, max_iterations=RESUME_STEPS // 2,
@@ -3089,6 +3234,7 @@ def phase_resume(cfg, ds, device):
     resumed = hashing(loop)
     tail = loop.resume(str(out / "b"), max_iterations=RESUME_STEPS)
     torch.cuda.synchronize()
+    graphs_resumed = checked_graph_counts(loop, "resume")
     half = RESUME_STEPS // 2
     if straight[half:] != resumed or len(resumed) != half:
         raise AssertionError("the resumed run consumed other batches")
@@ -3107,11 +3253,98 @@ def phase_resume(cfg, ds, device):
     row = {"steps": RESUME_STEPS, "resumed_at": half,
            "batches_equal": True, "losses_equal": True,
            "params_and_state_equal_bitwise": True,
+           "graph_counts": graphs, "graph_counts_resumed": graphs_resumed,
            "deterministic_algorithms":
                torch.are_deterministic_algorithms_enabled(),
            "loss_last": losses[-1]}
     emit("resume", model=model_label(cfg),
          phase_s=time.perf_counter() - t_phase, **row)
+    return row
+
+
+GRAPH_STEPS = 60
+
+
+def graph_run(cfg, ds, device, params0, graph: bool) -> dict:
+    """GRAPH_STEPS steps of a fresh loop's fit (prefetch on 2 threads)
+    from a copy of ``params0``, by the loop's own step, or with ``graph``
+    false op by op (``TrainLoop.eager_step``: the sync-free eager step).
+    Read over the steps after the capture's: the mean host ms of a step's
+    dispatch (``fit.train_step``), of each span and of its period
+    (``fit.step``), the rate,
+    the median device step; peak and reserved device memory over the
+    run."""
+    logged = []
+    loop = engine.TrainLoop(build.build_model(cfg, device), cfg, ds, seed=0,
+                            log=logged.append)
+    if not graph:
+        ref = weakref.ref(loop)  # no cycle (hashing)
+        loop.train_step = lambda p, s, b: ref().eager_step(p, s, b,
+                                                           ref().draw(b))
+    params = map_tree(torch.clone, params0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = loop.fit(params, loop.optimizer.init(params),
+                      max_iterations=GRAPH_STEPS)
+    torch.cuda.synchronize()
+    recs = result.steps[engine.GRAPH_WARMUP_STEPS + 1:]
+    period_ms = statistics.mean(s["spans"]["fit.step"][0] for s in recs)
+    return {"graph": graph, "counts": dict(loop.graph_counts),
+            "routes": [s["graph"] for s in result.steps],
+            "losses": [s["loss"] for s in result.steps],
+            "host_step_ms": statistics.mean(
+                s["spans"]["fit.train_step"][0] for s in recs),
+            "host_step_cpu_ms": statistics.mean(
+                s["spans"]["fit.train_step"][1] for s in recs),
+            "span_wall_ms": {name: statistics.mean(
+                s["spans"].get(name, [0.0])[0] for s in recs)
+                for name in recs[-1]["spans"]},
+            "period_ms": period_ms, "steps_per_s": 1e3 / period_ms,
+            "triples_per_s": loop.pipeline.n_positives * 1e3 / period_ms,
+            "device_step_ms_median": statistics.median(
+                s["step_ms"] for s in recs),
+            "wait_ms": statistics.mean(s["wait_ms"] for s in recs),
+            "batch_ms": statistics.mean(s["batch_ms"] for s in recs),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_reserved": torch.cuda.memory_reserved(), "log": logged}
+
+
+def phase_graph(cfg, ds, device, phase="graph"):
+    """``graph_run`` by the graph and op by op in turns (graph, eager,
+    eager, graph) from the same weights: every run's losses equal, the
+    graph runs captured once and replayed every later step with no failed
+    capture; the row gives both sides' readings and their ratios."""
+    t_phase = time.perf_counter()
+    params0 = build.build_model(cfg, device).init_params(
+        torch.Generator().manual_seed(0))
+    runs = [graph_run(cfg, ds, device, params0, graph)
+            for graph in (True, False, False, True)]
+    warm = engine.GRAPH_WARMUP_STEPS
+    want = {"captures": 1, "replays": GRAPH_STEPS - warm - 1,
+            "eager": warm, "failed_captures": 0}
+    for r in runs:
+        if r["losses"] != runs[0]["losses"]:
+            raise AssertionError(f"{phase}: the graph and the eager runs' "
+                                 f"losses differ")
+        if r["graph"] and r["counts"] != want:
+            raise AssertionError(f"{phase}: graph counts {r['counts']}, "
+                                 f"expected {want}; {r['log']}")
+
+    def mean(key, graph):
+        vals = [r[key] for r in runs if r["graph"] == graph]
+        return sum(vals) / len(vals)
+    row = {"runs": [{k: v for k, v in r.items() if k != "losses"}
+                    for r in runs],
+           "losses_equal": True, "loss_last": runs[0]["losses"][-1],
+           "replay_host_step_ms": mean("host_step_ms", True),
+           "eager_host_step_ms": mean("host_step_ms", False),
+           "graph_steps_per_s": mean("steps_per_s", True),
+           "eager_steps_per_s": mean("steps_per_s", False),
+           "speedup": mean("steps_per_s", True) / mean("steps_per_s", False),
+           "card": nvidia_smi_line()}
+    emit(phase, model=model_label(cfg), phase_s=time.perf_counter() - t_phase,
+         **{k: v for k, v in row.items() if k != "runs"})
+    emit(f"{phase}_runs", runs=row["runs"])
     return row
 
 
@@ -3392,6 +3625,7 @@ def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
            "launches": launches, "twin_launches": twin,
            "energy_launches": energies, "sum_by_csr_launches": id_sums,
            "fixup_launches": sum(fixup_counts().values()),
+           "graph_counts": checked_graph_counts(loop, label),
            **routes, "op": op.__name__ if op else None, **trace,
            "card": nvidia_smi_line(),
            "cell_s": time.perf_counter() - t_cell}
@@ -6023,6 +6257,8 @@ def main() -> int:
     phase_prefetch(cfg, ds, device)
     phase_prefetch(basis_cfg, ds, device, "prefetch_basis")
     phase_resume(cfg, ds, device)
+    phase_graph(cfg, ds, device)
+    phase_graph(basis_cfg, ds, device, "graph_basis")
     phase_determinism()
     quality = phase_quality(device)
 
@@ -6133,7 +6369,15 @@ def main() -> int:
                                            basis_paths)
                       + staircase_kernels_line(ks, runs)
                       + sum_by_csr_line(grads, train_runs)
-                      + bf16_kernels_line(kb16, bf16_runs)}),
+                      + bf16_kernels_line(kb16, bf16_runs),
+                      # The hand kernels a replayed step launched, counted
+                      # by name in a profile (replayed_launches): the
+                      # runs' launch counts above re-add a capture's
+                      # counts on a replayed step.
+                      "replayed_step_launches": {
+                          k: r["replayed_kernels"]["per_replayed_step"]
+                          for k, r in train_runs.items()
+                          if r.get("replayed_kernels")}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -167,6 +167,11 @@ class GraphBatch:
         copy to the card."""
         return self._map(lambda t: t.pin_memory())
 
+    def clone(self) -> "GraphBatch":
+        """A copy of the graph in new memory on its device, its twins
+        sharing their index arrays as here."""
+        return self._map(torch.clone)
+
     def _map(self, fn) -> "GraphBatch":
         fwd, bwd = self.fwd.map(fn), self.bwd.map(fn)
         return GraphBatch(fwd, bwd, replace(bwd, w=fn(self.fwd_twin.w)),

@@ -82,10 +82,12 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def row_of_entry(layout: CsrLayout) -> torch.Tensor:
-    """The row (target) of every CSR entry."""
+    """The row (target) of every CSR entry. The entry count comes from the
+    layout's shape, so a CUDA layout is expanded without reading its
+    row_ptr on the host (no sync; a CUDA graph can capture it)."""
     return torch.repeat_interleave(
         torch.arange(layout.n_rows, device=layout.row_ptr.device),
-        layout.row_ptr.diff().long())
+        layout.row_ptr.diff().long(), output_size=layout.n_edges)
 
 
 def merge_path_blocks(n_rows: int, n_edges: int, items: int) -> int:

@@ -24,7 +24,10 @@ tiled on the host. Each step
      the dropover choice, the variational noise, for a configuration that
      uses them) from the loop's ``torch.Generator``, encodes in train
      mode, takes the loss and its gradients (the aggregation kernels' twin
-     passes inside), clips and applies the optimizer in place.
+     passes inside), clips and applies the optimizer in place. On one
+     card the draws stay op by op and the rest of the step is replayed as
+     one CUDA graph from a signature's third step on (``StepGraphs``); no
+     operation of the step reads a device value on the host.
 
 The stored-message variant (``RGCNModel.has_state``) trains, as in the
 JAX package (``engine.py:91``, ``:520-535``), on host-tiled batches with
@@ -87,7 +90,7 @@ from ..data.dataset import KGDataset
 from ..graph import GraphBatch
 from ..models.build import EncoderNoise, RGCNModel
 from ..observability import MetricLogger, StepTimer, collect, span, spans_ms
-from ..ops import staircase2
+from ..ops import add_launches, launch_counters, staircase2
 from ..parallel.collectives import broadcast_value, pmean
 from ..parallel.distributed import is_coordinator
 from ..parallel.mesh import EdgeMesh, replicate, shard_batch
@@ -567,6 +570,233 @@ def loss_and_grads(model: RGCNModel, params, batch: TrainBatch,
                                      keep_masks, noise))
 
 
+# -- the single-card step as one CUDA graph ---------------------------------
+
+# The eager steps of a signature before its capture (the warm-up a capture
+# needs: cuBLAS's workspace and the kernels' libraries made on the capture
+# stream).
+GRAPH_WARMUP_STEPS = 2
+# The side stream of each device (StepGraphs._side_stream).
+_SIDE_STREAMS: dict = {}
+
+
+def graph_applies(device, mesh: Optional[EdgeMesh], vertex_sharded: bool,
+                  has_state: bool) -> bool:
+    """Whether a loop's steps may run as a CUDA graph: a single-card step
+    on a CUDA device. A mesh's step (its collectives), the vertex-sharded
+    step, the stored-message variant's (its caches change shape with the
+    batch's edges) and a CPU step run op by op."""
+    return torch.device(device).type == "cuda" and mesh is None \
+        and not vertex_sharded and not has_state
+
+
+def _step_inputs(batch: TrainBatch, draws: Draws) -> list:
+    """The tensors a step reads from its batch and draws, in a fixed
+    order, with None where the batch or the draws have none."""
+    graph = [] if batch.graph is None else batch.graph.tensors()
+    return graph + [batch.triples, batch.mask, batch.labels,
+                    *draws.negatives, *draws.keep_masks, *draws.noise]
+
+
+def step_signature(kind: str, params, batch: TrainBatch,
+                   draws: Draws) -> tuple:
+    """The key of a step's graph: the loss kind; the shape and dtype of
+    each tensor the step reads from its batch and draws (None where one is
+    absent), with the sizes of the message graph that are no tensor's
+    shape; and the storage of the params' leaves, which the graph updates
+    in place."""
+    graph = batch.graph
+    sizes = None if graph is None else (
+        graph.n_vertices, graph.n_relations, graph.normalization,
+        graph.shard, tuple(lay.n_sources for lay in (
+            graph.fwd, graph.bwd, graph.fwd_twin, graph.bwd_twin)))
+    described = tuple(None if t is None else (tuple(t.shape), t.dtype)
+                      for t in _step_inputs(batch, draws))
+    return (kind, sizes, len(draws.negatives), len(draws.keep_masks),
+            described, tuple((p.data_ptr(), tuple(p.shape), p.dtype)
+                             for p in tree_leaves(params)))
+
+
+@dataclass
+class _StepGraph:
+    """The graph of one signature: its steps so far, the optimizer state
+    it writes in place, and once captured the graph, its static inputs,
+    its loss and the kernel launches its capture counted."""
+    key: tuple
+    steps: int = 0
+    state: Optional[dict] = None
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    inputs: list = field(default_factory=list)
+    loss: Optional[torch.Tensor] = None
+    launches: dict = field(default_factory=dict)
+
+
+class StepGraphs:
+    """A loop's single-card step replayed as one CUDA graph, kept for one
+    step signature (``step_signature``) at a time.
+
+    A signature's first ``GRAPH_WARMUP_STEPS`` steps run op by op on a
+    side stream, the next is captured on it and replayed, and later ones
+    copy their batch and draws into the graph's static inputs and replay.
+    A step of another signature drops the graph, and its memory pool with
+    it, and starts that signature's warm-up. Every step writes the
+    optimizer state it returns in place (``TrainLoop.in_place_step``); a
+    state that is not that one (a resumed run's) is copied in first. The
+    kernel wrappers do not run in a replay, so a replay adds the launches
+    counted while its graph was captured to their counters
+    (``ops.add_launches``): recorded counts, not counted launches. A
+    capture that raises sends every later step of the loop to the eager
+    step, logged once. ``counts``: the steps captured, replayed and run
+    eagerly (the warm-up steps among them), and the failed captures."""
+
+    def __init__(self, enabled: bool, log: Callable[[str], None]):
+        self.enabled = enabled
+        self.log = log
+        self.current: Optional[_StepGraph] = None
+        self.counts = {"captures": 0, "replays": 0, "eager": 0,
+                       "failed_captures": 0}
+
+    def route(self, key) -> str:
+        """The way a step of signature ``key`` runs, by bookkeeping alone:
+        "eager" (graphs do not apply or a capture failed), "warmup",
+        "capture" or "replay"."""
+        if not self.enabled:
+            return "eager"
+        if self.current is None or self.current.key != key:
+            self.current = _StepGraph(key)
+        if self.current.graph is not None:
+            return "replay"
+        self.current.steps += 1
+        return "warmup" if self.current.steps <= GRAPH_WARMUP_STEPS \
+            else "capture"
+
+    def release(self) -> None:
+        """Drop the graph, its static inputs and its optimizer state (the
+        state a step returned stays valid); the next step starts a
+        warm-up."""
+        self.current = None
+
+    def step(self, loop: "TrainLoop", params, opt_state, batch: TrainBatch,
+             draws: Draws) -> tuple:
+        """(route taken: "eager", "capture" or "replay", opt_state, loss)
+        of one step of ``loop`` on ``batch`` with ``draws``."""
+        key = step_signature(loop.loss_kind, params, batch, draws) \
+            if self.enabled else None
+        route = self.route(key)
+        if route == "eager":
+            self.counts["eager"] += 1
+            return ("eager",) + loop.eager_step(params, opt_state, batch,
+                                                draws)
+        entry = self.current
+        if entry.state is None:
+            entry.state = map_tree(torch.clone, opt_state)
+        elif opt_state is not entry.state:
+            for mine, given in zip(tree_leaves(entry.state),
+                                   tree_leaves(opt_state)):
+                if mine is not given:
+                    mine.copy_(given)
+        if route == "replay":
+            with span("step.replay"):
+                for static, t in zip(entry.inputs,
+                                     _step_inputs(batch, draws)):
+                    if static is not None:
+                        static.copy_(t)
+                entry.graph.replay()
+                loss = entry.loss.clone()
+            add_launches(entry.launches)
+            self.counts["replays"] += 1
+            return "replay", entry.state, loss
+        if route == "warmup":
+            self.counts["eager"] += 1
+            return "eager", entry.state, self._on_side_stream(
+                batch.triples.device,
+                lambda: loop.in_place_step(params, entry.state, batch,
+                                           draws))
+        try:
+            loss = self._capture(entry, loop, params, batch, draws)
+        except RuntimeError as e:
+            self.enabled = False
+            self.release()
+            self.counts["failed_captures"] += 1
+            self.counts["eager"] += 1
+            self.log(f"step graphs: the capture failed ({e}); every later "
+                     f"step runs eagerly")
+            return ("eager",) + loop.eager_step(params, entry.state, batch,
+                                                draws)
+        self.counts["captures"] += 1
+        return "capture", entry.state, loss
+
+    @staticmethod
+    def _side_stream(device) -> "torch.cuda.Stream":
+        """One stream a device for every loop's warm-up and capture, as
+        torch.cuda.graph keeps one (each new stream gets cuBLAS
+        workspaces of its own). torch.cuda.Stream hands out the 32 pooled
+        streams of a priority in turn, so a producer's copy stream
+        (priority 0) can be one made before it; taken from the high
+        priority pool, the side stream is never a producer's, whose copies
+        would otherwise join a capture."""
+        device = torch.device(device)
+        if device not in _SIDE_STREAMS:
+            _SIDE_STREAMS[device] = torch.cuda.Stream(device, priority=-1)
+        return _SIDE_STREAMS[device]
+
+    def _on_side_stream(self, device, fn):
+        """``fn()`` on the side stream of ``device``, ordered after the
+        current stream's work and before its next."""
+        current = torch.cuda.current_stream(device)
+        side = self._side_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = fn()
+        current.wait_stream(side)
+        return out
+
+    def _capture(self, entry: _StepGraph, loop: "TrainLoop", params,
+                 batch: TrainBatch, draws: Draws) -> torch.Tensor:
+        """Capture the step on copies of ``batch`` and ``draws``, which
+        stay its static inputs, then replay it once for this step; returns
+        its loss. The launches counted while capturing are this step's."""
+        static_batch = TrainBatch(
+            None if batch.graph is None else batch.graph.clone(),
+            batch.triples.clone(), batch.mask.clone(),
+            labels=None if batch.labels is None else batch.labels.clone())
+        static_draws = Draws(
+            tuple(t.clone() for t in draws.negatives),
+            [m.clone() for m in draws.keep_masks],
+            EncoderNoise(*(None if t is None else t.clone()
+                           for t in draws.noise)))
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counters()
+        # The graph's memory pool can take no block the allocator has
+        # cached, and the allocator frees none while a capture runs, so the
+        # cached blocks go back to the device first, as torch.cuda.graph
+        # does (its own entry also empties the pinned host memory's cache,
+        # which the producers' batches reuse, so its calls are made here).
+        # "thread_local": the producer threads' copies and pinned
+        # allocations go on during the capture.
+        torch.cuda.empty_cache()
+        try:
+            with torch.cuda.stream(self._side_stream(batch.triples.device)):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = loop.in_place_step(params, entry.state,
+                                             static_batch, static_draws)
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            # Nothing ran; the counts return to the step's start.
+            add_launches({k: before.get(k, 0) - n
+                          for k, n in launch_counters().items()})
+            raise
+        after = launch_counters()
+        entry.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                          if n != before.get(k, 0)}
+        entry.graph, entry.loss = graph, out
+        entry.inputs = _step_inputs(static_batch, static_draws)
+        graph.replay()
+        return out.clone()
+
+
 @dataclass
 class FitResult:
     params: dict
@@ -582,11 +812,15 @@ class FitResult:
     # it waited for its batch; batch_ms without prefetch), step_ms (CUDA
     # events around the device step; None on the CPU), the aggregation
     # kernels' forward and twin launches in the step
-    # (staircase2.launch_counts; a validation encode counts in none),
-    # spans (the fit loop's sink for the step: fit.*, step.* and
-    # model.encode) and batch_spans (the sink of the producer that built
-    # its batch: batch.*), each name -> [wall_ms, cpu_ms, count]
-    # (observability.span).
+    # (staircase2.launch_counts; a validation encode counts in none; on a
+    # replayed step the counts its graph's capture recorded, since no
+    # wrapper runs in a replay),
+    # graph (how the step ran: "eager", "capture" or "replay";
+    # StepGraphs), spans (the fit loop's sink for the step: fit.*,
+    # step.* and model.encode; a replayed step's step.replay in place of
+    # step.forward, step.backward and step.optimizer) and batch_spans (the
+    # sink of the producer that built its batch: batch.*), each name ->
+    # [wall_ms, cpu_ms, count] (observability.span).
     steps: list = field(default_factory=list)
 
 
@@ -687,6 +921,12 @@ class TrainLoop:
         self.timer = StepTimer()
         self.cache_state = model.init_cache_state() if model.has_state \
             else None
+        self.graphs = StepGraphs(graph_applies(
+            model.device, mesh, vertex_sharded, model.has_state), log)
+        # The steps captured, replayed and run eagerly, and the failed
+        # captures (``StepGraphs.counts``); the way the last step ran.
+        self.graph_counts = self.graphs.counts
+        self.last_step = "eager"
 
     def init_state(self, seed: int = 0) -> tuple:
         """Seeded params and their optimizer state; vertex-sharded, padded
@@ -739,30 +979,61 @@ class TrainLoop:
         """One step (``engine.py:411-483``, the stored variant's
         ``:520-535``); updates ``params`` in place, and ``cache_state``
         for the stored variant. Returns (opt_state, loss as a 0-d tensor
-        on the device). On a mesh, after ``seed_step``, the sharded loss
-        and the gradients' mean over the ranks
+        on the device). The draws are taken op by op (``draw``); a
+        single-card step on the card then runs as a CUDA graph once its
+        signature has one (``StepGraphs``; ``last_step`` says how it ran),
+        else op by op (``eager_step``). On a mesh, after ``seed_step``, the
+        sharded loss and the gradients' mean over the ranks
         (``sharded_loss_and_grads``), then the same update; vertex-sharded,
         ``VertexShardedEncoder.make_train_step``'s step on this rank's
         state."""
         if self.vse is not None:
             keep_masks = self.vse.draw_keep_masks(self.generator,
                                                   self.rank_generator)
+            self.last_step = "eager"
+            self.graph_counts["eager"] += 1
             return self.vs_step(params, opt_state, batch, keep_masks)
+        draws = self.draw(batch)
+        if self.mesh is None and not self.model.has_state:
+            self.last_step, opt_state, loss = self.graphs.step(
+                self, params, opt_state, batch, draws)
+            return opt_state, loss
+        self.last_step = "eager"
+        self.graph_counts["eager"] += 1
         if self.mesh is not None:
             loss, grads = sharded_loss_and_grads(
-                self.model, self.loss_kind, params, batch, self.draw(batch),
-                self.mesh)
-        elif self.model.has_state:
-            loss, grads, self.cache_state = stateful_loss_and_grads(
-                self.model, params, self.cache_state, batch,
-                self.draw(batch))
+                self.model, self.loss_kind, params, batch, draws, self.mesh)
         else:
-            loss, grads = step_loss_and_grads(
-                self.model, self.loss_kind, params, batch, self.draw(batch))
+            loss, grads, self.cache_state = stateful_loss_and_grads(
+                self.model, params, self.cache_state, batch, draws)
+        return self._update(params, opt_state, grads), loss
+
+    def eager_step(self, params, opt_state, batch: TrainBatch,
+                   draws: Draws) -> tuple:
+        """The single-device step op by op on ``draws``: the loss of
+        ``loss_kind`` and its gradients, then the optimizer's update of
+        ``params`` in place. Returns (opt_state, loss)."""
+        loss, grads = step_loss_and_grads(self.model, self.loss_kind,
+                                          params, batch, draws)
+        return self._update(params, opt_state, grads), loss
+
+    def in_place_step(self, params, opt_state, batch: TrainBatch,
+                      draws: Draws) -> torch.Tensor:
+        """``eager_step`` with the new optimizer state copied into
+        ``opt_state``'s tensors (the same values: the update is computed
+        as before), as a CUDA graph of the step must write it; returns the
+        loss."""
+        new_state, loss = self.eager_step(params, opt_state, batch, draws)
+        for mine, new in zip(tree_leaves(opt_state),
+                             tree_leaves(new_state)):
+            mine.copy_(new)
+        return loss
+
+    def _update(self, params, opt_state, grads) -> dict:
         with span("step.optimizer"):
             updates, opt_state = self.optimizer.update(grads, opt_state)
             apply_updates(params, updates)
-        return opt_state, loss
+        return opt_state
 
     def _source(self):
         device = self.model.device
@@ -864,7 +1135,8 @@ class TrainLoop:
                     fwd1, twin1 = staircase2.launch_counts()
                     rec = {"iteration": i, "step_ms": None,
                            "launches": fwd1 - fwd0,
-                           "twin_launches": twin1 - twin0}
+                           "twin_launches": twin1 - twin0,
+                           "graph": self.last_step}
                     records.append(rec)
                     pending.append((rec, loss_dev, events))
                     del batch

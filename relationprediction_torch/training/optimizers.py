@@ -50,6 +50,10 @@ def clip_by_global_norm(grads: list, max_norm: float,
 
 
 def _adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    # The decays as float32 0-d tensors, made once on each device by a fill
+    # (no host-to-device copy, which a CUDA graph's capture refuses).
+    decays = {}
+
     def init(params):
         leaves = tree_leaves(params)
         return {"count": torch.zeros((), dtype=torch.int32,
@@ -63,11 +67,14 @@ def _adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         nu = [(1 - b2) * (x * x) + b2 * v
               for x, v in zip(g, tree_leaves(state["nu"]))]
         count = state["count"] + 1
+        if count.device not in decays:
+            decays[count.device] = tuple(
+                torch.full((), b, dtype=torch.float32, device=count.device)
+                for b in (b1, b2))
+        d1, d2 = decays[count.device]
         # optax raises the decays to the int32 count in float32
-        c1 = 1 - torch.tensor(b1, dtype=torch.float32,
-                              device=count.device) ** count
-        c2 = 1 - torch.tensor(b2, dtype=torch.float32,
-                              device=count.device) ** count
+        c1 = 1 - d1 ** count
+        c2 = 1 - d2 ** count
         updates = [(m / c1) / (torch.sqrt(v / c2) + eps)
                    for m, v in zip(mu, nu)]
         return updates, {"count": count, "mu": tree_unflatten(tree, mu),
