@@ -106,7 +106,11 @@ runs on the same kernel):
           torch.sparse.mm on the same [V, E] CSR matrix; then layouts that
           stress the merge-path partition (a 9,155-entry hub row, also on
           the perm path, every entry in one row, no entries, rows of one
-          entry, d = 37);
+          entry, d = 37); then kernel 3 at the 1-N CompGCN step's shapes
+          (compgcn_sums: each half's weighted sum at d = 200, the
+          gathers' gradients summed by id into the relation and entity
+          rows at d = 100) against a float64 sum, index_add_ beside it,
+          one launch and fix-up a call;
   serve_onehot, train_onehot, serve_diag, train_diag  as serve and train,
           through staircase.staircase_aggregate: 4 launches an encode and a
           step, each with its carry fix-up, no twin pass, none of the fused
@@ -1868,6 +1872,83 @@ def staircase_layouts(lib, graphs, d, device) -> list:
                          lib, msgs, layout, v, perm), 10),
                      **staircase_bound(layout, v, width,
                                        perm=use_perm)})
+    return rows
+
+
+def compgcn_sums(ds, device) -> list:
+    """Kernel 3 at the shapes of the 1-N CompGCN step
+    (settings/compgcn_conve.exp), on the CompGCN graph of the full train
+    graph and with no training: staircase_aggregate's weighted sum of each
+    half into the entities at d = 200, and take_rows' gradient summed by id
+    over the graph's CSRs (ops/gather.add_by_id through sum_by_csr) into
+    the 2R relation rows (one id's run up to ~19k entries) and into the
+    entity rows at d = 100. Each within the rounding allowance of a float64
+    sum, index_add_ (the library call) held to the same allowance, one
+    kernel launch and one carry fix-up a call, counted on the op's
+    counters, and two calls bit for bit. Imported here, as
+    sum_by_csr_op."""
+    from relationprediction_torch.graph import build_compgcn_graph
+    from relationprediction_torch.ops.gather import take_rows
+    t_phase = time.perf_counter()
+    g = build_compgcn_graph(ds.train, ds.n_entities,
+                            ds.n_relations).to(device)
+    v = ds.n_entities
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+
+    def check(name, op, call, library, exact, allowance, entries):
+        reset_launch_counts()
+        got = call()
+        launches = (op.launches, staircase.staircase_aggregate.fixup_launches)
+        if not twice_same(call):
+            raise AssertionError(f"compgcn {name}: two calls differ")
+        lib_out = library()
+        torch.cuda.synchronize()
+        over = over_allowance(got, exact, allowance)
+        lib_over = over_allowance(lib_out, exact, allowance)
+        if not (torch.isfinite(got).all() and over <= 1 and lib_over <= 1):
+            raise AssertionError(f"compgcn {name}: {over} (kernel), "
+                                 f"{lib_over} (index_add_) of the f32 "
+                                 f"rounding allowance")
+        if launches != (1, 1):
+            raise AssertionError(f"compgcn {name}: {launches} launches and "
+                                 f"fix-ups in one call, expected (1, 1)")
+        row = {"kernel": op.__name__, "compgcn": name, "entries": entries,
+               "rows": exact.shape[0], "d": exact.shape[1],
+               "over_allowance": over, "library_over_allowance": lib_over,
+               "max_abs_diff_vs_library": (got - lib_out).abs().max().item(),
+               "launches": launches[0], "fixup_launches": launches[1],
+               "same_bits_twice": True}
+        emit("kernel_staircase", phase_s=time.perf_counter() - t_phase,
+             **row)
+        rows.append(row)
+
+    for name, layout in (("inward", g.inward), ("outward", g.outward)):
+        msgs = torch.randn(layout.n_edges, 200, generator=gen).to(device)
+        targets = staircase.row_of_entry(layout).long()
+        check(f"{name}_d200", staircase.staircase_aggregate,
+              lambda: staircase.staircase_aggregate(msgs, layout, v),
+              lambda: torch.zeros(v, 200, device=device).index_add_(
+                  0, targets, msgs * layout.w[:, None]),
+              *staircase_exact(msgs, layout, v), layout.n_edges)
+    for name, ids, csr, n_ids in (
+            ("by_relation_d100", g.rel_ids, g.by_relation,
+             2 * ds.n_relations),
+            ("by_source_d100", g.src_ids, g.by_source, v)):
+        table = torch.zeros(n_ids, 100, device=device, requires_grad=True)
+        rows_g = torch.randn(ids.shape[0], 100, generator=gen).to(device)
+        exact = torch.zeros(n_ids, 100, dtype=torch.float64,
+                            device=device).index_add_(0, ids,
+                                                      rows_g.double())
+        abs_sum = torch.zeros_like(exact).index_add_(
+            0, ids, rows_g.double().abs())
+        counts = torch.bincount(ids, minlength=n_ids)[:, None]
+        check(name, sum_by_csr_op(),
+              lambda: torch.autograd.grad(take_rows(table, ids, csr), table,
+                                          rows_g)[0],
+              lambda: torch.zeros(n_ids, 100, device=device).index_add_(
+                  0, ids, rows_g),
+              exact, sum_allowance(exact, abs_sum, counts), ids.shape[0])
     return rows
 
 
@@ -3963,6 +4044,9 @@ def staircase_kernels_line(ks, runs) -> list:
         "max_abs_err": max(r["max_abs_err"] for r in full + batch),
         "max_over_allowance": max(r["over_allowance"] for r in ks),
         "layouts_ms": {r["layout"]: r["kernel_ms"] for r in layouts},
+        "compgcn_sums": {r["compgcn"]: {k: r[k] for k in (
+            "kernel", "entries", "over_allowance", "library_over_allowance",
+            "launches", "fixup_launches")} for r in ks if "compgcn" in r},
         "ms": mean_of(full, "kernel_ms"),
         "plain_ms": mean_of(full, "plain_ms"),
         "bound_ms": mean_of(full, "bound_ms"), "bound_by": full[0]["bound_by"],
@@ -6237,7 +6321,7 @@ def main() -> int:
     # The one-hot-input model and gcn_diag, both from gcn_basis.exp, as
     # tests/test_model_variants.py derives them: every layer sums per-edge
     # messages with staircase_aggregate (TPU kernel 3).
-    ks = phase_kernel_staircase(graphs, d, device)
+    ks = phase_kernel_staircase(graphs, d, device) + compgcn_sums(ds, device)
     runs = {}
     for label, change in (("onehot", dict(use_input_transform=False)),
                           ("diag", dict(name="gcn_diag"))):

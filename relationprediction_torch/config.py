@@ -1,6 +1,8 @@
 """Typed configuration for the PyTorch port (a copy of
 ``relationprediction_tpu/config.py``, kept field for field so that one
-``.exp`` file gives both packages the same RunConfig).
+``.exp`` file gives both packages the same RunConfig). The ``compgcn``
+encoder, which only the port builds, gives a ``CompGCNRunConfig``: the
+same fields and its own ``compgcn`` group.
 
 Replaces the reference's stringly-typed tab-indented INI parser
 (``code/common/settings_reader.py``) with frozen dataclasses, while remaining
@@ -231,9 +233,106 @@ class RunConfig:
             edge_count=edge_count)
 
 
+@dataclass(frozen=True)
+class CompGCNConfig:
+    """CompGCN (Vashishth et al., arXiv:1911.03082) with a ConvE scorer
+    (Dettmers et al., arXiv:1707.01476), trained 1-N: the keys of the
+    official code's ``run.py`` that the ``compgcn`` encoder and ``conve``
+    decoder sections set; its composition (corr), depth (one layer) and
+    bias (none) are the FB15k-237 recipe's and the only ones built.
+    Dropouts are drop probabilities, as there."""
+
+    init_dimension: int = 100        # init_dim: the input table's width
+    gcn_dimension: int = 200         # gcn_dim = embed_dim with one layer
+    layer_dropout: float = 0.1       # dropout: the layer's two directions
+    hidden_dropout: float = 0.3      # hid_drop: the entity codes
+    k_w: int = 10                    # the stacked input's height is 2 k_w
+    k_h: int = 20                    # and its width k_h; k_w k_h = d
+    n_filters: int = 200             # num_filt
+    kernel_size: int = 7             # ker_sz
+    feature_dropout: float = 0.3     # feat_drop: the filters' output
+    decoder_dropout: float = 0.3     # hid_drop2: the projection's output
+    label_smoothing: float = 0.1     # lbl_smooth
+    batch_size: int = 128            # queries a step
+
+    @property
+    def conv_height(self) -> int:
+        return 2 * self.k_w - self.kernel_size + 1
+
+    @property
+    def conv_width(self) -> int:
+        return self.k_h - self.kernel_size + 1
+
+    @property
+    def flat_size(self) -> int:
+        """The filters' flattened output, the projection's input."""
+        return self.conv_height * self.conv_width * self.n_filters
+
+
+@dataclass(frozen=True)
+class CompGCNRunConfig(RunConfig):
+    """A RunConfig of the ``compgcn`` encoder: the port's own model, which
+    the JAX package has not, so its keys live here and not in the shared
+    fields."""
+
+    compgcn: CompGCNConfig = field(default_factory=CompGCNConfig)
+
+
+def require_single_card(config: RunConfig, mesh: bool,
+                        vertex_sharded: bool) -> None:
+    """Raise ValueError where a ``compgcn`` configuration is asked to run on
+    a mesh or vertex-sharded: it trains and ranks on one device only."""
+    if isinstance(config, CompGCNRunConfig) and (mesh or vertex_sharded):
+        raise ValueError("the compgcn encoder runs on one device: no edge "
+                         "mesh, no vertex-sharded path")
+
+
+def _compgcn(config: RunConfig, enc: Settings, dec: Settings,
+             opt: Settings) -> CompGCNRunConfig:
+    """The ``compgcn`` encoder's configuration; raises ValueError for what
+    the port does not build: another decoder, composition, depth or bias
+    than CompGCN's FB15k-237 recipe, bf16, and a stacked input that is
+    not the code."""
+    if dec.get("Name") != "conve":
+        raise ValueError("the compgcn encoder takes the conve decoder")
+    if enc.get("Composition", "corr") != "corr" \
+            or config.encoder.n_layers != 1 or _yes(enc.get("Bias", "No")):
+        raise ValueError("compgcn: one layer, composition corr, no bias "
+                         "(Composition=corr, NumberOfLayers=1, Bias=No)")
+    for key in ("MessagePrecision", "StreamPrecision"):
+        if enc.get(key, "float32") != "float32" \
+                or dec.get(key, "float32") != "float32":
+            raise ValueError(f"the compgcn encoder runs in float32 only "
+                             f"({key})")
+    c = CompGCNConfig(
+        init_dimension=int(enc.get("InitDimension", 100)),
+        gcn_dimension=config.encoder.internal_dimension,
+        layer_dropout=float(enc.get("LayerDropout", 0.1)),
+        hidden_dropout=float(enc.get("HiddenDropout", 0.3)),
+        k_w=int(dec.get("ReshapeWidth", 10)),
+        k_h=int(dec.get("ReshapeHeight", 20)),
+        n_filters=int(dec.get("NumberOfFilters", 200)),
+        kernel_size=int(dec.get("FilterSize", 7)),
+        feature_dropout=float(dec.get("FeatureDropout", 0.3)),
+        decoder_dropout=float(dec.get("HiddenDropout", 0.3)),
+        label_smoothing=float(opt.get("LabelSmoothing", 0.1)),
+        batch_size=int(opt.get("BatchSize", 128)))
+    d = config.decoder.code_dimension
+    if c.k_w * c.k_h != d or c.gcn_dimension != d:
+        raise ValueError(f"compgcn: ReshapeWidth x ReshapeHeight and the "
+                         f"layer's width must equal CodeDimension {d}")
+    if min(c.conv_height, c.conv_width) < 1:
+        raise ValueError("compgcn: the filter is larger than the stacked "
+                         "input")
+    return CompGCNRunConfig(**{f.name: getattr(config, f.name)
+                               for f in dataclasses.fields(RunConfig)},
+                            compgcn=c)
+
+
 def from_settings(settings: Settings) -> RunConfig:
     """Build a typed RunConfig from a parsed .exp Settings tree, reproducing
-    the section-merge of the reference driver (``train.py:80-86``)."""
+    the section-merge of the reference's ``train.py:80-86``; a
+    ``compgcn`` encoder gives a ``CompGCNRunConfig``."""
     enc = settings["Encoder"] if "Encoder" in settings else Settings()
     dec = settings["Decoder"] if "Decoder" in settings else Settings()
     shared = settings["Shared"] if "Shared" in settings else Settings()
@@ -301,8 +400,11 @@ def from_settings(settings: Settings) -> RunConfig:
         metric=ev.get("Metric", "MRR"),
     )
 
-    return RunConfig(encoder=encoder, decoder=decoder, optimizer=optimizer,
-                     training=training)
+    config = RunConfig(encoder=encoder, decoder=decoder, optimizer=optimizer,
+                       training=training)
+    if encoder.name == "compgcn":
+        return _compgcn(config, enc, dec, opt)
+    return config
 
 
 def _merged(section: Settings, *others: Settings) -> Settings:

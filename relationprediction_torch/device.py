@@ -19,8 +19,10 @@ def resolve_device(cpu: bool) -> torch.device:
 
 
 def exact_float32() -> None:
-    """Keep float32 GEMMs in full float32 (no TF32) on the card, and any
-    bf16 GEMM's sums in f32 (no reduced-precision reduction in cuBLAS).
+    """Keep float32 GEMMs and convolutions in full float32 (no TF32) on the
+    card, any bf16 GEMM's sums in f32 (no reduced-precision reduction in
+    cuBLAS), and cuDNN on its deterministic algorithms (a convolution's
+    sums add in one order at every call).
 
     The JAX reference contracts in float32; TF32 keeps ~3 decimal digits,
     enough to reorder near-tied candidate scores and change ranks. Its
@@ -28,4 +30,5 @@ def exact_float32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -60,6 +60,7 @@ def main(argv=None) -> None:
     from relationprediction_torch.models.build import ModelView, build_model
     from relationprediction_torch.params import params_from_jax
     from relationprediction_torch.training import checkpoint as ckpt_lib
+    from relationprediction_torch.training.engine import restore_model_state
 
     device = resolve_device(args.cpu)
     cfg = config_lib.load(args.settings)
@@ -76,6 +77,7 @@ def main(argv=None) -> None:
         raise SystemExit(f"no checkpoint found at {ckpt_path!r} "
                          f"(train first, or pass --checkpoint)")
     params = params_from_jax(state["params"], device)
+    restore_model_state(model, state.get("extra") or {})
     print(f"checkpoint: {ckpt_path} (step {state['step']})")
 
     scorer = Scorer(metric=cfg.training.metric)

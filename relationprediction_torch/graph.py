@@ -187,6 +187,12 @@ class GraphBatch:
                 + [self.fwd_twin.w, self.bwd_twin.w, self.fwd_order,
                    self.bwd_order])
 
+    def signature(self) -> tuple:
+        """The sizes of the graph that are no tensor's shape."""
+        return (self.n_vertices, self.n_relations, self.normalization,
+                self.shard, tuple(lay.n_sources for lay in (
+                    self.fwd, self.bwd, self.fwd_twin, self.bwd_twin)))
+
 
 NORMALIZATIONS = ("global", "local", "none")
 
@@ -263,3 +269,102 @@ def _host_norm(targets: np.ndarray, relations: np.ndarray, n_vertices: int,
         n_keys = n_vertices * n_relations
     count = np.bincount(key, minlength=n_keys)
     return (1.0 / np.maximum(count[key], 1.0)).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class CompGCNGraph:
+    """The message graph of a CompGCN layer (Vashishth et al. 2020): each
+    train triple (s, r, o) twice, and every entity's self-loop apart.
+
+    The official code (github.com/malllabiisc/CompGCN) stacks the edges
+    (s, o) of type r and then (o, s) of type r + R, sends each message from
+    the pair's second entity and sums it into its first, and weights each
+    half's edges by ``compute_norm``: 1 / sqrt(deg(target) deg(source)),
+    both degrees counted over the half's targets, 0 where a source is no
+    target of that half. So ``inward`` sums into s the messages from o with
+    relation r, and ``outward`` into o those from s with relation r + R.
+    An edge of weight 0 adds nothing and is left out (``build_csr``).
+
+    inward / outward: the two halves' CSRs by target (weights the norms).
+    src_ids / rel_ids: int64 [E_in + E_out], the inward then the outward
+    entries' source entities and relation ids (0 .. 2R - 1): the rows a
+    step gathers. by_source / by_relation: (row_ptr int32, order int32),
+    the CSR by id of those entries over the V entities and the 2R
+    relation rows, which sums the gathers' gradients by id
+    (``ops.gather.take_rows``).
+    """
+
+    inward: CsrLayout
+    outward: CsrLayout
+    src_ids: torch.Tensor
+    rel_ids: torch.Tensor
+    by_source: tuple
+    by_relation: tuple
+    n_vertices: int
+    n_relations: int
+
+    @property
+    def n_edges(self) -> int:
+        """The message edges of both halves (self-loops not counted)."""
+        return int(self.src_ids.shape[0])
+
+    def _map(self, fn) -> "CompGCNGraph":
+        return CompGCNGraph(self.inward.map(fn), self.outward.map(fn),
+                            fn(self.src_ids), fn(self.rel_ids),
+                            tuple(fn(t) for t in self.by_source),
+                            tuple(fn(t) for t in self.by_relation),
+                            self.n_vertices, self.n_relations)
+
+    def to(self, device, non_blocking: bool = False) -> "CompGCNGraph":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "CompGCNGraph":
+        return self._map(lambda t: t.pin_memory())
+
+    def clone(self) -> "CompGCNGraph":
+        return self._map(torch.clone)
+
+    def tensors(self) -> list:
+        return (self.inward.tensors() + self.outward.tensors()
+                + [self.src_ids, self.rel_ids, *self.by_source,
+                   *self.by_relation])
+
+    def signature(self) -> tuple:
+        return (self.n_vertices, self.n_relations)
+
+
+def compgcn_norm(targets: np.ndarray, sources: np.ndarray,
+                 n_vertices: int) -> np.ndarray:
+    """The official ``compute_norm`` of one half: deg^-1/2 of the target
+    times deg^-1/2 of the source, deg counted over the half's targets and
+    its infinite inverses (degree 0) set to 0."""
+    deg = np.bincount(targets, minlength=n_vertices).astype(np.float32)
+    inv = np.zeros_like(deg)
+    np.divide(1.0, np.sqrt(deg), out=inv, where=deg > 0)
+    return (inv[targets] * inv[sources]).astype(np.float32)
+
+
+def _id_csr(ids: np.ndarray, n_ids: int) -> tuple:
+    order = np.argsort(ids, kind="stable")
+    row_ptr = np.searchsorted(ids[order], np.arange(n_ids + 1))
+    return (torch.from_numpy(row_ptr.astype(np.int32)),
+            torch.from_numpy(order.astype(np.int32)))
+
+
+def build_compgcn_graph(triples: np.ndarray, n_vertices: int,
+                        n_relations: int) -> CompGCNGraph:
+    """The ``CompGCNGraph`` of an [N, 3] (s, r, o) array, on the host."""
+    t = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
+    s, r, o = t.T
+    if len(t) and (r.max() >= n_relations or r.min() < 0):
+        raise ValueError(f"relation id outside [0, {n_relations})")
+    inward, _ = build_csr(o, r, s, compgcn_norm(s, o, n_vertices),
+                          n_vertices)
+    outward, _ = build_csr(s, r + n_relations, o,
+                           compgcn_norm(o, s, n_vertices), n_vertices)
+    src = torch.cat([inward.src, outward.src]).long()
+    rel = torch.cat([inward.rel, outward.rel]).long()
+    return CompGCNGraph(inward, outward, src, rel,
+                        _id_csr(src.numpy(), n_vertices),
+                        _id_csr(rel.numpy(), 2 * n_relations),
+                        int(n_vertices), int(n_relations))

@@ -19,6 +19,10 @@ in every encode but the stored variant's train-mode one; bf16
 (``_stream_cast``, ``build.py:426-432``), and evaluation scores in f32.
 Parameters are a plain dictionary of tensors with the JAX package's tree
 layout (params.py converts between the two).
+
+``CompGCNModel`` is the port's own model, with no counterpart in the JAX
+package: CompGCN (corr) with a ConvE scorer, trained 1-N (``loss_kvsall``)
+on the whole train graph (``graph.CompGCNGraph``).
 """
 from __future__ import annotations
 
@@ -26,10 +30,12 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..config import RunConfig
+from ..config import CompGCNRunConfig, RunConfig
 from ..device import exact_float32
-from ..graph import GraphBatch, build_graph_batch
+from ..graph import (CompGCNGraph, GraphBatch, build_compgcn_graph,
+                     build_graph_batch)
 from ..observability import span
 from ..ops.gather import take_rows
 from ..ops.neg_energy import (factored_negative_energies,
@@ -39,6 +45,7 @@ from ..parallel.mesh import EdgeMesh
 from ..params import map_tree
 from . import decoders as decoders_lib
 from . import encoders as enc
+from . import initializers as init
 
 
 def binomial_factored_objective(decoder, pos_energy, neg_energy, ev_sq,
@@ -808,5 +815,208 @@ class ModelView:
                             graph, triples, apply_sigmoid)
 
 
-def build_model(config: RunConfig, device: torch.device) -> RGCNModel:
+class CompGCNModel:
+    """CompGCN (corr) with the ConvE scorer on one device: the official
+    ``CompGCN_ConvE`` (github.com/malllabiisc/CompGCN) over a params tree.
+
+    ``{"entity_embedding": {"W"} [V, d_in], "relation_embedding":
+    {"W_relation"} [2R, d_in] (each relation and its inverse),
+    "compgcn_layers": [layer] (``encoders.init_compgcn_layer``), "decoder"
+    (``decoders.ConvE.init``)}``. The BatchNorms' running statistics are no
+    params: ``batch_stats`` holds them on the device, a train-mode encode
+    updates them in place and a test-mode one reads them, and checkpoints
+    carry them beside the params. In training the entity codes go through
+    dropout (``hidden_dropout``) before the scorer, which takes the subject's
+    and the relation's codes; a query (s, r) for its object is scored as
+    it is, one for its subject, (?, r, o), as (o, r + R, ?). The train
+    step draws five keep-masks (``draw_keep_masks``): the layer's inward
+    and outward sums [V, d], the codes [V, d], the filters' output and the
+    scorer's map, the last two for the ``batch_size`` queries of a step."""
+
+    objective = "kvsall"
+    has_state = False
+    is_gcn = True
+
+    def __init__(self, config: CompGCNRunConfig, device: torch.device):
+        if config.entity_count <= 0:
+            raise ValueError("config must carry dataset counts; call "
+                             "config.with_counts(...) first")
+        self.config = config
+        self.c = config.compgcn
+        self.device = torch.device(device)
+        self.n_entities = config.entity_count
+        self.n_relations = config.relation_count
+        self.decoder = decoders_lib.ConvE(self.c, self.n_entities)
+        self.batch_stats = {
+            "layers": [enc.init_batch_stats(self.c.gcn_dimension,
+                                            self.device)],
+            **self.decoder.init_stats(self.device)}
+
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """Params drawn from ``generator`` at the official initialisation
+        (``get_param``'s xavier normal; ``torch.nn``'s defaults in the
+        scorer), on the model's device."""
+        c, v, r2 = self.c, self.n_entities, 2 * self.n_relations
+        params = {
+            "entity_embedding": {"W": init.normal(
+                generator, (v, c.init_dimension),
+                enc.xavier_std(c.init_dimension, v))},
+            "relation_embedding": {"W_relation": init.normal(
+                generator, (r2, c.init_dimension),
+                enc.xavier_std(c.init_dimension, r2))},
+            "compgcn_layers": [enc.init_compgcn_layer(
+                generator, c.init_dimension, c.gcn_dimension)],
+            "decoder": self.decoder.init(generator)}
+        return map_tree(lambda t: t.to(self.device), params)
+
+    def needs_graph(self) -> bool:
+        return True
+
+    def make_graph(self, triples: np.ndarray, to_device: bool = True,
+                   shard: tuple = (0, 1)) -> CompGCNGraph:
+        """The whole graph of ``triples`` (``graph.build_compgcn_graph``);
+        no shard other than the whole."""
+        if tuple(shard) != (0, 1):
+            raise ValueError("the compgcn encoder is not edge-partitioned")
+        graph = build_compgcn_graph(triples, self.n_entities,
+                                    self.n_relations)
+        return graph.to(self.device) if to_device else graph
+
+    def draw_keep_masks(self, generator: torch.Generator) -> list:
+        c, v, n, d = (self.c, self.n_entities, self.c.batch_size,
+                      self.c.gcn_dimension)
+        shapes = (((v, d), c.layer_dropout), ((v, d), c.layer_dropout),
+                  ((v, d), c.hidden_dropout),
+                  ((n, c.n_filters, c.conv_height, c.conv_width),
+                   c.feature_dropout),
+                  ((n, d), c.decoder_dropout))
+        return [enc.draw_keep_mask(shape, 1.0 - drop, generator)
+                for shape, drop in shapes]
+
+    def draw_noise(self, generator, deterministic: bool = False
+                   ) -> EncoderNoise:
+        return EncoderNoise()
+
+    def encode(self, params: Dict, graph: CompGCNGraph, *,
+               deterministic: bool,
+               generator: Optional[torch.Generator] = None,
+               keep_masks: Optional[Sequence[torch.Tensor]] = None,
+               noise: Optional[EncoderNoise] = None,
+               group=None) -> EncodeResult:
+        """All-entity codes [V, d] and relation codes [2R, d]. Train mode
+        (``deterministic`` false) takes the keep-masks of
+        ``draw_keep_masks`` (drawn from ``generator`` where not given)
+        and the entity codes' dropout; test mode none."""
+        if group is not None:
+            raise ValueError("the compgcn encoder runs on one device")
+        with span("model.encode"):
+            training = not deterministic
+            if training and keep_masks is None:
+                keep_masks = self.draw_keep_masks(generator)
+            x = params["entity_embedding"]["W"]
+            z = params["relation_embedding"]["W_relation"]
+            for layer, stats in zip(params["compgcn_layers"],
+                                    self.batch_stats["layers"]):
+                x, z = enc.apply_compgcn_layer(
+                    layer, graph, x, z, stats,
+                    layer_dropout=self.c.layer_dropout, training=training,
+                    keep_masks=keep_masks[:2] if training else None)
+            if training:
+                x = enc.dropped(x, keep_masks[2], self.c.hidden_dropout)
+            return EncodeResult(x, z)
+
+    def object_energies(self, params: Dict, encoded: EncodeResult,
+                        subjects: torch.Tensor, relations: torch.Tensor,
+                        keep_masks: Optional[Sequence] = None
+                        ) -> torch.Tensor:
+        """[n, V] energies of (subjects[i], relations[i], ?) against every
+        entity; ``keep_masks`` (the scorer's two) in training."""
+        with span("decode.conve"):
+            dp = params["decoder"]
+            hidden = self.decoder.hidden(
+                dp, self.batch_stats,
+                take_rows(encoded.entity_codes, subjects),
+                take_rows(encoded.relation_codes, relations),
+                training=keep_masks is not None, keep_masks=keep_masks)
+            return self.decoder.all_object_energies(
+                dp, encoded.entity_codes, hidden)
+
+    def loss_kvsall(self, params: Dict, graph: CompGCNGraph,
+                    queries: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor, *, deterministic: bool = False,
+                    keep_masks: Optional[Sequence] = None,
+                    noise: Optional[EncoderNoise] = None,
+                    group=None) -> torch.Tensor:
+        """The 1-N objective: queries [n, 3] (s, r, -) with r in [0, 2R),
+        labels [n, V] bool (the entities that complete each query in the
+        train graph), mask [n]; the mean binary cross-entropy of every
+        entity's energy against its smoothed label (1 - eps) y + 1 / V, over
+        the rows the mask keeps and every entity."""
+        encoded = self.encode(params, graph, deterministic=deterministic,
+                              keep_masks=keep_masks, group=group)
+        q = queries.long()
+        energies = self.object_energies(
+            params, encoded, q[:, 0], q[:, 1],
+            None if deterministic else keep_masks[3:])
+        with span("loss.kvsall"):
+            eps = self.c.label_smoothing
+            target = labels.to(energies.dtype) * (1.0 - eps) \
+                + 1.0 / self.n_entities
+            ce = F.binary_cross_entropy_with_logits(energies, target,
+                                                    reduction="none")
+            return (ce.sum(1) * mask).sum() \
+                / (mask.sum().clamp(min=1.0) * self.n_entities)
+
+    # -- test-mode scoring (``ModelView``'s surface) ---------------------
+    def _triples(self, triples) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(triples), dtype=torch.long,
+                               device=self.device).reshape(-1, 3)
+
+    def score_all_objects_encoded(self, params: Dict, encoded: EncodeResult,
+                                  triples, apply_sigmoid: bool = True
+                                  ) -> torch.Tensor:
+        t = self._triples(triples)
+        energies = self.object_energies(params, encoded, t[:, 0], t[:, 1])
+        return torch.sigmoid(energies) if apply_sigmoid else energies
+
+    def score_all_subjects_encoded(self, params: Dict, encoded: EncodeResult,
+                                   triples, apply_sigmoid: bool = True
+                                   ) -> torch.Tensor:
+        """(?, r, o) scored as (o, r + R, ?), as the official code ranks a
+        head."""
+        t = self._triples(triples)
+        energies = self.object_energies(params, encoded, t[:, 2],
+                                        t[:, 1] + self.n_relations)
+        return torch.sigmoid(energies) if apply_sigmoid else energies
+
+    def score_encoded(self, params: Dict, encoded: EncodeResult, triples
+                      ) -> torch.Tensor:
+        """[N] sigmoid energies of the given triples, as objects."""
+        t = self._triples(triples)
+        scores = self.score_all_objects_encoded(params, encoded, t)
+        return scores.gather(1, t[:, 2:3])[:, 0]
+
+    def _test_codes(self, params, graph) -> EncodeResult:
+        return self.encode(params, graph, deterministic=True)
+
+    def score(self, params: Dict, graph: CompGCNGraph, triples):
+        return self.score_encoded(params, self._test_codes(params, graph),
+                                  triples)
+
+    def score_all_subjects(self, params: Dict, graph: CompGCNGraph, triples,
+                           apply_sigmoid: bool = True) -> torch.Tensor:
+        return self.score_all_subjects_encoded(
+            params, self._test_codes(params, graph), triples, apply_sigmoid)
+
+    def score_all_objects(self, params: Dict, graph: CompGCNGraph, triples,
+                          apply_sigmoid: bool = True) -> torch.Tensor:
+        return self.score_all_objects_encoded(
+            params, self._test_codes(params, graph), triples, apply_sigmoid)
+
+
+def build_model(config: RunConfig, device: torch.device):
+    """The model of ``config``: ``CompGCNModel`` for the compgcn encoder,
+    else ``RGCNModel``."""
+    if isinstance(config, CompGCNRunConfig):
+        return CompGCNModel(config, device)
     return RGCNModel(config, device)

@@ -1,5 +1,7 @@
 """Decoders (``relationprediction_tpu/models/decoders.py``): DistMult,
-ComplEx and the MLP decoder, and the losses they share.
+ComplEx and the MLP decoder, and the losses they share; and the port's own
+ConvE scorer of CompGCN (``ConvE``), which scores a query against every
+entity at once.
 
 Scores exposed to evaluation are sigmoid(energies), as in the reference;
 ranking is monotonic in the logits, so ranks are taken on the energies.
@@ -7,14 +9,17 @@ ranking is monotonic in the logits, so ranks are taken on the energies.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
+from ..config import CompGCNConfig
 from ..device import exact_float32
 from ..ops import sddmm
 from ..parallel.collectives import all_reduce_sum
 from . import initializers as init
+from .encoders import batch_norm, dropped, init_batch_stats
 
 
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -199,6 +204,83 @@ class NonlinearTransform:
         return torch.cat(out) + params["b_post"]
 
     regularization = BilinearDiag.regularization
+
+
+class ConvE:
+    """The ConvE scorer of the official ``CompGCN_ConvE`` (Dettmers et al.,
+    arXiv:1707.01476): a query's subject and relation codes [n, d]
+    interleaved into one [2 k_w, k_h] image, BatchNorm, ``n_filters``
+    filters of k x k (no padding, no bias), BatchNorm,
+    ReLU, dropout, a fully connected map to d, dropout, BatchNorm, ReLU;
+    then its product with every entity's code plus a bias per entity: the
+    energies [n, V] of all candidate objects. ``keep_masks`` (training):
+    the keep-masks of the filters' output [n, F, H, W] and of the map's
+    output [n, d]. The convolution runs on cuDNN with TF32 off and
+    deterministic algorithms (``exact_float32``)."""
+
+    name = "conve"
+    factorizable = False
+
+    def __init__(self, config: CompGCNConfig, n_entities: int):
+        self.c = config
+        self.n_entities = n_entities
+        self.dimension = config.k_w * config.k_h
+
+    def init(self, generator: torch.Generator) -> Dict:
+        """``torch.nn``'s default initialisation of the layers, drawn from
+        ``generator``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the filters
+        and the map; BatchNorm's scales 1 and shifts 0; the entity bias 0."""
+        c, dev = self.c, generator.device
+        k, d = c.kernel_size, self.dimension
+
+        def uniform(shape, fan_in):
+            bound = 1.0 / math.sqrt(fan_in)
+            return (2 * torch.rand(shape, generator=generator, device=dev)
+                    - 1) * bound
+        params = {"conv_W": uniform((c.n_filters, 1, k, k), k * k),
+                  "fc_W": uniform((c.flat_size, d), c.flat_size),
+                  "fc_b": uniform((d,), c.flat_size),
+                  "entity_bias": init.zeros((self.n_entities,), dev)}
+        for name, n in (("bn0", 1), ("bn1", c.n_filters), ("bn2", d)):
+            params[f"{name}_weight"] = torch.ones(n, device=dev)
+            params[f"{name}_bias"] = init.zeros((n,), dev)
+        return params
+
+    def init_stats(self, device) -> Dict:
+        """The three BatchNorms' running statistics."""
+        return {"bn0": init_batch_stats(1, device),
+                "bn1": init_batch_stats(self.c.n_filters, device),
+                "bn2": init_batch_stats(self.dimension, device)}
+
+    def hidden(self, params, stats, e1: torch.Tensor, r: torch.Tensor, *,
+               training: bool,
+               keep_masks: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """[n, d]: the query's code before the product with the entities."""
+        c = self.c
+        n = e1.shape[0]
+        image = torch.stack([e1, r], dim=2).reshape(n, 1, 2 * c.k_w, c.k_h)
+        x = batch_norm(image, params["bn0_weight"], params["bn0_bias"],
+                       stats["bn0"], training)
+        exact_float32()
+        x = F.conv2d(x, params["conv_W"])
+        x = torch.relu(batch_norm(x, params["bn1_weight"],
+                                  params["bn1_bias"], stats["bn1"],
+                                  training))
+        if keep_masks is not None:
+            x = dropped(x, keep_masks[0], c.feature_dropout)
+        x = x.reshape(n, c.flat_size) @ params["fc_W"] + params["fc_b"]
+        if keep_masks is not None:
+            x = dropped(x, keep_masks[1], c.decoder_dropout)
+        return torch.relu(batch_norm(x, params["bn2_weight"],
+                                     params["bn2_bias"], stats["bn2"],
+                                     training))
+
+    def all_object_energies(self, params, all_codes: torch.Tensor,
+                            hidden: torch.Tensor) -> torch.Tensor:
+        """[n, V] energies of every entity as the object."""
+        exact_float32()
+        return hidden @ all_codes.T + params["entity_bias"]
 
 
 def build_decoder(name: str, code_dimension: int,

@@ -5,7 +5,8 @@ the affine stages (input, output, variational projections), the relation
 embedding, the random vertex embedding, every R-GCN layer variant (block,
 basis, diag, basis_plus_diag, basis_times_diag, only_bias, basis_stored
 with its stored-message state), and the highway, residual, dropover and
-variational wrappers. A layer takes one of two routes: the fused one
+variational wrappers; and the port's own CompGCN layer (``ccorr``,
+``apply_compgcn_layer``). An R-GCN layer takes one of two routes: the fused one
 (``staircase2.block_direction`` / ``basis_direction``, TPU kernels 1-2)
 for block and basis layers on dense input where the model asks for it,
 else per-edge messages aggregated by ``staircase.staircase_aggregate``
@@ -15,13 +16,16 @@ from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..device import exact_float32
-from ..graph import GraphBatch
+from ..graph import CompGCNGraph, GraphBatch
+from ..observability import span
 from ..ops import relblock, staircase, staircase2
+from ..ops.gather import take_rows
 from ..parallel.collectives import all_reduce_sum, graph_shard_matches
 from . import initializers as init
 
@@ -428,3 +432,101 @@ def variational_kl_penalty(mu: torch.Tensor,
     (``variational_encoding.py:27-31``)."""
     return -0.0005 * torch.sum(1.0 + 2.0 * log_sigma - mu ** 2
                                - torch.exp(2.0 * log_sigma))
+
+
+# ---------------------------------------------------------------------------
+# CompGCN (Vashishth et al., arXiv:1911.03082): the composition layer
+# ---------------------------------------------------------------------------
+
+def xavier_std(fan_in: int, fan_out: int) -> float:
+    """``torch.nn.init.xavier_normal_``'s standard deviation, the official
+    CompGCN code's ``get_param``."""
+    return (2.0 / (fan_in + fan_out)) ** 0.5
+
+
+def ccorr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Circular correlation over the last axis, out[..., k] = sum over i of
+    a[..., i] b[..., (i + k) mod d], taken as the official code takes it:
+    irfft(conj(rfft(a)) rfft(b)). Broadcasts the leading axes."""
+    d = a.shape[-1]
+    return torch.fft.irfft(torch.conj(torch.fft.rfft(a))
+                           * torch.fft.rfft(b), n=d)
+
+
+def dropped(x: torch.Tensor, keep_mask: torch.Tensor,
+            drop: float) -> torch.Tensor:
+    """Inverted dropout with an explicit keep-mask: x / (1 - drop) where
+    kept, else 0."""
+    return torch.where(keep_mask, x * (1.0 / (1.0 - drop)),
+                       torch.zeros_like(x))
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               stats: Dict[str, torch.Tensor],
+               training: bool) -> torch.Tensor:
+    """``torch.nn.BatchNorm1d`` / ``2d`` at their defaults (momentum 0.1, eps
+    1e-5) over the channels of axis 1: in training the batch's statistics,
+    with ``stats``' running mean and variance updated in place; else the
+    running ones."""
+    return F.batch_norm(x, stats["mean"], stats["var"], weight, bias,
+                        training=training, momentum=0.1, eps=1e-5)
+
+
+def init_batch_stats(n: int, device) -> Dict[str, torch.Tensor]:
+    return {"mean": torch.zeros(n, device=device),
+            "var": torch.ones(n, device=device)}
+
+
+def init_compgcn_layer(generator: torch.Generator, d_in: int,
+                       d_out: int) -> Dict[str, torch.Tensor]:
+    """``CompGCNConv``'s parameters: the in, out, self-loop and relation
+    weights [d_in, d_out], the self-loop's relation [1, d_in] (xavier
+    normal), BatchNorm's scale and shift."""
+    dev = generator.device
+    g = xavier_std(d_in, d_out)
+    params = {f"W_{k}": init.normal(generator, (d_in, d_out), g)
+              for k in ("in", "out", "loop", "rel")}
+    params["loop_rel"] = init.normal(generator, (1, d_in),
+                                     xavier_std(d_in, 1))
+    params["bn_weight"] = torch.ones(d_out, device=dev)
+    params["bn_bias"] = init.zeros((d_out,), dev)
+    return params
+
+
+def apply_compgcn_layer(params: Dict[str, torch.Tensor],
+                        graph: CompGCNGraph, x: torch.Tensor,
+                        z: torch.Tensor, stats: Dict[str, torch.Tensor], *,
+                        layer_dropout: float, training: bool,
+                        keep_masks: Optional[Sequence[torch.Tensor]] = None
+                        ) -> tuple:
+    """One ``CompGCNConv`` layer (corr): (entity codes [V, d_out], relation
+    codes [2R, d_out]).
+
+    Every message edge's W_half . ccorr(x_src, z_rel), the inward half's
+    weights W_in and the outward's W_out, summed into its target weighted
+    by the half's norm (``staircase.staircase_aggregate``); the self-loop
+    W_loop . ccorr(x_v, loop_rel); out = (drop(in) + drop(out) + loop) / 3,
+    BatchNorm over the entities, tanh. The
+    relations become z W_rel. In training ``keep_masks`` holds the keep-
+    masks [V, d_out] of the inward and outward sums; ``stats`` is the
+    BatchNorm's running statistics. The gathers' gradients are summed by
+    id over the graph's CSRs by source and by relation."""
+    with span("encode.compose"):
+        composed = ccorr(take_rows(x, graph.src_ids, graph.by_source),
+                         take_rows(z, graph.rel_ids, graph.by_relation))
+        e_in = graph.inward.n_edges
+        exact_float32()
+        msg_in = composed[:e_in] @ params["W_in"]
+        msg_out = composed[e_in:] @ params["W_out"]
+        loop = ccorr(x, params["loop_rel"]) @ params["W_loop"]
+    with span("encode.aggregate"):
+        n = x.shape[0]
+        in_res = staircase.staircase_aggregate(msg_in, graph.inward, n)
+        out_res = staircase.staircase_aggregate(msg_out, graph.outward, n)
+    if keep_masks is not None:
+        in_res = dropped(in_res, keep_masks[0], layer_dropout)
+        out_res = dropped(out_res, keep_masks[1], layer_dropout)
+    out = in_res * (1 / 3) + out_res * (1 / 3) + loop * (1 / 3)
+    out = batch_norm(out, params["bn_weight"], params["bn_bias"], stats,
+                     training)
+    return torch.tanh(out), z @ params["W_rel"]

@@ -40,11 +40,17 @@ from ..graph import CsrLayout
 from . import staircase
 
 
-def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def take_rows(table: torch.Tensor, ids: torch.Tensor,
+              csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
     """``table[ids]``: [*ids.shape, *table.shape[1:]], differentiable in
     ``table`` with a gradient summed by id in a fixed order (module
-    docstring). ``ids`` is any integer tensor on the table's device."""
-    return _TakeRows.apply(table, ids)
+    docstring). ``ids`` is any integer tensor on the table's device.
+    ``csr``: the CSR by id of a 1-d ``ids`` (``id_csr``'s output, made
+    once for ids that do not change): a float32 gradient is then summed by
+    ``add_by_id`` over it, for ids whose rows repeat many times (a long
+    run of one id is a serial loop in ``index_put_``'s CUDA kernel)."""
+    return _TakeRows.apply(table, ids, csr)
 
 
 # The dtypes whose CPU index_put_(accumulate=True) adds with atomics in
@@ -55,25 +61,28 @@ _PARALLEL_INDEX_PUT = (torch.float32, torch.float64)
 class _TakeRows(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, csr=None):
         ids = ids.long()
         ctx.save_for_backward(ids)
         ctx.table_shape = table.shape
+        ctx.csr = csr
         return table[ids]
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         ids, = ctx.saved_tensors
         flat_ids = ids.reshape(-1)
         rows = g.reshape(flat_ids.shape[0], *ctx.table_shape[1:])
         d_table = g.new_zeros(ctx.table_shape)
-        if g.device.type == "cpu" and g.dtype in _PARALLEL_INDEX_PUT:
+        if ctx.csr is not None and g.dtype == torch.float32:
+            add_by_id(d_table, flat_ids, rows, ctx.csr)
+        elif g.device.type == "cpu" and g.dtype in _PARALLEL_INDEX_PUT:
             d_table.index_add_(0, flat_ids, rows)
         else:
             d_table.index_put_((flat_ids,), rows, accumulate=True)
-        return d_table, None
+        return d_table, None, None
 
 
 def id_csr(ids: torch.Tensor, n_ids: int) -> Tuple[torch.Tensor,

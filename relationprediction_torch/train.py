@@ -248,6 +248,7 @@ def run(args, device, mesh=None) -> None:
           f"{time.time() - t0:.1f}s (early stop: {result.stopped_early}), "
           f"last loss {result.last_loss} ({s['steps_per_sec']} steps/s, "
           f"{s['edges_per_sec']} edges/s)")
+    print(f"Step graphs: {loop.graph_counts}")
 
     scorer.set_params(result.params)
     print("Final test metrics:")

@@ -29,6 +29,12 @@ tiled on the host. Each step
      one CUDA graph from a signature's third step on (``StepGraphs``); no
      operation of the step reads a device value on the host.
 
+A model trained against every entity at once (``CompGCNModel``, the
+port's own) takes the 'kvsall' objective: one producer's
+``QueryPipeline`` makes its 1-N batches (queries and label rows), and the
+loop's whole train graph, built once on the device, is every step's
+message graph; the step replays as one CUDA graph like the others.
+
 The stored-message variant (``RGCNModel.has_state``) trains, as in the
 JAX package (``engine.py:91``, ``:520-535``), on host-tiled batches with
 the tiled loss (``loss_stateful``); its batches carry the message graph's
@@ -85,7 +91,7 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import RunConfig
+from ..config import RunConfig, require_single_card
 from ..data.dataset import KGDataset
 from ..graph import GraphBatch
 from ..models.build import EncoderNoise, RGCNModel
@@ -122,6 +128,9 @@ class TrainBatch(NamedTuple):
     # The same ids as an int64 [E] tensor that moves with the batch, for a
     # model with stored-message state (its caches' rows); else None
     message_edge_ids: Optional[torch.Tensor] = None
+    # Host counts of the batch's work, where its producer keeps them (a
+    # 1-N batch: its queries and the positives of its label rows)
+    counts: Optional[dict] = None
 
     def to(self, device, non_blocking: bool = False) -> "TrainBatch":
         def move(t):
@@ -131,7 +140,7 @@ class TrainBatch(NamedTuple):
             else self.graph.to(device, non_blocking)
         return TrainBatch(graph, move(self.triples), move(self.mask),
                           self.edge_ids, move(self.labels),
-                          move(self.message_edge_ids))
+                          move(self.message_edge_ids), self.counts)
 
     def pin_memory(self) -> "TrainBatch":
         def pin(t):
@@ -139,7 +148,8 @@ class TrainBatch(NamedTuple):
         return TrainBatch(
             None if self.graph is None else self.graph.pin_memory(),
             self.triples.pin_memory(), self.mask.pin_memory(),
-            self.edge_ids, pin(self.labels), pin(self.message_edge_ids))
+            self.edge_ids, pin(self.labels), pin(self.message_edge_ids),
+            self.counts)
 
     def tensors(self) -> list:
         graph = [] if self.graph is None else self.graph.tensors()
@@ -287,6 +297,87 @@ class BatchPipeline:
         self._cursor = st["cursor"]
 
 
+class QueryPipeline:
+    """The 1-N batches of a model trained against every entity at once
+    (``CompGCNModel.loss_kvsall``; the official CompGCN loader's
+    ``TrainDataset``): every key (s, r) of the train graph and (o, r + R)
+    of its inverse, with its label row, the entities that complete it
+    there. A batch takes ``batch_size`` keys from a permutation of all of
+    them, which is drawn anew from ``rng`` when it runs out; a batch that
+    crosses its end takes the rest from the next one, so every batch is
+    full and every step keeps one shape. The batch has no graph (the
+    loop's whole train graph is the message graph of every step):
+    ``triples`` [n, 3] int32 (s, r, 0), ``mask`` ones [n], ``labels``
+    [n, V] bool and ``counts`` (``queries``, ``label_entries``)."""
+
+    def __init__(self, model, config: RunConfig, dataset: KGDataset,
+                 rng: np.random.Generator):
+        train = np.asarray(dataset.train, dtype=np.int64).reshape(-1, 3)
+        n_rel = config.relation_count
+        s, r, o = train.T
+        keys = np.concatenate([s * 2 * n_rel + r, o * 2 * n_rel + r + n_rel])
+        tails = np.concatenate([o, s])
+        order = np.lexsort((tails, keys))
+        self.keys, starts = np.unique(keys[order], return_index=True)
+        self.label_ptr = np.append(starts, len(order))
+        self.label_ids = tails[order]
+        self.n_entities = config.entity_count
+        self.n_relations = n_rel
+        self.n_positives = config.compgcn.batch_size
+        self.split_size = len(train)
+        self.rng = rng
+        self.pin = model.device.type == "cuda"
+        self._draw()
+
+    def _draw(self) -> None:
+        """A new permutation of the keys; the rng's state before it is
+        what ``state`` restores."""
+        self._perm_rng = self.rng.bit_generator.state
+        self._perm = self.rng.permutation(len(self.keys))
+        self._cursor = 0
+
+    def next(self) -> TrainBatch:
+        n = self.n_positives
+        with span("batch.queries"):
+            parts, need = [], n
+            while need:
+                take = self._perm[self._cursor:self._cursor + need]
+                parts.append(take)
+                need -= len(take)
+                self._cursor += len(take)
+                if self._cursor == len(self._perm):
+                    self._draw()
+            k = np.concatenate(parts)
+            key = self.keys[k]
+            triples = np.zeros((n, 3), dtype=np.int32)
+            triples[:, 0] = key // (2 * self.n_relations)
+            triples[:, 1] = key % (2 * self.n_relations)
+            starts, sizes = self.label_ptr[k], np.diff(self.label_ptr)[k]
+            total = int(sizes.sum())
+            at = np.arange(total) + np.repeat(starts - (np.cumsum(sizes)
+                                                        - sizes), sizes)
+            labels = np.zeros((n, self.n_entities), dtype=np.bool_)
+            labels[np.repeat(np.arange(n), sizes), self.label_ids[at]] = True
+            batch = TrainBatch(None, torch.from_numpy(triples),
+                               torch.ones(n), labels=torch.from_numpy(labels),
+                               counts={"queries": n, "label_entries": total})
+        if not self.pin:
+            return batch
+        with span("batch.pin"):
+            return batch.pin_memory()
+
+    def state(self) -> dict:
+        """The rng's state before the current permutation and the place in
+        it: restoring them draws the same permutation again and continues
+        the batch stream exactly."""
+        return {"rng": self._perm_rng, "cursor": self._cursor}
+
+    def set_state(self, st: dict) -> None:
+        self.rng.bit_generator.state = st["rng"]
+        self._draw()
+        self._cursor = st["cursor"]
+
+
 class _SerialSource:
     """``prefetch=False``: each batch built on the consumer's thread after
     the card has finished the queued step, and copied before the step."""
@@ -430,9 +521,13 @@ def loss_kind(model: RGCNModel, negative_mode: str,
     (``engine.py:391-410``): with device negatives and a factorizable
     decoder, 'factored' (binomial), 'split' or 'shared' as
     ``negative_mode`` says; anything else (the MLP decoder, or a host-tiled
-    batch) 'tiled', the binomial protocol's tiled loss."""
+    batch) 'tiled', the binomial protocol's tiled loss. A model trained
+    against every entity (``CompGCNModel``) takes 'kvsall', its 1-N
+    objective, whatever the mode."""
     if negative_mode not in ("binomial", "split", "shared"):
         raise ValueError(f"unknown negative mode {negative_mode!r}")
+    if getattr(model, "objective", None) == "kvsall":
+        return "kvsall"
     if device_negatives and getattr(model.decoder, "factorizable", False):
         return {"binomial": "factored", "split": "split",
                 "shared": "shared"}[negative_mode]
@@ -473,6 +568,9 @@ def step_loss_and_grads(model: RGCNModel, kind: str, params,
         args = (params, batch.graph) + (
             neg or (batch.triples, batch.labels, batch.mask))
         loss_fn = model.loss
+    elif kind == "kvsall":
+        args = (params, batch.graph, batch.triples, batch.labels, batch.mask)
+        loss_fn = model.loss_kvsall
     else:
         args = (params, batch.graph, batch.triples, batch.mask) + neg
         loss_fn = {"factored": model.loss_binomial_factored,
@@ -605,11 +703,7 @@ def step_signature(kind: str, params, batch: TrainBatch,
     absent), with the sizes of the message graph that are no tensor's
     shape; and the storage of the params' leaves, which the graph updates
     in place."""
-    graph = batch.graph
-    sizes = None if graph is None else (
-        graph.n_vertices, graph.n_relations, graph.normalization,
-        graph.shard, tuple(lay.n_sources for lay in (
-            graph.fwd, graph.bwd, graph.fwd_twin, graph.bwd_twin)))
+    sizes = None if batch.graph is None else batch.graph.signature()
     described = tuple(None if t is None else (tuple(t.shape), t.dtype)
                       for t in _step_inputs(batch, draws))
     return (kind, sizes, len(draws.negatives), len(draws.keep_masks),
@@ -797,6 +891,24 @@ class StepGraphs:
         return out.clone()
 
 
+def model_state(model) -> dict:
+    """A checkpoint's ``extra`` entries of a model's running statistics
+    (``CompGCNModel.batch_stats``, as numpy), or none."""
+    stats = getattr(model, "batch_stats", None)
+    return {} if stats is None else {"batch_stats": params_to_numpy(stats)}
+
+
+def restore_model_state(model, extra: dict) -> None:
+    """Copy a checkpoint's running statistics into the model's tensors, in
+    place: a captured step keeps their addresses."""
+    saved = extra.get("batch_stats")
+    if saved is None or getattr(model, "batch_stats", None) is None:
+        return
+    for mine, value in zip(tree_leaves(model.batch_stats),
+                           tree_leaves(saved)):
+        mine.copy_(torch.from_numpy(np.array(value)))
+
+
 @dataclass
 class FitResult:
     params: dict
@@ -815,6 +927,10 @@ class FitResult:
     # (staircase2.launch_counts; a validation encode counts in none; on a
     # replayed step the counts its graph's capture recorded, since no
     # wrapper runs in a replay),
+    # a 1-N step's counts (queries, label_entries: the positives of its
+    # label rows; composed_edges: the message edges and self-loops its
+    # encode composes), counted on the host from the batch and the graph,
+    # so a replayed step counts what an eager one does,
     # graph (how the step ran: "eager", "capture" or "replay";
     # StepGraphs), spans (the fit loop's sink for the step: fit.*,
     # step.* and model.encode; a replayed step's step.replay in place of
@@ -857,6 +973,7 @@ class TrainLoop:
         if vertex_sharded and negative_mode != "binomial":
             raise ValueError("vertex_sharded training uses the "
                              "host-sampled binomial protocol")
+        require_single_card(config, mesh is not None, vertex_sharded)
         self.model = model
         self.config = config
         self.scoring_function = scoring_function
@@ -879,7 +996,16 @@ class TrainLoop:
                        for w in range(max(0, prefetch_threads - 1))] \
             if prefetch else []
         self.vse = None
-        if vertex_sharded:
+        # The 1-N objective's message graph: the whole train graph, on the
+        # device, the same for every step (``QueryPipeline``).
+        self.train_graph = None
+        if self.loss_kind == "kvsall":
+            # One producer: the batches follow one permutation stream.
+            self.pipeline = QueryPipeline(model, config, dataset,
+                                          self.host_rng)
+            self._extra_pipelines = []
+            self.train_graph = model.make_graph(dataset.train)
+        elif vertex_sharded:
             from ..parallel.vertex_sharded import (VertexShardedBatchPipeline,
                                                    VertexShardedEncoder)
             self.vse = VertexShardedEncoder(model, mesh, overlap=vs_overlap)
@@ -967,6 +1093,8 @@ class TrainLoop:
             elif kind == "shared":
                 neg = (device_negative_pool(self.negative_pool_size,
                                             n_entities, gen),)
+            elif kind == "kvsall":
+                neg = ()
             elif batch.labels is None:
                 neg = device_negative_sample(batch.triples, batch.mask, rate,
                                              n_entities, rows_gen)
@@ -993,6 +1121,8 @@ class TrainLoop:
             self.last_step = "eager"
             self.graph_counts["eager"] += 1
             return self.vs_step(params, opt_state, batch, keep_masks)
+        if self.train_graph is not None:
+            batch = batch._replace(graph=self.train_graph)
         draws = self.draw(batch)
         if self.mesh is None and not self.model.has_state:
             self.last_step, opt_state, loss = self.graphs.step(
@@ -1136,7 +1266,11 @@ class TrainLoop:
                     rec = {"iteration": i, "step_ms": None,
                            "launches": fwd1 - fwd0,
                            "twin_launches": twin1 - twin0,
-                           "graph": self.last_step}
+                           "graph": self.last_step,
+                           **(getattr(batch, "counts", None) or {})}
+                    if self.train_graph is not None:
+                        rec["composed_edges"] = self.train_graph.n_edges \
+                            + self.config.entity_count
                     records.append(rec)
                     pending.append((rec, loss_dev, events))
                     del batch
@@ -1232,7 +1366,8 @@ class TrainLoop:
             host_rng_state=self.host_rng.bit_generator.state,
             extra={"pipeline_states": pipeline_states, "rr": rr,
                    "torch_generator":
-                       self.generator.get_state().numpy().copy()})
+                       self.generator.get_state().numpy().copy(),
+                   **model_state(self.model)})
 
     def restore(self, checkpoint_path: str) -> tuple:
         """(params, opt_state, step) of the newest checkpoint under
@@ -1263,6 +1398,7 @@ class TrainLoop:
             opt_state = map_tree(
                 lambda a: torch.from_numpy(np.array(a)).to(device), opt_state)
         extra = state.get("extra") or {}
+        restore_model_state(self.model, extra)
         if self.model.has_state:
             self.cache_state = self.model.init_cache_state()
         if extra.get("torch_generator") is not None:
