@@ -82,7 +82,9 @@ basis_combine forward and twin, staircase_aggregate) is followed by one
 launch of its carry fix-up, counted apart and checked on every path; so is
 every kernel 3 launch of ops/gather.sum_by_csr (d blocks and d C summed by
 relation, once a direction and layer a step; the fused energies' per-id
-scalars), whose count each train phase checks. Every bf16 block_direction
+scalars; the float32 gather-dot route's d codes and per-id scalars, with
+its two kernels counted on the energies ops), whose count each train phase
+checks. Every bf16 block_direction
 and basis_combine launch of a main path is counted by its route too, and
 must be the slice route and the chunk route (check_routes). No wrapper
 runs in a replay of the step's CUDA graph: a replayed step adds the counts
@@ -111,6 +113,14 @@ runs on the same kernel):
           gathers' gradients summed by id into the relation and entity
           rows at d = 100) against a float64 sum, index_add_ beside it,
           one launch and fix-up a call;
+  kernel_energies  the factored energies' float32 gather-dot route
+          (csrc/neg_energy.cu: gather_dot_kernel, gather_dot_grad_kernel;
+          d codes by kernel 3) at the R-GCN cells' shapes (30,000 x 10
+          corruptions at d = 500 over V = 14,541 and 40,943) against the
+          float64 direct form within the rounding its terms allow, two
+          calls bit for bit, its launches and device memory; times of the
+          route, its kernels, d q by kernel 3 instead and d codes beside
+          the direct form and index_put_, and the bounds;
   serve_onehot, train_onehot, serve_diag, train_diag  as serve and train,
           through staircase.staircase_aggregate: 4 launches an encode and a
           step, each with its carry fix-up, no twin pass, none of the fused
@@ -361,6 +371,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -402,6 +413,11 @@ STAIRCASE_SOURCE = "relationprediction_torch/ops/csrc/staircase.cu"
 # TPU kernel 3 (_staircase_kernel) and kernel 4 (_scatter_kernel).
 REPLACES_STAIRCASE = "relationprediction_tpu/ops/staircase.py:191"
 REPLACES_SCATTER2 = "relationprediction_tpu/ops/staircase2.py:443"
+ENERGY_SOURCE = "relationprediction_torch/ops/csrc/neg_energy.cu"
+# The R-GCN cells' corruption energies, (n, k, d, V): n positives of k
+# corruptions at d = 500, over FB15k-237's and WN18's entity tables.
+ENERGY_SHAPES = {"fb15k237": (30000, 10, 500, 14541),
+                 "wn18": (30000, 10, 500, 40943)}
 SERVE_TRIPLES = 2000
 TRAIN_STEPS = 20
 HUB_ROW = 1024  # rows longer than this are timed apart
@@ -909,8 +925,11 @@ def phase_kernel(graphs, n_rel, n_blocks, dr, device):
 
 FIXUP_OPS = (staircase2.block_direction, staircase2.basis_direction,
              staircase.staircase_aggregate)
-# The bf16 factored energies' backwards, which launch kernel 3's bf16
-# entry point (its fix-ups count on staircase_aggregate).
+# The factored energies: their bf16 backwards launch kernel 3's bf16
+# entry point (its fix-ups count on staircase_aggregate); their float32
+# gather-dot route on the card launches gather_dot_kernel and
+# gather_dot_grad_kernel (csrc/neg_energy.cu) and kernel 3 twice by
+# sum_by_csr.
 ENERGY_OPS = (neg_energy.factored_negative_energies,
               neg_energy.single_factor_negative_energies)
 
@@ -942,7 +961,7 @@ def reset_launch_counts() -> None:
                staircase2.scatter2_slot_order, sum_by_csr_op()):
         op.launches = op.bf16_launches = 0
     for op in ENERGY_OPS:
-        op.bf16_launches = 0
+        op.bf16_launches = op.f32_launches = op.f32_grad_launches = 0
     for op in FIXUP_OPS:
         op.fixup_launches = 0
 
@@ -1008,6 +1027,40 @@ def fused_energy_launches(model, kind, rows, rate) -> int:
     ks = (rate,) if kind == "factored" else (rate // 2, rate - rate // 2)
     return sum(neg_energy.fused_backward_applies(codes, rows, k)
                for k in ks)
+
+
+def gather_dot_calls(model, kind, rows, rate) -> int:
+    """Calls a step of the energies' float32 gather-dot route
+    (neg_energy.energy_route) for a batch of ``rows`` positives: one for
+    the factored loss, one for each side of the split loss, where the
+    codes are float32 on the card; none for the tiled and shared losses,
+    a bf16 stream or the CPU. Each launches gather_dot_kernel and
+    gather_dot_grad_kernel once and kernel 3 twice by sum_by_csr (d codes'
+    weighted sum by id and its per-id scalars)."""
+    if kind not in ("factored", "split"):
+        return 0
+    codes = types.SimpleNamespace(
+        device=model.device, shape=(model.n_entities, 1),
+        dtype=model.stream_dtype or torch.float32)
+    ks = (rate,) if kind == "factored" else (rate // 2, rate - rate // 2)
+    return sum(neg_energy.energy_route(codes, rows, k) == "gather_dot"
+               for k in ks)
+
+
+def gather_dot_launches() -> tuple:
+    """(gather_dot_kernel, gather_dot_grad_kernel) launches since the
+    counts were set to 0."""
+    return (sum(op.f32_launches for op in ENERGY_OPS),
+            sum(op.f32_grad_launches for op in ENERGY_OPS))
+
+
+def check_gather_dot(dots: tuple, calls: int, where: str) -> None:
+    """Each of the gather-dot route's ``calls`` launched its forward and
+    its gradient kernel once."""
+    if dots != (calls, calls):
+        raise AssertionError(f"{where}: the gather-dot route launched its "
+                             f"kernels {dots} times, expected {calls} "
+                             f"calls")
 
 
 def fixup_counts() -> dict:
@@ -2039,6 +2092,222 @@ def combine_layouts(lib, graphs, n_rel, device) -> list:
     return rows
 
 
+def energies_exact(codes, q_subj, q_obj, ids, coin, d_e, d_s) -> dict:
+    """The direct form of the factored energies in float64 on the card
+    (the single-factor form where ``q_obj`` is None), with each result's
+    allowance: name -> (exact, allowance), the allowance gamma(m) *
+    sum |terms| for the m terms the element's f32 sum adds (d for an
+    energy or ev_sq, k for a factor's gradient, the id's entries and 2
+    more for d codes), gamma(m) = m u / (1 - m u): the bound on any f32
+    sum of m products in any order (Higham, 2002, eq. 3.5)."""
+    def gamma(m):
+        return m * F32_UNIT_ROUNDOFF / (1 - m * F32_UNIT_ROUNDOFF)
+    c, ids = codes.detach().double(), ids.long()
+    v, d = c.shape
+    n, k = ids.shape
+    ev = c[ids]
+    qs = q_subj.detach().double()[:, None]
+    q = qs.expand(n, k, d) if q_obj is None else torch.where(
+        coin[:, :, None], q_obj.detach().double()[:, None], qs)
+    prod = ev * q
+    out = {"energy": (prod.sum(-1), gamma(d) * prod.abs().sum(-1))}
+    del prod
+    sq = ev * ev
+    out["ev_sq"] = (sq.sum(-1), gamma(d) * sq.sum(-1))
+    del sq
+    flat = ids.reshape(-1)
+    terms = (d_e.double()[:, :, None] * q).reshape(-1, d)
+    del q
+    first = c.new_zeros(v, d).index_add_(0, flat, terms)
+    first_abs = c.new_zeros(v, d).index_add_(0, flat, terms.abs())
+    del terms
+    s2 = 2 * d_s.double().reshape(-1)
+    scale = c.new_zeros(v).index_add_(0, flat, s2)[:, None]
+    scale_abs = c.new_zeros(v).index_add_(0, flat, s2.abs())[:, None]
+    counts = torch.bincount(flat, minlength=v).double()[:, None]
+    out["d_codes"] = (first + c * scale, gamma(counts + 2)
+                      * (first_abs + c.abs() * scale_abs))
+    sides = ((("d_q_subj", torch.ones_like(ids, dtype=torch.bool)),)
+             if q_obj is None else (("d_q_subj", ~coin), ("d_q_obj", coin)))
+    for name, side in sides:
+        t = (d_e.double() * side)[:, :, None] * ev
+        out[name] = (t.sum(1), gamma(k) * t.abs().sum(1))
+    return out
+
+
+def kernel3_dq(codes, ids, coin, d_e) -> list:
+    """d q_subj and d q_obj by kernel 3 instead of gather_dot_grad: two
+    launches over a CSR of k entries a positive, perm the ids, weights the
+    cotangents masked by the coins."""
+    n, k = ids.shape
+    row_ptr = torch.arange(0, n * k + 1, k, dtype=torch.int32,
+                           device=codes.device)
+    perm = ids.reshape(-1).to(torch.int32)
+    obj = coin.reshape(-1).float()
+    g = d_e.reshape(-1)
+    return [staircase.aggregate(codes, CsrLayout(row_ptr, perm, perm,
+                                                 w.contiguous()), n, perm)
+            for w in (g * (1 - obj), g * obj)]
+
+
+def phase_kernel_energies(device) -> list:
+    """The factored energies' float32 gather-dot route (ops/neg_energy.py,
+    csrc/neg_energy.cu) at the R-GCN cells' shapes (ENERGY_SHAPES), on
+    random codes, factors, ids, coins and cotangents: the energies, ev_sq
+    and the gradients of the codes and both factors within the f32
+    rounding allowance of the float64 direct form (energies_exact); one
+    launch of each gather-dot kernel and two of kernel 3 by sum_by_csr a
+    forward and backward, none of the bf16 backward's; two calls bit for
+    bit; the device memory the route and the direct form take beyond
+    their inputs. Times: the route's forward and backward, the forward
+    kernel and the gradient kernel (CUDA events; device times from
+    torch.profiler), d q by kernel 3 instead (two launches, bits against
+    the gradient kernel), d codes (_code_grads), and as the yardstick the
+    direct form's forward and backward (direct_energies) and autograd's
+    index_put_ of the [n * k, d] rows into the table. Bounds: each
+    kernel's gathered bytes (every gathered row read, the factors, ids,
+    coins and outputs once) and its compulsory bytes (the code table read
+    once in place of the gathered rows) at HBM_BYTES_PER_S."""
+    t_phase = time.perf_counter()
+    op = neg_energy.factored_negative_energies
+    rows = []
+    for cell, (n, k, d, v) in ENERGY_SHAPES.items():
+        gen = torch.Generator(device=device).manual_seed(21)
+
+        def normal(*shape):
+            return torch.randn(*shape, generator=gen, device=device)
+        codes, q_subj, q_obj = (normal(*shape).requires_grad_(True)
+                                for shape in ((v, d), (n, d), (n, d)))
+        ids = torch.randint(0, v, (n, k), generator=gen, device=device)
+        coin = torch.rand(n, k, generator=gen, device=device) < 0.5
+        d_e, d_s = normal(n, k), normal(n, k)
+        leaves = (codes, q_subj, q_obj)
+
+        def grads(energy, ev_sq):
+            return (energy, ev_sq) + torch.autograd.grad(
+                (energy * d_e).sum() + (ev_sq * d_s).sum(), leaves)
+
+        def route():
+            return grads(*op(codes, q_subj, q_obj, ids, coin))
+
+        def direct():
+            return grads(*neg_energy.direct_energies(codes, ids, q_subj,
+                                                     q_obj, coin))
+
+        def peak_bytes(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, torch.cuda.max_memory_allocated() - base
+
+        reset_launch_counts()
+        got, route_peak = peak_bytes(route)
+        counts = {"f32_launches": op.f32_launches,
+                  "f32_grad_launches": op.f32_grad_launches,
+                  "sum_by_csr": sum_by_csr_op().launches,
+                  "bf16_launches": op.bf16_launches}
+        if counts != {"f32_launches": 1, "f32_grad_launches": 1,
+                      "sum_by_csr": 2, "bf16_launches": 0}:
+            raise AssertionError(f"gather_dot {cell}: launches {counts}")
+        again = route()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"gather_dot {cell}: two calls differ")
+        del again
+        names = ("energy", "ev_sq", "d_codes", "d_q_subj", "d_q_obj")
+        want = energies_exact(codes, q_subj, q_obj, ids, coin, d_e, d_s)
+        over = {name: over_allowance(g, want[name][0],
+                                     want[name][1] + 1e-30)
+                for name, g in zip(names, got)}
+        max_err = {name: (g.double() - want[name][0]).abs().max().item()
+                   for name, g in zip(names, got)}
+        del want
+        if not all(o <= 1 for o in over.values()):
+            raise AssertionError(f"gather_dot {cell}: {over} of the f32 "
+                                 f"rounding allowance")
+        plain, direct_peak = peak_bytes(direct)
+        vs_direct = {name: (a - b).abs().max().item()
+                     for name, a, b in zip(names, got, plain)}
+        del plain
+        c, qs, qo = (t.detach() for t in leaves)
+        dq3 = kernel3_dq(c, ids, coin, d_e)
+        dq = neg_energy.gather_dot_grad(c, ids, coin, d_e)
+        dq3_same = all(torch.equal(a, b) for a, b in zip(dq3, dq))
+        del dq3, dq, got
+        flat = ids.reshape(-1)
+        fsel = neg_energy._factor_rows(n, k, coin, device)
+        qcat = torch.cat([qs, qo])
+        rows_nkd = normal(n * k, d)
+        times = {
+            "route_ms": cuda_ms(route, 10),
+            "forward_ms": cuda_ms(lambda: neg_energy.gather_dot(
+                c, qs, qo, ids, coin), 20),
+            "grad_ms": cuda_ms(lambda: neg_energy.gather_dot_grad(
+                c, ids, coin, d_e), 20),
+            "dq_kernel3_ms": cuda_ms(lambda: kernel3_dq(c, ids, coin, d_e),
+                                     20),
+            "code_grads_ms": cuda_ms(lambda: neg_energy._code_grads(
+                c, qcat, flat, d_e.reshape(-1), 2.0 * d_s.reshape(-1), fsel,
+                None), 20),
+            "direct_ms": cuda_ms(direct, 5),
+            "index_put_ms": cuda_ms(lambda: torch.zeros(
+                v, d, device=device).index_put_((flat,), rows_nkd,
+                                                accumulate=True), 5)}
+        del rows_nkd
+        dev = retried_device_ms(route, ("gather_dot_kernel",
+                                        "gather_dot_grad_kernel"),
+                                "route_device_ms", iters=10)
+        meta = n * k * (8 + 1)                      # ids, coins
+        factors = 2 * n * d * 4
+        gathered = n * k * d * 4
+        table = v * d * 4
+        fwd = {"gathered": gathered + factors + meta + 2 * n * k * 4,
+               "compulsory": table + factors + meta + 2 * n * k * 4}
+        grad = {"gathered": gathered + meta + n * k * 4 + factors,
+                "compulsory": table + meta + n * k * 4 + factors}
+        bounds = {f"{kernel}_{kind}_bound_ms": 1e3 * b / HBM_BYTES_PER_S
+                  for kernel, by in (("forward", fwd), ("grad", grad))
+                  for kind, b in by.items()}
+        # The roofline is the compulsory bytes': the gathered rows come
+        # from L2 where the table fits there (FB15k-237's 29 MB).
+        kernel_ms = dev["route_device_ms"]
+        shares = {}
+        for kernel, name in (("forward", "gather_dot_kernel"),
+                             ("grad", "gather_dot_grad_kernel")):
+            if kernel_ms.get(name):
+                shares[f"{kernel}_roofline"] = 100 * bounds[
+                    f"{kernel}_compulsory_bound_ms"] / kernel_ms[name]
+        row = {"kernel": "gather_dot", "cell": cell, "n": n, "k": k, "d": d,
+               "V": v, "over_allowance": over, "max_abs_err": max_err,
+               "max_abs_diff_vs_direct": vs_direct,
+               "same_bits_twice": True, "dq_kernel3_same_bits": dq3_same,
+               "launches": counts, "route_peak_bytes": route_peak,
+               "direct_peak_bytes": direct_peak,
+               "nkd_tensor_bytes": gathered, **times, **dev, **bounds,
+               **shares}
+        emit("kernel_energies", phase_s=time.perf_counter() - t_phase,
+             **row)
+        rows.append(row)
+        del codes, q_subj, q_obj, c, qs, qo, qcat
+        torch.cuda.empty_cache()
+    return rows
+
+
+def energies_kernels_line(rows, runs) -> list:
+    """The gather-dot kernels (csrc/neg_energy.cu), which replace no TPU
+    kernel: each cell shape's row of phase_kernel_energies, and the
+    gather-dot launches of every training path (``runs``: phase ->
+    row)."""
+    return [{"name": "gather_dot", "route": "cuda", "source": ENERGY_SOURCE,
+             "replaces": "none (the JAX package's f32 _direct, left to XLA)",
+             "launches": sum(r.get("gather_dot_launches", 0)
+                             for r in runs.values()),
+             "launches_by_path": {k: r.get("gather_dot_launches", 0)
+                                  for k, r in runs.items()},
+             "cells": rows}]
+
+
 def phase_kernel_staircase(graphs, d, device):
     """staircase_aggregate_f32 (TPU kernels 3 and 4) against a float64 sum
     within the rounding its terms allow, in both directions of each graph:
@@ -2551,6 +2820,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     energies_per_step = fused_energy_launches(
         model, kind, batch.triples.shape[0],
         cfg.training.negative_sample_rate)
+    dots_per_step = gather_dot_calls(model, kind, batch.triples.shape[0],
+                                     cfg.training.negative_sample_rate)
     if phase == "train_distmult_bf16":
         emit(f"{phase}_fused_backward", phase_s=time.perf_counter() - t_phase,
              **fused_vs_autograd(model, params, batch))
@@ -2631,6 +2902,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
     fixups = fixup_counts()
     fixup_launches = sum(fixups.values())
     energies = energy_launches()
+    dots = gather_dot_launches()
     id_sums = sum_by_csr_op().launches
     pads = staircase2.basis_direction.bf16_pad_launches
     route_counts = route_launches()
@@ -2663,14 +2935,17 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
                                  f"{twin_per_layer}")
     # d blocks (block_direction) and d C (basis_direction) sum by relation
     # once a direction and layer for each chunk of its edges; each fused
-    # energies' backward sums its per-id scalars once.
+    # energies' backward sums its per-id scalars once, each gather-dot
+    # backward d codes' weighted sum and its per-id scalars.
+    check_gather_dot(dots, steps * dots_per_step, phase)
     chunks = -(-loop.pipeline.split_size // staircase2._EDGE_CHUNK)
     by_relation = per_layer * chunks if op in (
         staircase2.block_direction, staircase2.basis_direction) else 0
-    if id_sums != steps * by_relation + energies:
+    want_sums = steps * by_relation + energies + 2 * dots[0]
+    if id_sums != want_sums:
         raise AssertionError(f"sum_by_csr launched kernel 3 {id_sums} "
                              f"times in {steps} steps, expected "
-                             f"{steps * by_relation + energies}")
+                             f"{want_sums}")
     if staircase2.launch_counts() != (launches, twin_launches) \
             or launches != per_layer * steps \
             or twin_launches != twin_per_layer * steps:
@@ -2721,6 +2996,7 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
            "dc_project_launches_per_step": dc_projects // steps,
            "fixup_launches_per_step": fixup_launches // steps,
            "energy_launches_per_step": energies // steps,
+           "gather_dot_launches_per_step": dots[0] // steps,
            "sum_by_csr_launches_per_step": id_sums // steps,
            "pad_launches_per_step": pads // steps,
            "precision": {"message": "bfloat16" if pre else "float32",
@@ -2748,7 +3024,8 @@ def phase_train(cfg, ds, device, op=staircase2.block_direction,
             "project_launches": products, "dc_project_launches": dc_projects,
             "split_launches": split_launches, "fixup_launches": fixup_launches,
             "energy_launches": energies, "sum_by_csr_launches": id_sums,
-            "pad_launches": pads, **route_counts}
+            "gather_dot_launches": dots[0], "pad_launches": pads,
+            **route_counts}
 
 
 def host_batch_breakdown(pipeline, device, reps: int = 5) -> dict:
@@ -3062,10 +3339,17 @@ def phase_fit(cfg, ds, device):
                              f"block_direction passes in {steps} steps and "
                              f"{len(checks)} checks; all ops "
                              f"{staircase2.launch_counts()}")
+    # d blocks' sums by relation, and the gather-dot route's two sums by id
+    # a step (none on the CPU).
+    dots = gather_dot_launches()
+    check_gather_dot(dots, steps * gather_dot_calls(
+        model, loop.loss_kind, loop.pipeline.positives_pad,
+        cfg.training.negative_sample_rate), "fit")
     chunks = -(-loop.pipeline.split_size // staircase2._EDGE_CHUNK)
-    if id_sums != per_step * chunks * steps:
-        raise AssertionError(f"d blocks' sums by relation launched kernel 3 "
-                             f"{id_sums} times in {steps} steps")
+    if id_sums != per_step * chunks * steps + 2 * dots[0]:
+        raise AssertionError(f"d blocks' sums by relation and the "
+                             f"gather-dot route's sums by id launched "
+                             f"kernel 3 {id_sums} times in {steps} steps")
     row = {"steps": steps, "stopped_early": result.stopped_early,
            "best_score": result.best_score, "scores": scores,
            "checks": len(checks), "checkpoints": saved,
@@ -3078,7 +3362,7 @@ def phase_fit(cfg, ds, device):
            "wait_ms_median": statistics.median(s["wait_ms"]
                                                for s in result.steps),
            "launches": fwd, "twin_launches": twin,
-           "sum_by_csr_launches": id_sums,
+           "sum_by_csr_launches": id_sums, "gather_dot_launches": dots[0],
            "metric_records": len(records),
            "printed_tables": printed.getvalue().count("MRR"),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -3646,6 +3930,7 @@ def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
     twin = getattr(op, pre + "twin_launches") if op else 0
     routes = route_launches()
     energies = energy_launches()
+    dots = gather_dot_launches()
     id_sums = sum_by_csr_op().launches
     check_helper_launches(op, launches, twin,
                           staircase2.basis_direction.project_launches,
@@ -3658,10 +3943,13 @@ def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
     want_energies = n * fused_energy_launches(
         model, loop.loss_kind, loop.pipeline.positives_pad,
         cfg.training.negative_sample_rate)
+    check_gather_dot(dots, n * gather_dot_calls(
+        model, loop.loss_kind, loop.pipeline.positives_pad,
+        cfg.training.negative_sample_rate), label)
     if (launches, twin) != (per_layer * (n + len(curve)), per_layer * n) \
             or staircase2.launch_counts() != (launches, twin) \
             or energies != want_energies \
-            or id_sums != per_layer * chunks * n + energies:
+            or id_sums != per_layer * chunks * n + energies + 2 * dots[0]:
         raise AssertionError(
             f"{label}: {launches} forward, {twin} twin, {energies} energies' "
             f"and {id_sums} sum_by_csr launches in {n} steps and "
@@ -3704,7 +3992,8 @@ def quality_cell(label, cfg, ds, device, steps, ceiling, trace_dir=None):
            "batch_ms_median": statistics.median(s["batch_ms"]
                                                 for s in records),
            "launches": launches, "twin_launches": twin,
-           "energy_launches": energies, "sum_by_csr_launches": id_sums,
+           "energy_launches": energies, "gather_dot_launches": dots[0],
+           "sum_by_csr_launches": id_sums,
            "fixup_launches": sum(fixup_counts().values()),
            "graph_counts": checked_graph_counts(loop, label),
            **routes, "op": op.__name__ if op else None, **trace,
@@ -5200,7 +5489,8 @@ def mesh_launches(model, cfg, op, kind, steps, graph, rows) -> dict:
     and direction a step, in the model's precision only, with their
     split, pad and fix-up passes; d blocks' and d C's sums by relation
     once a layer and direction and chunk of the shard's edges; the bf16
-    energies' kernel 3 launches for ``rows`` positives."""
+    energies' kernel 3 launches for ``rows`` positives, or the float32
+    gather-dot route's two kernels and its two sums by id."""
     pre = "bf16_" if model.agg_dtype is not None else ""
     launches = getattr(op, pre + "launches")
     twin = getattr(op, pre + "twin_launches", 0)
@@ -5219,13 +5509,19 @@ def mesh_launches(model, cfg, op, kind, steps, graph, rows) -> dict:
         else per_layer * chunks
     want_energies = steps * fused_energy_launches(
         model, kind, rows, cfg.training.negative_sample_rate)
+    want_dots = steps * gather_dot_calls(
+        model, kind, rows, cfg.training.negative_sample_rate)
+    dots = gather_dot_launches()
+    check_gather_dot(dots, want_dots, "mesh rank")
     got = {"launches": launches, "twin_launches": twin,
            "sum_by_csr_launches": sum_by_csr_op().launches,
-           "energy_launches": energies}
+           "energy_launches": energies, "gather_dot_launches": dots[0]}
     want = {"launches": per_layer * steps,
             "twin_launches": twin_per_layer * steps,
-            "sum_by_csr_launches": steps * by_relation + want_energies,
-            "energy_launches": want_energies}
+            "sum_by_csr_launches": steps * by_relation + want_energies
+            + 2 * want_dots,
+            "energy_launches": want_energies,
+            "gather_dot_launches": want_dots}
     if got != want:
         raise AssertionError(f"rank's launches {got}, expected {want}")
     return {**got, "project_launches": getattr(
@@ -5764,7 +6060,8 @@ def vs_launches(enc, model, op, batch, steps=1) -> dict:
     pad and fix-up passes; the sums by id of kernel 3: d blocks' or d C's
     by relation (a layer, direction and chunk of the rank's edges) and
     each halo exchange's backward (2 a layer with the targeted halo, and
-    the decoder's); no energies' launch (f32 streams)."""
+    the decoder's); on a factored batch the gather-dot route's two kernels
+    and its two sums by id; no bf16 energies' launch (f32 streams)."""
     pre = "bf16_" if model.agg_dtype is not None and enc.fused else ""
     launches = getattr(op, pre + "launches")
     twin = getattr(op, pre + "twin_launches", 0)
@@ -5778,14 +6075,18 @@ def vs_launches(enc, model, op, batch, steps=1) -> dict:
     chunks = sum(-(-d.csr.n_edges // staircase2._EDGE_CHUNK)
                  for d in (batch.graph.fwd, batch.graph.bwd))
     exchanges = 2 * n_layers if enc.halo == "targeted" else 0
+    dots = steps * gather_dot_calls(
+        model, "factored" if batch.loss.factored else "tiled", 0, 1)
+    check_gather_dot(gather_dot_launches(), dots, "vertex-sharded rank")
     got = {"launches": launches, "twin_launches": twin,
            "sum_by_csr_launches": sum_by_csr_op().launches,
-           "energy_launches": energies}
+           "energy_launches": energies,
+           "gather_dot_launches": gather_dot_launches()[0]}
     want = {"launches": 2 * n_layers * steps,
             "twin_launches": 2 * n_layers * steps * enc.fused,
             "sum_by_csr_launches": steps * (
-                n_layers * chunks * enc.fused + exchanges + 1),
-            "energy_launches": 0}
+                n_layers * chunks * enc.fused + exchanges + 1) + 2 * dots,
+            "energy_launches": 0, "gather_dot_launches": dots}
     if got != want:
         raise AssertionError(f"rank's vertex-sharded launches {got}, "
                              f"expected {want}")
@@ -6262,12 +6563,13 @@ def phase_vs_fit() -> dict:
 def build_all() -> None:
     """Build every kernel source at once, one nvcc each."""
     t_phase = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futures = {source: pool.submit(fn) for source, fn in (
             (KERNEL_SOURCE, staircase2.kernel_library),
             (BASIS_SOURCE, staircase2.basis_kernel_library),
             (PROJECT_SOURCE, staircase2.project_kernel_library),
-            (STAIRCASE_SOURCE, staircase.kernel_library))}
+            (STAIRCASE_SOURCE, staircase.kernel_library),
+            (ENERGY_SOURCE, neg_energy.kernel_library))}
     for source, future in futures.items():
         _, info = future.result()
         emit("build", source=source, phase_s=time.perf_counter() - t_phase,
@@ -6322,6 +6624,7 @@ def main() -> int:
     # tests/test_model_variants.py derives them: every layer sums per-edge
     # messages with staircase_aggregate (TPU kernel 3).
     ks = phase_kernel_staircase(graphs, d, device) + compgcn_sums(ds, device)
+    ke = phase_kernel_energies(device)
     runs = {}
     for label, change in (("onehot", dict(use_input_transform=False)),
                           ("diag", dict(name="gcn_diag"))):
@@ -6453,6 +6756,7 @@ def main() -> int:
                                            basis_paths)
                       + staircase_kernels_line(ks, runs)
                       + sum_by_csr_line(grads, train_runs)
+                      + energies_kernels_line(ke, train_runs)
                       + bf16_kernels_line(kb16, bf16_runs),
                       # The hand kernels a replayed step launched, counted
                       # by name in a profile (replayed_launches): the
